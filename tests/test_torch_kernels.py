@@ -1,0 +1,196 @@
+"""K1 (CUDA GEMM) and K2/K3 (Triton nest kernel) of the port, held against
+the reference's Pallas kernels in interpret mode.
+
+On the CPU every wrapper takes its plain version; ``test_torch_card.py``
+runs the kernels themselves against those plain versions on a card.
+"""
+import ast
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Schedule as RSchedule
+from repro.core import ir as rir
+from repro.core import plan_nest_tiling as r_plan
+from repro.kernels import nest_kernel as r_nest
+from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro.kernels.gemm import gemm as r_gemm
+from repro_torch.core import Daisy, Schedule, compile_torch, execute_numpy
+from repro_torch.core import codegen
+from repro_torch.core import ir as pir
+from repro_torch.core import plan_nest_tiling as p_plan
+from repro_torch.core.scheduler import random_inputs
+from repro_torch.core.tiling import TilingError
+from repro_torch.kernels import gemm as p_gemm
+from repro_torch.kernels import nest_kernel as p_nest
+from repro_torch.kernels import ops as p_ops
+from test_torch_card import CASES, reduce_op, stencil, syrk1, triangle
+
+torch.set_num_threads(1)
+RNG = np.random.default_rng(42)
+MAX_REL = 2e-4  # fp32 kernels (tests/test_kernels.py)
+
+
+def max_rel(out, ref) -> float:
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(np.asarray(out, np.float64) - ref).max() / max(1e-30, np.abs(ref).max()))
+
+
+# ---------------------------------------------------------------------------
+# K1: GEMM and einsum2
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,n,k", [(16, 16, 16), (100, 52, 36), (128, 256, 64),
+                                   (33, 17, 9), (8, 8, 200)])
+def test_gemm_fp32_matches_reference(m, n, k):
+    x = RNG.normal(size=(m, k)).astype(np.float32)
+    y = RNG.normal(size=(k, n)).astype(np.float32)
+    want = np.asarray(r_gemm(x, y, block_m=32, block_n=32, block_k=32, interpret=True))
+    got = p_gemm.gemm(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert max_rel(got.numpy(), want) < MAX_REL
+    assert max_rel(got.numpy(), x.astype(np.float64) @ y) < MAX_REL
+
+
+def test_gemm_bf16_matches_reference():
+    x = RNG.normal(size=(64, 48)).astype(np.float32)
+    y = RNG.normal(size=(48, 32)).astype(np.float32)
+    xb, yb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16)
+    want = np.asarray(r_gemm(xb, yb, block_m=32, block_n=32, block_k=16, interpret=True),
+                      np.float32)
+    got = p_gemm.gemm(torch.from_numpy(x).bfloat16(), torch.from_numpy(y).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=5e-1)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(r_ref.matmul(xb, yb), np.float32),
+                               rtol=5e-2, atol=5e-1)
+
+
+def test_einsum2_contraction_patterns():
+    a = RNG.normal(size=(24, 12)).astype(np.float32)
+    b = RNG.normal(size=(12, 30)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for sa, sb, so, bb in [("ab", "bc", "ac", b), ("ab", "cb", "ca", b.T.copy())]:
+        want = np.asarray(r_ops.einsum2(sa, sb, so, jnp.asarray(a), jnp.asarray(bb),
+                                        tile=(16, 16, 16)))
+        got = p_ops.einsum2(sa, sb, so, ta, torch.from_numpy(bb))
+        assert max_rel(got.numpy(), want) < MAX_REL
+    with pytest.raises(ValueError):
+        r_ops.einsum2("ab", "bc", "abc", jnp.asarray(a), jnp.asarray(b))
+    with pytest.raises(ValueError):
+        p_ops.einsum2("ab", "bc", "abc", ta, tb)  # batch letter
+
+
+@pytest.mark.parametrize("subs,ok", [
+    (("ab", "bc", "ac"), True), (("abc", "cd", "abd"), True), (("ij", "j", "i"), True),
+    (("ab", "bc", "abc"), False), (("ab", "cd", "abcd"), False), (("abd", "bc", "ac"), False),
+    (("aa", "ab", "b"), False),
+])
+def test_einsum2_classifier(subs, ok):
+    assert (p_ops.einsum2_reject_reason(*subs) is None) == ok
+
+
+def test_einsum2_batched_contraction_is_routed_before_launch():
+    """A contraction the classifier rejects goes to torch.einsum, counted."""
+    i, j, k = "i", "j", "k"
+    mac = pir.Computation("m", pir.acc("C", i, j), (pir.acc("A", i, k), pir.acc("B", i, j, k)),
+                          pir.Read(0) * pir.Read(1), accumulate="+")
+    prog = pir.Program("batched", (pir.Array("A", (5, 6)), pir.Array("B", (5, 4, 6)),
+                                   pir.Array("C", (5, 4))),
+                       (pir.Loop(i, 5, body=(pir.Loop(j, 4, body=(pir.Loop(k, 6, body=(mac,)),)),)),))
+    inp = random_inputs(prog, seed=1, dtype=np.float64)
+    before_routed = sum(v for r, v in codegen.ROUTED.items() if r.startswith("einsum2"))
+    before_plain = p_gemm.PLAIN["gemm"]
+    out = compile_torch(prog, Schedule(pallas_gemm=True), device="cpu")(inp)
+    assert sum(v for r, v in codegen.ROUTED.items() if r.startswith("einsum2")) == before_routed + 1
+    assert p_gemm.PLAIN["gemm"] == before_plain
+    assert max_rel(out["C"].numpy(), execute_numpy(prog, inp)["C"]) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K2/K3: the nest kernel, on tests/test_tiling.py's edge cases (CASES)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("label,build,knobs", CASES, ids=[c[0] for c in CASES])
+def test_emit_nest_matches_reference(label, build, knobs):
+    rprog, pprog = build(rir), build(pir)
+    inp = random_inputs(pprog, seed=4, dtype=np.float64)
+    want = r_nest.emit_nest(rprog, rprog.body[0],
+                            {k: jnp.asarray(v, jnp.float32) for k, v in inp.items()},
+                            RSchedule(mode="canonical", use_idioms=False, **knobs))
+    env = {k: torch.tensor(v, dtype=torch.float32) for k, v in inp.items()}
+    before = dict(p_nest.PLAIN)
+    p_nest.emit_nest(pprog, pprog.body[0], env, Schedule(use_idioms=False, **knobs))
+    kind = "pallas_reduce" if knobs.get("pallas_reduce") else "pallas_nest"
+    assert p_nest.PLAIN[kind] == before[kind] + 1
+    oracle = execute_numpy(pprog, inp)
+    for name in inp:
+        assert max_rel(env[name].numpy(), np.asarray(want[name])) < MAX_REL, name
+        assert max_rel(env[name].numpy(), oracle[name]) < MAX_REL, name
+    if label == "stencil-(4, 8)":  # untouched boundary rows keep their content
+        np.testing.assert_array_equal(env["B"].numpy()[0], inp["B"][0].astype(np.float32))
+
+
+@pytest.mark.parametrize("build,tile", [
+    (lambda ir: stencil(ir, 10), (4, 8)), (lambda ir: stencil(ir, 10), (3, 3)),
+    (lambda ir: triangle(ir, 11), (4, 4)), (lambda ir: syrk1(ir, 9, 16), (4, 4, 8)),
+    (lambda ir: reduce_op(ir, "+"), (4, 8)),
+])
+def test_tile_plan_roles_and_halos_match_reference(build, tile):
+    rprog, pprog = build(rir), build(pir)
+    rp = r_plan(rprog, rprog.body[0], tile=tile)
+    pp = p_plan(pprog, pprog.body[0], tile=tile)
+    roles = lambda plan: [(a.name, a.start, a.stop, a.tile, a.role) for a in plan.axes]  # noqa: E731
+    assert (pp.kind, roles(pp), pp.grid, pp.halo) == (rp.kind, roles(rp), rp.grid, rp.halo)
+    for a in pp.axes:  # Triton blocks: the tile rounded up to a power of two
+        assert a.block >= a.tile and a.block & (a.block - 1) == 0
+
+
+def test_opaque_callable_is_outside_the_tiled_class():
+    """A lambda cannot be generated: TilingError at plan time, counted, and
+    the nest runs through the generic lowering."""
+    sc = pir.Computation("sc", pir.acc("C", "i", "j"), (pir.acc("C", "i", "j"),), lambda c: c * 3.0)
+    prog = pir.Program("lam", (pir.Array("C", (6, 7)),),
+                       (pir.Loop("i", 6, body=(pir.Loop("j", 7, body=(sc,)),)),))
+    with pytest.raises(TilingError, match="opaque"):
+        p_nest.plan_nest(prog, prog.body[0], Schedule(pallas_nest=True))
+    routed = sum(v for r, v in codegen.ROUTED.items() if "opaque" in r)
+    inp = random_inputs(prog, seed=2, dtype=np.float64)
+    out = compile_torch(prog, Schedule(pallas_nest=True), device="cpu")(inp)
+    assert sum(v for r, v in codegen.ROUTED.items() if "opaque" in r) == routed + 1
+    np.testing.assert_allclose(out["C"].numpy(), 3.0 * inp["C"], rtol=1e-6)
+
+
+def _eligible_nests():
+    from repro_torch.cloudsc import erosion_program, mini_cloudsc_program, saturation_chain_program
+    from repro_torch.polybench import BENCHMARKS, NAMES
+
+    progs = [BENCHMARKS[n].make(v, "mini") for n in NAMES for v in ("a", "b", "np")]
+    progs += [erosion_program(8, 6), mini_cloudsc_program(8, 6), saturation_chain_program(8, 6)]
+    d = Daisy(backend="torch", device="cpu")
+    out = []
+    for prog in progs:
+        norm = d.plan(prog).program
+        for nest in norm.body:
+            try:
+                out.append(p_nest.plan_nest(norm, nest, Schedule(pallas_nest=True, pallas_reduce=True,
+                                                                 unroll=2)))
+            except TilingError:
+                pass
+    return out
+
+
+def test_generated_triton_source_parses_for_every_eligible_nest():
+    kernels = _eligible_nests()
+    kinds = {nk.kind for nk in kernels}
+    assert kinds == {"pallas_nest", "pallas_reduce"} and len(kernels) > 60
+    calls = 0
+    for nk in kernels:
+        tree = ast.parse(nk.source)
+        fns = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+        assert "nest_kernel" in fns
+        assert all(any(ast.unparse(d) == "triton.jit" for d in f.decorator_list)
+                   for f in fns.values())
+        calls += any(name in fns for name in ("foeewm", "foedem", "foeldcpm", "finish_std"))
+    assert calls >= 2  # CLOUDSC thermodynamics and correlation's finish_std
