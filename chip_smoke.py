@@ -8,13 +8,19 @@ Run from the root of a checkout, with no arguments:
 Phases, in order (any failure exits nonzero):
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA GEMM (K1) with ``nvcc`` from ``src/repro_torch/csrc``;
+2. build: the CUDA kernels K1 (GEMM), K4 (RMSNorm) and K5 (flash attention)
+   with ``nvcc`` from ``src/repro_torch/csrc``, one ``nvcc`` per source, all
+   started together, with ptxas's register and spill lines;
 3. kernels against their plain versions on the card: K1 at the kernel-test
    shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
-   guarded reduction with unroll 1/2/4 and each of + * max min; then each
-   kernel's time at a main-path shape beside its plain version's, its bound
-   and, where one torch call computes the same function, that call's time;
+   guarded reduction with unroll 1/2/4 and each of + * max min; K4 in fp32
+   and bf16 over rows {1, 8, 2048, 8192} x D {128, 3840, 12288}; K5 over
+   tests/test_kernels.py's sweep x D {32, 64, 120, 128}, per-slot offsets and
+   H2O-Danube3-4B's prefill, 8192-token windowed forward and 8-slot decode;
+   then each kernel's time at a main-path shape beside its plain version's,
+   its bound and, where one torch call computes the same function, that
+   call's time;
 4. main path, PolyBench: ``Daisy(backend="cuda")`` on the 15 A variants and
    the three CLOUDSC programs at a small size against the float64 numpy
    oracle, then on the 15 benchmarks x {a, b, np} at ``bench`` size and the
@@ -23,7 +29,17 @@ Phases, in order (any failure exits nonzero):
 5. main path, CLOUDSC: erosion, the mini scheme and the saturation chain at
    137 levels x 65,536 columns, checked the same way;
 6. counts: each kernel's launches over phases 4-5 (all must be > 0), and the
-   kernel recipes the planner or the contraction classifier sent to torch.
+   kernel recipes the planner or the contraction classifier sent to torch;
+7. main path, serving: H2O-Danube3-4B at its published widths, all 24
+   layers, bf16, seeded random weights, through ``ServingEngine`` (8 slots,
+   4096 positions, 32 new tokens): 16 requests with prompts of 128-2048
+   tokens; prefill tokens/s, time to first token, decode tokens/s; four
+   requests' prefill and decode logits held against the fp32 plain forward
+   (``models/plain.py``) within a relative L2 tolerance that fp8 weights,
+   eps = 0 and gamma = 1 are each shown to exceed; K4/K5 launches (> 0);
+8. main path, forward: ``forward`` on one 8192-token sequence, so K5 runs
+   with the 4096 window, held against the plain forward at 256 positions
+   beyond 4096; K4/K5 launches (> 0).
 
 Kernel recipes are seeded, per canonical nest, for every nest the nest
 planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -44,6 +60,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -481,6 +498,470 @@ def main_path(torch) -> None:
                  f32(saturation_chain_inputs(NPROMA, KLEV)), ["TEND"], "cloudsc saturation chain")
 
 
+# ---------------------------------------------------------------------------
+# phase 3, model stack: K4 and K5 against their plain versions
+# ---------------------------------------------------------------------------
+RMS_TOL = 1e-5                      # tests/test_kernels.py (fp32)
+ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # tests/test_kernels.py (fp32)
+# bf16 attention: the kernel rounds P to bf16 before P.V (as the reference
+# kernel does) where the plain version keeps it in fp32, and the output is
+# rounded once to bf16: 2^-8 relative each, so 2e-2, the reference tests'
+# tolerance for 16-bit types
+BF16_ATTN_TOL = 2e-2
+# tests/test_kernels.py's flash-attention sweep: (BHq, BHkv, Sq, Skv, causal, window, offset)
+ATTN_SWEEP = [(4, 4, 32, 32, True, None, 0), (4, 2, 64, 64, True, None, 0),
+              (8, 2, 40, 72, True, 16, 0), (2, 1, 8, 128, True, None, 120),
+              (2, 2, 48, 48, False, None, 0), (2, 2, 17, 33, True, 8, 0)]
+HEAD_SIZES = (32, 64, 120, 128)
+DANUBE = "h2o-danube-3-4b"
+
+
+def bf16_ulp(torch, ref):
+    """One bf16 unit in the last place of each value of ``ref``."""
+    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_rmsnorm(torch, results: dict) -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as kr
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (1, 8, 2048, 8192):
+            for d in (128, 3840, 12288):
+                x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+                gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).to(dtype)
+                out = kr.rmsnorm(x, gamma, eps=1e-6)
+                torch.cuda.synchronize()
+                want = ref.rmsnorm(x, gamma, eps=1e-6)
+                diff = (out.float() - want.float()).abs()
+                worst = max(worst, float(diff.max()))
+                if dtype == torch.float32:
+                    ok = torch.allclose(out, want, rtol=RMS_TOL, atol=RMS_TOL)
+                else:  # both round one fp32 value to bf16: at most one ulp apart
+                    ok = bool((diff <= bf16_ulp(torch, want)).all())
+                if not ok:
+                    raise AssertionError(f"K4 rmsnorm {dtype} {rows}x{d}: max abs diff "
+                                         f"{float(diff.max()):.3e}")
+        log(f"  K4 rmsnorm {str(dtype)[6:]} rows {{1, 8, 2048, 8192}} x D {{128, 3840, 12288}}: "
+            f"ok ({'rtol/atol 1e-5' if dtype == torch.float32 else 'within one bf16 ulp'})")
+
+    # time at the main path's shape: a 2048-token prefill bucket of Danube, bf16
+    rows, d = 2048, 3840
+    x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).bfloat16()
+    ms = cuda_ms(lambda: kr.rmsnorm(x, gamma, eps=1e-6))
+    plain_ms = cuda_ms(lambda: ref.rmsnorm(x, gamma, eps=1e-6))
+    library_ms = (cuda_ms(lambda: F.rms_norm(x, (d,), gamma, 1e-6))
+                  if hasattr(F, "rms_norm") else None)
+    nbytes = 2.0 * (2 * rows * d + d)
+    flops = 4.0 * rows * d  # square, sum, scale, gamma
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"  K4 rmsnorm bf16 {rows}x{d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"F.rms_norm {library_ms if library_ms is None else f'{library_ms:.4f} ms'}, "
+        f"bound {max(t_ops, t_bytes):.4f} ms")
+    results["rmsnorm"] = dict(
+        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:41", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms,
+        shape=f"{rows}x{d} bf16")
+
+
+def _attn_bound(torch, q, k, q_offset, causal, window):
+    """(operation ms, byte ms) of attention on these inputs: two products over
+    the (query, key) pairs that are visible, and q, the KV rows that some
+    query of their head sees and the output, each moved once."""
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    off = (q_offset.to(torch.int64) if isinstance(q_offset, torch.Tensor)
+           else torch.full((bhq,), int(q_offset), device=q.device))
+    pos = off[:, None] + torch.arange(sq, device=q.device)[None, :]
+    hi = (pos + 1).clamp(max=skv) if causal else torch.full_like(pos, skv)
+    lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+    seen = hi > lo
+    pairs = int(torch.where(seen, hi - lo, 0).sum())
+    lo_h = torch.where(seen, lo, skv).view(bhkv, -1).min(dim=1).values
+    hi_h = torch.where(seen, hi, 0).view(bhkv, -1).max(dim=1).values
+    kv_rows = int((hi_h - lo_h).clamp(min=0).sum())
+    size = q.element_size()
+    flops = 4.0 * pairs * d
+    nbytes = size * (2.0 * q.numel() + 2.0 * kv_rows * d)
+    return flops / (PEAK_BF16 if size == 2 else PEAK_FP32) * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def check_flash(torch, results: dict) -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    worst = 0.0
+
+    def compare(label, q, k, v, want_fn, **kw):
+        nonlocal worst
+        got = kf.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = want_fn(q, k, v, **kw)
+        diff = float((got.float() - want.float()).abs().max())
+        worst = max(worst, diff)
+        if q.dtype == torch.float32:
+            ok = torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+        else:
+            ok = torch.allclose(got.float(), want.float(), rtol=BF16_ATTN_TOL, atol=BF16_ATTN_TOL)
+        if not ok:
+            raise AssertionError(f"K5 {label}: max abs diff {diff:.3e}")
+        return diff
+
+    for d in HEAD_SIZES:
+        for bh, bkv, sq, skv, causal, window, off in ATTN_SWEEP:
+            q, k, v = rnd(bh, sq, d), rnd(bkv, skv, d), rnd(bkv, skv, d)
+            for dt in (torch.float32, torch.bfloat16):
+                compare(f"sweep {bh},{bkv},{sq},{skv},{causal},{window},{off} D={d} {dt}",
+                        q.to(dt), k.to(dt), v.to(dt), ref.attention,
+                        causal=causal, window=window, q_offset=off)
+    log(f"  K5 flash attention: tests/test_kernels.py sweep x D {HEAD_SIZES}, fp32 and bf16: ok")
+
+    slots, heads, kvh, d = 8, 32, 8, 120
+    lens = torch.tensor([1, 300, 1111, 2047, 2500, 3333, 4000, 4095], dtype=torch.int32,
+                        device="cuda")
+    per_row = lambda q, k, v, **kw: ref.attention(  # noqa: E731
+        q, k, v, causal=kw["causal"], q_offset=kf.expand_offsets(kw["q_offset"], q.shape[0],
+                                                                  q.device))
+    cases = {
+        "prefill": (dict(causal=True, window=None, q_offset=0),
+                    (heads, 2048, d), (kvh, 2048, d), ref.attention),
+        "forward": (dict(causal=True, window=4096, q_offset=0),
+                    (heads, 8192, d), (kvh, 8192, d), ref.attention_chunked),
+        "decode": (dict(causal=True, q_offset=lens),
+                   (slots * heads, 1, d), (slots * kvh, 4096, d), per_row),
+    }
+    timings = {}
+    for label, (kw, qs, ks, want_fn) in cases.items():
+        q32, k32, v32 = rnd(*qs), rnd(*ks), rnd(*ks)
+        if label != "forward":
+            compare(f"Danube {label} fp32", q32, k32, v32, want_fn, **kw)
+        q, k, v = q32.bfloat16(), k32.bfloat16(), v32.bfloat16()
+        diff = compare(f"Danube {label} bf16", q, k, v, want_fn, **kw)
+        ms = cuda_ms(lambda: kf.flash_attention(q, k, v, **kw))
+        plain_ms = cuda_ms(lambda: want_fn(q, k, v, **kw), repeats=3)
+        # yardstick: SDPA over the same inputs with the KV heads repeated
+        group = q.shape[0] // k.shape[0]
+        if label == "decode":
+            qq = q.view(slots, heads, 1, d)
+            kk = k.repeat_interleave(group, 0).view(slots, heads, 4096, d)
+            vv = v.repeat_interleave(group, 0).view(slots, heads, 4096, d)
+            mask = (torch.arange(4096, device="cuda")[None, :] <= lens[:, None]).view(
+                slots, 1, 1, 4096)
+            lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)  # noqa: E731
+        else:
+            s = q.shape[1]
+            qq, kk, vv = (t.unsqueeze(0) for t in (q, k.repeat_interleave(group, 0),
+                                                   v.repeat_interleave(group, 0)))
+            if kw["window"] is None:
+                lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)  # noqa: E731
+            else:
+                pos = torch.arange(s, device="cuda")
+                band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < kw["window"])
+                lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=band)  # noqa: E731
+        library_ms = cuda_ms(lib)
+        t_ops, t_bytes = _attn_bound(torch, q, k, kf.expand_offsets(kw["q_offset"], q.shape[0],
+                                                                    q.device),
+                                     kw["causal"], kw.get("window"))
+        timings[label] = (ms, plain_ms, library_ms, max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes")
+        log(f"  K5 Danube {label} q {tuple(q.shape)} kv {tuple(k.shape)} bf16: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({timings[label][4]}), max abs diff {diff:.3e}")
+        del q32, k32, v32, q, k, v
+    ms, plain_ms, library_ms, bound, by = timings["prefill"]
+    results["flash_attention"] = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:117", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+        shape="Danube prefill: q (32, 2048, 120), kv (8, 2048, 120), causal, bf16",
+        other_shapes={k: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), t))
+                      for k, t in timings.items() if k != "prefill"})
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the model stack's main path, H2O-Danube3-4B at full width
+# ---------------------------------------------------------------------------
+SEED = 0
+N_REQUESTS = 16
+WATCHED = (0, 5, 10, 15)  # requests whose logits are held against the plain forward
+# Random weights: gamma drawn in [0.5, 1.5) instead of the reference's ones,
+# so a norm that dropped gamma changes the logits; embeddings at std 1e-3, so
+# mean(x^2) at the first norm (1e-6) equals eps and a norm that dropped eps
+# scales the first layer's normalized input by about sqrt(2).
+EMBED_STD = 1e-3
+# Engine (bf16, K4/K5) against the fp32 plain forward: the largest relative
+# L2 error of one position's logits.  Measured on the card before it was
+# set (PERF.md, PR 13); the check below also proves that fp8 weights,
+# eps = 0 and gamma = 1 each exceed it.
+LOGITS_REL_TOL = 5e-2
+
+
+def danube_params(torch, cfg):
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen)
+    dt = M.dtype_of(cfg)
+    gamma = lambda: (0.5 + torch.rand(cfg.d_model, generator=gen, device="cuda")).to(dt)  # noqa: E731
+    for blk in params["layers"]:
+        blk["norm1"], blk["norm2"] = gamma(), gamma()
+    params["final_norm"] = gamma()
+    params["embed"] = (torch.randn(cfg.vocab, cfg.d_model, generator=gen, device="cuda")
+                       * EMBED_STD).to(dt)
+    return params
+
+
+def rel_l2(torch, got, want):
+    """Relative L2 error of each row (position) of ``got`` against ``want``."""
+    got, want = got.float(), want.float()
+    return (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+
+
+def mutants(torch, cfg, params):
+    """The model computed wrongly in three ways the tolerance must catch:
+    weights rounded to fp8 (e4m3, power-of-two scale per matrix), every norm
+    without eps, every norm without gamma."""
+    from dataclasses import replace
+
+    def fp8(w):
+        scale = torch.exp2(torch.ceil(torch.log2(w.float().abs().max() / 448.0)))
+        return ((w.float() / scale).to(torch.float8_e4m3fn).float() * scale).to(w.dtype)
+
+    def mapped(fn_w, fn_norm):
+        out = {k: (fn_norm(v) if k == "final_norm" else fn_w(v))
+               for k, v in params.items() if k != "layers"}
+        out["layers"] = [{"norm1": fn_norm(b["norm1"]), "norm2": fn_norm(b["norm2"]),
+                          "mixer": {k: fn_w(w) for k, w in b["mixer"].items()},
+                          "ffn": {k: fn_w(w) for k, w in b["ffn"].items()}}
+                         for b in params["layers"]]
+        return out
+
+    same = lambda t: t  # noqa: E731
+    yield "fp8 weights", cfg, lambda: mapped(fp8, same)
+    yield "eps = 0", replace(cfg, norm_eps=0.0), lambda: params
+    yield "gamma = 1", cfg, lambda: mapped(same, torch.ones_like)
+
+
+def serve_path(torch, smi: str) -> dict:
+    """Serve 16 requests through ``ServingEngine`` and hold the watched
+    requests' prefill and decode logits against the fp32 plain forward."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = get_config(DANUBE)
+    params = danube_params(torch, cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  {DANUBE}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+        f"{cfg.window}; {n_params / 1e9:.3f} B parameters in bf16")
+    scfg = ServeConfig(batch_slots=8, max_len=4096, max_new_tokens=32)
+
+    warm = ServingEngine(cfg, params, ServeConfig(batch_slots=2, max_len=256, max_new_tokens=4))
+    warm.submit(np.arange(1, 100, dtype=np.int32))
+    warm.drain()
+    del warm
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(128, 2049, N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    eng = ServingEngine(cfg, params, scfg)
+
+    # recording: the watched requests' logits, taken where the engine makes them
+    real_step, real_slots, real_prefill = M.decode_step, M.decode_slots, eng._prefill
+    last, rec_prefill, rec_decode = {}, {}, {rid: [] for rid in WATCHED}
+    prefill_s = [0.0]
+
+    def decode_step(*args):
+        logits, state = real_step(*args)
+        last["logits"] = logits
+        return logits, state
+
+    def decode_slots(*args):
+        logits, states = real_slots(*args)
+        for i, h in enumerate(eng._slots):
+            if h is not None and h.rid in rec_decode:
+                rec_decode[h.rid].append(logits[i].clone())
+        return logits, states
+
+    def prefill(h):
+        t0 = time.perf_counter()
+        out = real_prefill(h)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t0
+        if h.rid in rec_prefill or h.rid in rec_decode:
+            rec_prefill[h.rid] = last["logits"][0, :h.prompt.size].clone()
+        return out
+
+    first_token = {}
+    M.decode_step, M.decode_slots, eng._prefill = decode_step, decode_slots, prefill
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, on_token=lambda h, t: first_token.setdefault(h.rid, time.perf_counter()))
+               for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    M.decode_step, M.decode_slots = real_step, real_slots
+
+    bad = [(h.rid, h.state.value, repr(h.error)) for h in handles
+           if h.state.value != "completed" or len(h.tokens) != scfg.max_new_tokens]
+    if bad:
+        raise AssertionError(f"requests that did not complete: {bad}")
+    ttft = np.array([first_token[h.rid] - t0 for h in handles])
+    prompt_tokens = int(lens.sum())
+    decode_tokens = sum(len(h.tokens) - 1 for h in handles)
+    all_tokens = sum(len(h.tokens) for h in handles)
+    stats = dict(
+        requests=N_REQUESTS, prompt_tokens=prompt_tokens, wall_s=wall, prefill_s=prefill_s[0],
+        prefill_tok_s=prompt_tokens / prefill_s[0],
+        ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_tok_s=decode_tokens / (wall - prefill_s[0]),
+        total_tok_s=all_tokens / wall)
+    log(f"  served {N_REQUESTS} requests (prompts {int(lens.min())}-{int(lens.max())} tokens, "
+        f"{prompt_tokens} in all; {scfg.max_new_tokens} new tokens each) in {wall:.2f} s; {smi}")
+    log(f"  prefill {stats['prefill_tok_s']:.0f} tok/s ({prefill_s[0]:.2f} s); TTFT p50 "
+        f"{stats['ttft_p50_s']:.3f} s, p99 {stats['ttft_p99_s']:.3f} s (all submitted at once); "
+        f"decode {stats['decode_tok_s']:.1f} tok/s; total {stats['total_tok_s']:.1f} tok/s; {smi}")
+
+    # correctness: prefill and decode logits against the fp32 plain forward
+    seqs, engine_logits = {}, {}
+    for rid in WATCHED:
+        h = handles[rid]
+        p_len, g_len = h.prompt.size, len(h.tokens)
+        seqs[rid] = torch.as_tensor(np.concatenate([h.prompt, h.tokens[:-1]]), device="cuda")
+        engine_logits[rid] = torch.cat([rec_prefill[rid].float(),
+                                        torch.stack(rec_decode[rid][:g_len - 1]).float()])
+        if not engine_logits[rid].shape[0] == p_len + g_len - 1 < cfg.window:
+            raise AssertionError(f"request {rid}: {engine_logits[rid].shape[0]} logits recorded "
+                                 f"for {p_len} + {g_len} tokens")
+    errs, refs = [], {}
+    for rid in WATCHED:
+        refs[rid] = plain.forward(cfg, params, seqs[rid])
+        err = rel_l2(torch, engine_logits[rid], refs[rid])
+        errs.append(err)
+        p_len = handles[rid].prompt.size
+        log(f"  request {rid} ({p_len} + {len(handles[rid].tokens)} tokens): engine vs fp32 "
+            f"plain, relative L2 per position: prefill max {float(err[:p_len].max()):.3e}, "
+            f"decode max {float(err[p_len:].max()):.3e}, median {float(err.median()):.3e}")
+    engine_err = float(torch.cat(errs).max())
+    if not engine_err <= LOGITS_REL_TOL:
+        raise AssertionError(f"engine logits: relative L2 {engine_err:.3e} > {LOGITS_REL_TOL}")
+    for label, mcfg, make in mutants(torch, cfg, params):
+        mparams = make()
+        merr = torch.cat([rel_l2(torch, plain.forward(mcfg, mparams, seqs[rid]), refs[rid])
+                          for rid in WATCHED])
+        del mparams
+        log(f"  mutant '{label}' vs fp32 plain: relative L2 max {float(merr.max()):.3e}, "
+            f"median {float(merr.median()):.3e}")
+        if not float(merr.max()) > LOGITS_REL_TOL:
+            raise AssertionError(f"tolerance {LOGITS_REL_TOL} does not catch '{label}'")
+    log(f"  engine logits within relative L2 {LOGITS_REL_TOL} (max {engine_err:.3e}); fp8 "
+        f"weights, eps = 0 and gamma = 1 each exceed it")
+    stats["max_rel_l2"] = engine_err
+    stats.update(decode_breakdown(torch, cfg, params, eng._states, eng._tokens))
+    log(f"  serving metrics: {json.dumps(stats)}")
+    return dict(stats=stats, cfg=cfg, params=params)
+
+
+def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
+    """Where one batched decode step's time goes: host-clock ms per step
+    (synchronized), and the device time of its kernels by group from
+    ``torch.profiler``, over the engine's final slot states."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    def steps(n):
+        nonlocal states, tokens
+        for _ in range(n):
+            tokens, states = M.decode_slots_greedy(cfg, params, states, tokens)
+        torch.cuda.synchronize()
+
+    steps(3)
+    t0 = time.perf_counter()
+    steps(10)
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps(5)
+    groups = {"K5 flash_attention": 0.0, "K4 rmsnorm": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    n_kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        n_kernels += ev.count
+        if "flash_kernel" in name:
+            groups["K5 flash_attention"] += us
+        elif "rmsnorm_kernel" in name:
+            groups["K4 rmsnorm"] += us
+        elif any(t in name for t in ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")):
+            groups["matmul (cuBLAS)"] += us
+        else:
+            groups["other"] += us
+    per_step = {k: v / 5 / 1e3 for k, v in groups.items()}
+    device_ms = sum(per_step.values())
+    log(f"  decode step (8 slots): {step_ms:.3f} ms on the host clock; device time per step "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in per_step.items())
+        + f"; {n_kernels / 5:.0f} device ops per step; device idle "
+        + (f"{1 - device_ms / step_ms:.1%}" if device_ms else "not measured (no device events)"))
+    return dict(decode_step_ms=step_ms, decode_device_ms=per_step,
+                decode_ops_per_step=n_kernels / 5)
+
+
+def _leaves(p):
+    if isinstance(p, dict):
+        for v in p.values():
+            yield from _leaves(v)
+    elif isinstance(p, list):
+        for v in p:
+            yield from _leaves(v)
+    else:
+        yield p
+
+
+def forward_path(torch, cfg, params) -> None:
+    """``forward`` on one 8192-token sequence (K5 with the 4096 window), held
+    against the fp32 plain forward at 256 positions beyond the window."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(0, cfg.vocab, 8192),
+                           device="cuda")
+    t0 = time.perf_counter()
+    logits = M.forward(cfg, params, {"tokens": toks[None]})[0]
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    if tuple(logits.shape) != (8192, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} or non-finite")
+    at = torch.arange(cfg.window, 8192, 16, device="cuda")
+    want = plain.forward(cfg, params, toks)[at]
+    err = float(rel_l2(torch, logits[at], want).max())
+    log(f"  forward on 8192 tokens in {t_fwd:.2f} s; logits at {at.numel()} positions in "
+        f"[{cfg.window}, 8192) vs fp32 plain: relative L2 max {err:.3e}")
+    if not err <= LOGITS_REL_TOL:
+        raise AssertionError(f"forward logits: relative L2 {err:.3e} > {LOGITS_REL_TOL}")
+
+
 def main() -> int:
     try:
         import torch
@@ -500,25 +981,34 @@ def main() -> int:
 
     from repro_torch.core import codegen
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.kernels import rmsnorm as kr
 
     smi = nvidia_smi()
     log(f"phase 1: device {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}")
 
-    log("phase 2: build")
+    log("phase 2: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    build.cuda_library("gemm")
-    log(f"  K1 gemm.cu built with nvcc in {time.perf_counter() - t0:.2f} s")
-    for line in build.BUILD_LOG.get("gemm", (0.0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    sources = {"gemm": "K1", "rmsnorm": "K4", "flash_attention": "K5"}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.cuda_library, sources))
+    log(f"  built in {time.perf_counter() - t0:.2f} s")
+    for name, k in sources.items():
+        secs, report = build.BUILD_LOG.get(name, (0.0, ""))
+        log(f"  {k} {name}.cu: nvcc {secs:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
     results: dict[str, dict] = {}
     log("phase 3: kernels against their plain versions")
     check_gemm(torch, results)
     check_nest_kernel(torch, results)
+    check_rmsnorm(torch, results)
+    check_flash(torch, results)
 
     # the main path: every count starts at 0 here and is read right after
     kg.LAUNCHES["gemm"] = 0
@@ -540,8 +1030,45 @@ def main() -> int:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+
+    # the model stack's paths: the counts start at 0 before each, read right after
+    def model_counts():
+        return {"rmsnorm": kr.LAUNCHES["rmsnorm"], "flash_attention": kf.LAUNCHES["flash_attention"],
+                "gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
+                "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
+
+    def reset_counts():
+        kr.LAUNCHES["rmsnorm"] = kf.LAUNCHES["flash_attention"] = kg.LAUNCHES["gemm"] = 0
+        for k in nkm.EMITTED:
+            nkm.EMITTED[k] = 0
+
+    log(f"phase 7: main path, serving {DANUBE} at full width through ServingEngine")
+    reset_counts()
+    served = serve_path(torch, smi)
+    torch.cuda.synchronize()
+    serve_launches = model_counts()
+    log(f"  launches: K4 rmsnorm {serve_launches['rmsnorm']}, K5 flash attention "
+        f"{serve_launches['flash_attention']} (K1 {serve_launches['gemm']}, K2 "
+        f"{serve_launches['pallas_nest']}, K3 {serve_launches['pallas_reduce']})")
+    for k in ("rmsnorm", "flash_attention"):
+        launches[k] = serve_launches[k]
+        if serve_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the serving path")
+
+    log(f"phase 8: main path, forward of {DANUBE} on 8192 tokens (window {served['cfg'].window})")
+    reset_counts()
+    forward_path(torch, served["cfg"], served["params"])
+    torch.cuda.synchronize()
+    fwd_launches = model_counts()
+    log(f"  launches: K4 rmsnorm {fwd_launches['rmsnorm']}, K5 flash attention "
+        f"{fwd_launches['flash_attention']}")
+    for k in ("rmsnorm", "flash_attention"):
+        if fwd_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the forward path")
+    del served
+
     kernels = []
-    for key in ("gemm", "pallas_nest", "pallas_reduce"):
+    for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention"):
         row = dict(results[key])
         row["launches"] = launches[key]
         kernels.append(row)

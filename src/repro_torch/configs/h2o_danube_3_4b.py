@@ -1,0 +1,9 @@
+"""H2O-Danube3-4B [arXiv:2401.16818]: llama+mistral mix, GQA kv=8, SWA."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-3-4b", family="dense",
+    n_layers=24, d_model=3840, n_heads=32, n_kv_heads=8, d_head=120,
+    d_ff=10240, vocab=32000,
+    window=4096, rope_theta=1e4,
+)

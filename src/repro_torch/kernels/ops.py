@@ -1,8 +1,14 @@
-"""The daisy codegen's hook into K1: a clean 2-operand contraction -> GEMM.
+"""Public wrappers around the port's kernels (port of ``repro/kernels/ops.py``).
 
-Port of ``repro/kernels/ops.py::einsum2``.  The rest of the reference's
-``ops`` (matmul, attention, grouped_matmul, rmsnorm) belongs to the model
-stack and is not ported yet.
+* ``einsum2`` — the daisy codegen's hook into K1: a clean 2-operand
+  contraction -> GEMM;
+* ``rmsnorm`` — K4, ``attention`` — K5: the model stack's kernels.  On CUDA
+  tensors they launch the kernel or raise; on CPU tensors they take the plain
+  versions of ``kernels.ref`` (attention switches to the chunked one above
+  ``CHUNKED_ATTN_THRESHOLD`` score elements, as the reference's ``xla`` path
+  does).
+
+``matmul`` and ``grouped_matmul`` (K6) are not ported yet.
 
 The classifier (``einsum2_reject_reason``) is separate from the lowering so
 the codegen can decide before any launch whether a contraction goes to the
@@ -13,7 +19,25 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
+from . import ref
 from .gemm import gemm
+from .rmsnorm import rmsnorm  # noqa: F401
+
+# Above this many score elements (Sq*Skv) the CPU path switches to the
+# chunked online-softmax formulation (bounded working set).
+CHUNKED_ATTN_THRESHOLD = 1 << 22
+
+
+def attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q (BHq, Sq, D), k/v (BHkv, Skv, D) -> (BHq, Sq, D); see
+    ``kernels.flash_attention`` for ``q_offset``."""
+    if q.device.type == "cpu" and q.shape[1] * k.shape[1] > CHUNKED_ATTN_THRESHOLD \
+            and q.shape[1] > 1:
+        _fa.PLAIN["flash_attention"] += 1
+        off = _fa.expand_offsets(q_offset, q.shape[0], q.device)
+        return ref.attention_chunked(q, k, v, causal=causal, window=window, q_offset=off)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def einsum2_reject_reason(sub_a: str, sub_b: str, sub_out: str) -> str | None:

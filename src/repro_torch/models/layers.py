@@ -1,0 +1,135 @@
+"""Model building blocks of the dense decoder (port of ``repro/models/layers.py:80-188``).
+
+Plain functions over dicts of tensors.  Attention goes through
+``kernels.ops`` (K5 on the card), projections stay ``x @ w`` in torch with
+the reference's ``(d_in, d_out)`` weight layout, as the reference leaves them
+to XLA outside any Pallas kernel.  The reference's ``constrain`` (sharding
+hints) has no counterpart: the port runs on one device.
+
+KV caches are laid out ``(B, KV, S, Dh)`` — the reference's is
+``(B, S, KV, Dh)`` — so that folding heads into K5's ``(B*KV, S, Dh)`` is a
+view and not a copy of the whole cache on every step.  Caches are updated
+in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+
+Params = dict[str, Any]
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen, device=gen.device) * s).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) absolute positions."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., :, None, None].to(torch.float32) * freqs  # (B, S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, (d, h * dh), dtype),
+        "wk": _dense_init(gen, (d, kv * dh), dtype),
+        "wv": _dense_init(gen, (d, kv * dh), dtype),
+        "wo": _dense_init(gen, (h * dh, d), dtype),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", kv * dh), ("bv", kv * dh)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
+    return p
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, write_pos) -> None:
+    """Write ``new`` (B, KV, s, Dh) into ``cache`` (B, KV, S, Dh) at
+    ``write_pos``: an int for every row, or a (B,) tensor (then s == 1).
+
+    Like the reference's ``dynamic_update_slice``, the start is clamped to
+    ``[0, S - s]``: an idle serving slot keeps advancing past the end of its
+    cache, and its writes land on the last row.
+    """
+    s_cache, s = cache.shape[2], new.shape[2]
+    if isinstance(write_pos, torch.Tensor):
+        if s != 1:
+            raise ValueError("per-row write positions need s == 1")
+        pos = write_pos.clamp(0, s_cache - 1)
+        cache[torch.arange(cache.shape[0], device=cache.device), :, pos] = new[:, :, 0]
+    else:
+        w = min(max(int(write_pos), 0), s_cache - s)
+        cache[:, :, w:w + s] = new
+
+
+def attention(
+    x: torch.Tensor,  # (B, S, D)
+    p: Params,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (B, S) absolute positions (rope)
+    causal: bool = True,
+    cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, KV, S_cache, Dh)
+    write_pos: torch.Tensor | int = 0,
+    attn_offset: torch.Tensor | int = 0,  # K5's q_offset: an int, or one per batch row
+):
+    """Sequence attention (cache=None) or a cached step (cache given; written
+    in place).  The cache path passes ``window=None`` to the kernel, exactly
+    as the reference does (``repro/models/layers.py:167``)."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.view(b, s, h, dh), positions, cfg.rope_theta)
+    k = rope(k.view(b, s, kv, dh), positions, cfg.rope_theta)
+    v = v.view(b, s, kv, dh)
+
+    # fold heads into batch: q (B*H, S, Dh); k/v (B*KV, Skv, Dh)
+    qf = q.transpose(1, 2).reshape(b * h, s, dh).contiguous()
+    if cache is not None:
+        ck, cv = cache
+        write_cache(ck, k.transpose(1, 2), write_pos)
+        write_cache(cv, v.transpose(1, 2), write_pos)
+        kf = ck.view(b * kv, ck.shape[2], dh)
+        vf = cv.view(b * kv, cv.shape[2], dh)
+    else:
+        kf = k.transpose(1, 2).reshape(b * kv, s, dh).contiguous()
+        vf = v.transpose(1, 2).reshape(b * kv, s, dh).contiguous()
+    of = ops.attention(
+        qf, kf, vf, causal=causal,
+        window=cfg.window if cache is None else None,
+        q_offset=attn_offset if cache is not None else 0,
+    )
+    out = of.view(b, h, s, dh).transpose(1, 2).reshape(b, s, h * dh)
+    return out @ p["wo"]
+
+
+def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wg": _dense_init(gen, (d, f), dtype),
+        "wu": _dense_init(gen, (d, f), dtype),
+        "wd": _dense_init(gen, (f, d), dtype),
+    }
+
+
+def dense_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]

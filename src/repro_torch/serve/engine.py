@@ -1,0 +1,467 @@
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``).
+
+Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
+
+  * ``submit(prompt)`` returns a :class:`RequestHandle` (``.state``,
+    ``.tokens``, ``.result()``, ``.cancel()``, optional per-token streaming
+    callback); ``step()`` advances the engine one scheduling iteration and
+    ``drain()`` runs to completion; ``shutdown()`` closes it; ``run()``
+    survives as a deprecated wrapper.
+  * one **batched decode** over all ``batch_slots`` at once
+    (``models.model.decode_slots``): every slot carries its own cache
+    length, so a freshly admitted request coexists with half-finished ones.
+  * **bucketed prefill**: prompts are right-padded to power-of-two buckets;
+    the padded cache rows are causally masked (the slot's ``len`` is reset
+    to the true prompt length) and overwritten as decode proceeds.
+  * **pipelined greedy dispatch**: the argmax is taken on the device and the
+    sampled tokens feed the next step directly; their copy to the host is
+    started at dispatch and waited for only at harvest, ``pipeline_depth``
+    steps behind.  Temperature sampling needs the logits on the host each
+    step and harvests synchronously.
+  * request-scoped failure: a request whose prefill or harvest raises, or
+    whose logits go non-finite, transitions to ``FAILED`` and frees its
+    slot; ``submit(..., timeout_s=)`` deadlines, ``handle.cancel()``, and
+    eos refill of a finished slot from the queue, as in the reference.
+
+Not ported yet (the constructor refuses them): ``mesh``, ``tuning_db``,
+``fault_plan``, ``logit_program``/``logit_inputs``/``tuner``/
+``program_backend``; ``compile_resilient`` and ``explain_kernels`` do not
+exist; there is no jit cache to share (torch runs eagerly).
+
+The engine runs on the device its parameters are on (the card unless the
+caller built them on the CPU)::
+
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    eng = ServingEngine(cfg, params, ServeConfig(batch_slots=8, max_len=4096))
+    h = eng.submit(prompt_tokens, on_token=lambda h, t: print(h.rid, t))
+    eng.drain()
+    print(h.tokens)
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from collections import deque
+from concurrent.futures import CancelledError
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import model as M
+
+
+class NonFiniteLogits(RuntimeError):
+    """A request's logits went NaN/inf — numeric poison isolated to the one
+    request instead of propagating through the batch."""
+
+
+class RequestState(Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    COMPLETED = "completed"
+    FAILED = "failed"
+    TIMED_OUT = "timed_out"
+    CANCELLED = "cancelled"
+
+
+TERMINAL_STATES = frozenset(
+    {RequestState.COMPLETED, RequestState.FAILED, RequestState.TIMED_OUT,
+     RequestState.CANCELLED}
+)
+
+
+@dataclass
+class ServeConfig:
+    batch_slots: int = 4
+    max_len: int = 512
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    seed: int = 0
+    eos_id: int = -1  # -1: never stops early
+    # dispatch-ahead distance for the greedy path: how many batched steps may
+    # be in flight before the host blocks on the oldest one's tokens
+    pipeline_depth: int = 2
+    min_bucket: int = 16  # smallest prefill bucket (powers of two upward)
+
+
+def prefill_buckets(max_len: int, min_bucket: int = 16) -> tuple[int, ...]:
+    """The padded prompt lengths prefill admission rounds up to: powers of
+    two from ``min_bucket`` to ``max_len`` (``max_len`` itself always
+    included so any prompt the cache can hold has a bucket)."""
+    out: list[int] = []
+    b = min_bucket
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)
+
+
+@dataclass(eq=False)
+class RequestHandle:
+    """A submitted request's live view: ``tokens`` grows as the engine
+    harvests decode steps, ``state`` walks QUEUED → RUNNING → one terminal
+    state (COMPLETED / FAILED / TIMED_OUT / CANCELLED), and ``result()``
+    drives the engine until completion.  An ``on_token`` callback
+    (``fn(handle, token)``) streams tokens as they are harvested; ``error``
+    holds the captured exception of a FAILED request."""
+
+    rid: int
+    prompt: np.ndarray
+    tokens: list[int] = field(default_factory=list)
+    state: RequestState = RequestState.QUEUED
+    error: BaseException | None = None
+    deadline: float | None = None  # absolute time.monotonic() cutoff
+    on_token: Callable[["RequestHandle", int], None] | None = None
+    _engine: "ServingEngine | None" = field(default=None, repr=False)
+
+    @property
+    def done(self) -> bool:
+        """True once the request reached any terminal state."""
+        return self.state in TERMINAL_STATES
+
+    @property
+    def failed(self) -> bool:
+        return self.state is RequestState.FAILED
+
+    def result(self) -> list[int]:
+        """Drive the owning engine until this request completes and return
+        the generated tokens.  Raises the captured error for a FAILED
+        request, :class:`TimeoutError` for a TIMED_OUT one and
+        :class:`CancelledError` after ``cancel()``."""
+        while not self.done:
+            if self._engine is None or self._engine.step() == 0 and not self.done:
+                raise RuntimeError(f"request {self.rid} cannot complete: engine is idle")
+        if self.state is RequestState.FAILED:
+            raise self.error if self.error is not None else \
+                RuntimeError(f"request {self.rid} failed")
+        if self.state is RequestState.TIMED_OUT:
+            raise TimeoutError(f"request {self.rid} exceeded its deadline after "
+                               f"{len(self.tokens)} token(s)")
+        if self.state is RequestState.CANCELLED:
+            raise CancelledError(f"request {self.rid} was cancelled")
+        return self.tokens
+
+    def cancel(self) -> bool:
+        """Withdraw the request: True if it transitioned to CANCELLED,
+        False if it had already reached a terminal state."""
+        if self.done:
+            return False
+        if self._engine is not None:
+            self._engine._cancel(self)
+        else:
+            self.state = RequestState.CANCELLED
+        return True
+
+    def _overdue(self, now: float) -> bool:
+        return self.deadline is not None and now > self.deadline
+
+    def _append(self, tok: int, scfg: ServeConfig) -> None:
+        self.tokens.append(tok)
+        if self.on_token is not None:
+            self.on_token(self, tok)
+        if len(self.tokens) >= scfg.max_new_tokens or tok == scfg.eos_id:
+            self.state = RequestState.COMPLETED
+
+
+def _start_copy(t: torch.Tensor):
+    """Start copying ``t`` to the host; ``_finish_copy`` waits for it."""
+    if t.device.type != "cuda":
+        return t, None
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return buf, done
+
+
+def _finish_copy(copy) -> np.ndarray:
+    buf, done = copy
+    if done is not None:
+        done.synchronize()
+    return buf.numpy()
+
+
+class ServingEngine:
+    """Single-device continuous-batching engine.
+
+    Lifecycle::
+
+        eng = ServingEngine(cfg, params, ServeConfig(...))
+        h = eng.submit(prompt, timeout_s=5.0)  # -> RequestHandle, queued
+        eng.step()                      # admit + one batched decode + harvest
+        eng.drain()                     # run to completion, {rid: tokens}
+        h.result()                      # or drive until this handle is done
+        h.cancel()                      # withdraw a queued/running request
+
+    ``drain()`` (and ``shutdown()``) closes the engine: later ``submit``
+    calls raise.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, tuning_db=None,
+                 mesh=None, fault_plan=None, logit_program=None, logit_inputs=None,
+                 tuner=None, program_backend=None):
+        given = {name: value for name, value in (
+            ("tuning_db", tuning_db), ("mesh", mesh), ("fault_plan", fault_plan),
+            ("logit_program", logit_program), ("logit_inputs", logit_inputs),
+            ("tuner", tuner), ("program_backend", program_backend)) if value is not None}
+        if given:
+            raise NotImplementedError(
+                f"ServingEngine: {sorted(given)} not ported yet (see ROADMAP queue 1)")
+        self.cfg, self.scfg, self.params = cfg, scfg, params
+        self.device = params["embed"].device
+        n = scfg.batch_slots
+        self._buckets = prefill_buckets(scfg.max_len, scfg.min_bucket)
+        self._states = M.init_slot_states(cfg, n, scfg.max_len, device=self.device)
+        self._tokens = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        self._slots: list[RequestHandle | None] = [None] * n
+        self._queue: deque[RequestHandle] = deque()
+        # in-flight dispatched steps: (host copy of tokens or logits, {slot: handle})
+        self._pending: deque[tuple[Any, dict[int, RequestHandle]]] = deque()
+        self.results: dict[int, list[int]] = {}
+        self.failed: dict[int, RequestHandle] = {}
+        self._inflight: dict[int, RequestHandle] = {}
+        self._closed = False
+        self._next_rid = 0
+        self.rng = np.random.default_rng(scfg.seed)
+
+    # -- public API ------------------------------------------------------------
+    def submit(self, prompt, _legacy_prompt=None, *, rid: int | None = None,
+               on_token: Callable[[RequestHandle, int], None] | None = None,
+               timeout_s: float | None = None) -> RequestHandle:
+        """Queue a prompt; returns its :class:`RequestHandle`.
+
+        ``timeout_s`` arms a per-request deadline (measured from submission).
+        Duplicate in-flight ``rid``s and submissions after ``drain()`` /
+        ``shutdown()`` are rejected.  The legacy positional form
+        ``submit(rid, prompt)`` still works but is deprecated.
+        """
+        if _legacy_prompt is not None:
+            warnings.warn(
+                "ServingEngine.submit(rid, prompt) is deprecated; use "
+                "submit(prompt, rid=...) -> RequestHandle",
+                DeprecationWarning, stacklevel=2)
+            rid, prompt = int(prompt), _legacy_prompt
+        if self._closed:
+            raise RuntimeError(
+                "ServingEngine is shut down (drain()/shutdown() was called); "
+                "create a new engine to serve more requests")
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError(f"prompt must be a non-empty 1-D token array, "
+                             f"got shape {prompt.shape}")
+        if prompt.size > self._buckets[-1]:
+            raise ValueError(
+                f"prompt length {prompt.size} exceeds the largest prefill "
+                f"bucket {self._buckets[-1]} (max_len={self.scfg.max_len})")
+        if prompt.size + self.scfg.max_new_tokens > self.scfg.max_len:
+            raise ValueError(
+                f"prompt length {prompt.size} + max_new_tokens "
+                f"{self.scfg.max_new_tokens} exceeds max_len "
+                f"{self.scfg.max_len} (the decode cache would overflow)")
+        if rid is None:
+            rid = self._next_rid
+        elif rid in self._inflight:
+            raise ValueError(
+                f"rid {rid} is already in flight (state "
+                f"{self._inflight[rid].state.value}); pass a fresh rid or omit it")
+        self._next_rid = max(self._next_rid, rid) + 1
+        deadline = time.monotonic() + timeout_s if timeout_s is not None else None
+        h = RequestHandle(rid=rid, prompt=prompt, on_token=on_token,
+                          deadline=deadline, _engine=self)
+        self._inflight[rid] = h
+        self._queue.append(h)
+        return h
+
+    def step(self) -> int:
+        """One scheduling iteration: admit queued requests into free slots,
+        dispatch one batched decode over the occupied slots, harvest the
+        steps that are due.  Returns the number of occupied slots at dispatch
+        (0 = idle: queue empty, nothing in flight)."""
+        scfg = self.scfg
+        sync = scfg.temperature > 0.0
+        depth = 0 if sync else max(0, scfg.pipeline_depth)
+        self._expire_queued()
+        self._admit()
+        live = {i: h for i, h in enumerate(self._slots) if h is not None}
+        if not live:
+            while self._pending:
+                self._harvest_one()
+            return 0
+        try:
+            if sync:
+                logits, self._states = M.decode_slots(
+                    self.cfg, self.params, self._states, self._tokens)
+                self._pending.append((_start_copy(logits.float()), live))
+            else:
+                # pipelined: the sampled tokens stay on the device and feed
+                # the next dispatch; the host reads them `depth` steps later
+                next_tok, self._states = M.decode_slots_greedy(
+                    self.cfg, self.params, self._states, self._tokens)
+                self._tokens = next_tok
+                self._pending.append((_start_copy(next_tok), live))
+        except Exception as e:  # noqa: BLE001 — batch-level dispatch failure
+            # the whole step is lost: fail the requests that occupied slots,
+            # recycle them, and keep the engine serviceable for the queue
+            for i, h in live.items():
+                self._fail(h, e, slot=i)
+            return self.step() if self._queue or self._pending else 0
+        while len(self._pending) > depth:
+            self._harvest_one()
+        return len(live)
+
+    def drain(self) -> dict[int, list[int]]:
+        """Run until the queue and every slot are empty, then shut the
+        engine down; returns ``rid -> generated tokens`` for every request
+        that COMPLETED."""
+        while self._queue or self._pending or any(h is not None for h in self._slots):
+            self.step()
+        self._closed = True
+        return self.results
+
+    def shutdown(self) -> None:
+        """Close the engine without draining: queued and running requests
+        transition to CANCELLED (running ones keep their partial tokens);
+        later ``submit`` calls raise."""
+        for h in list(self._queue) + [h for h in self._slots if h is not None]:
+            if not h.done:
+                self._cancel(h)
+        while self._pending:  # sync the device so nothing dangles
+            self._harvest_one()
+        self._closed = True
+
+    def run(self) -> dict[int, list[int]]:
+        """Deprecated: drain the queue; returns rid -> generated tokens.
+        Use ``submit()``/``step()``/``drain()`` or ``RequestHandle.result()``."""
+        warnings.warn(
+            "ServingEngine.run() is deprecated; use submit()/step()/drain() "
+            "or RequestHandle.result()", DeprecationWarning, stacklevel=2)
+        return self.drain()
+
+    # -- internals -------------------------------------------------------------
+    def _prefill(self, h: RequestHandle):
+        """Bucket-padded prefill of one request into a fresh b=1 state;
+        returns (last-valid-position logits (V,), state)."""
+        cfg, scfg = self.cfg, self.scfg
+        s = int(h.prompt.size)
+        bucket = next(b for b in self._buckets if b >= s)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :s] = h.prompt
+        state = M.init_decode_state(cfg, 1, scfg.max_len, ring=False, device=self.device)
+        logits, state = M.decode_step(cfg, self.params, state,
+                                      torch.as_tensor(toks, device=self.device))
+        # reset to the true length: the padded cache rows beyond it are
+        # causally masked and get overwritten as decode proceeds
+        state["len"] = s
+        return logits[0, s - 1], state
+
+    def _sample_from(self, lf: np.ndarray) -> int:
+        if self.scfg.temperature <= 0.0:
+            return int(lf.argmax())
+        p = np.exp((lf - lf.max()) / self.scfg.temperature)
+        p /= p.sum()
+        return int(self.rng.choice(len(p), p=p))
+
+    def _check_finite(self, lf: np.ndarray, h: RequestHandle) -> None:
+        if not np.isfinite(lf).all():
+            raise NonFiniteLogits(
+                f"request {h.rid}: non-finite logits "
+                f"(nan={int(np.isnan(lf).sum())}, inf={int(np.isinf(lf).sum())} "
+                f"of {lf.size})")
+
+    # -- terminal transitions -------------------------------------------------
+    def _retire(self, h: RequestHandle, slot: int | None = None) -> None:
+        self._inflight.pop(h.rid, None)
+        if slot is not None and self._slots[slot] is h:
+            self._slots[slot] = None
+
+    def _finish(self, h: RequestHandle, slot: int | None = None) -> None:
+        self.results[h.rid] = h.tokens
+        self._retire(h, slot)
+
+    def _fail(self, h: RequestHandle, err: BaseException, slot: int | None = None) -> None:
+        h.state = RequestState.FAILED
+        h.error = err
+        self.failed[h.rid] = h
+        self._retire(h, slot)
+
+    def _timeout(self, h: RequestHandle, slot: int | None = None) -> None:
+        h.state = RequestState.TIMED_OUT
+        self._retire(h, slot)
+
+    def _cancel(self, h: RequestHandle) -> None:
+        h.state = RequestState.CANCELLED
+        try:
+            self._queue.remove(h)
+        except ValueError:
+            pass
+        slot = next((i for i, s in enumerate(self._slots) if s is h), None)
+        self._retire(h, slot)
+
+    def _expire_queued(self) -> None:
+        """TIMED_OUT sweep over requests still waiting for a slot."""
+        now = time.monotonic()
+        for h in [h for h in self._queue if h._overdue(now)]:
+            self._queue.remove(h)
+            self._timeout(h)
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue: bucketed prefill, sample the
+        first token, write the slot state.  A request whose prefill raises
+        or whose prefill logits are non-finite fails alone."""
+        while self._queue and None in self._slots:
+            h = self._queue.popleft()
+            if h._overdue(time.monotonic()):
+                self._timeout(h)
+                continue
+            try:
+                last_logits, state = self._prefill(h)
+                lf = last_logits.float().cpu().numpy()
+                self._check_finite(lf, h)
+                t0 = self._sample_from(lf)
+                h.state = RequestState.RUNNING
+                h._append(t0, self.scfg)
+            except Exception as e:  # noqa: BLE001 — request-scoped isolation
+                self._fail(h, e)
+                continue
+            if h.done:  # eos / max_new_tokens == 1: never occupies a slot
+                self._finish(h)
+                continue
+            i = self._slots.index(None)
+            self._slots[i] = h
+            self._states = M.write_slot(self._states, i, state)
+            self._tokens[i] = t0
+
+    def _harvest_one(self) -> None:
+        """Wait for the oldest in-flight step's tokens (or logits) and credit
+        them to the handles that occupied each slot at dispatch time.  This
+        is the only point the host waits on the device, and where deadlines
+        expire and per-request failures are decided."""
+        copy, live = self._pending.popleft()
+        arr = _finish_copy(copy)
+        now = time.monotonic()
+        for i, h in live.items():
+            if h.done:  # finished in a younger harvest; overshoot dropped
+                continue
+            if h._overdue(now):
+                self._timeout(h, slot=i)
+                continue
+            try:
+                if arr.ndim == 1:  # greedy path: sampled tokens (N,)
+                    tok = int(arr[i])
+                else:  # sync path: logits (N, V), sample on the host
+                    lf = arr[i]
+                    self._check_finite(lf, h)
+                    tok = self._sample_from(lf)
+                    self._tokens[i] = tok
+                h._append(tok, self.scfg)
+            except Exception as e:  # noqa: BLE001 — request-scoped isolation
+                self._fail(h, e, slot=i)
+                continue
+            if h.done:
+                self._finish(h, slot=i)

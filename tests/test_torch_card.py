@@ -1,11 +1,15 @@
-"""The port's kernels on a card, each against its plain version.
+"""The port's kernels on a card, each against its plain version, and the
+model stack's main path on the card against the fp32 plain forward.
 
 Needs an NVIDIA card and imports nothing of jax, so it runs on a machine
 with the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_card.py``.  Without a card every test skips (decided in a
 fixture).  The nest-kernel cases are tests/test_tiling.py's edge cases,
 built from the port's IR; ``test_torch_kernels.py`` runs the same cases
-through the plain versions against the reference on the CPU.
+through the plain versions against the reference on the CPU.  The K4/K5
+cases are tests/test_kernels.py's sweeps plus the head sizes the configs
+use; ``test_torch_model_kernels.py`` holds the plain versions against the
+reference on the CPU.
 """
 import numpy as np
 import pytest
@@ -14,8 +18,11 @@ import torch
 from repro_torch.core import Schedule
 from repro_torch.core import ir as pir
 from repro_torch.core.scheduler import random_inputs
+from repro_torch.kernels import flash_attention as p_flash
 from repro_torch.kernels import gemm as p_gemm
 from repro_torch.kernels import nest_kernel as p_nest
+from repro_torch.kernels import ref as p_ref
+from repro_torch.kernels import rmsnorm as p_rms
 
 torch.set_num_threads(1)
 MAX_REL = 2e-4  # fp32 kernels (tests/test_kernels.py)
@@ -65,6 +72,32 @@ def reduce_op(ir, op, n=10, m=12):
                       (ir.Loop("i", n, body=(ir.Loop("k", m, body=(c,)),)),))
 
 
+# tests/test_kernels.py's flash-attention sweep: (BHq, BHkv, Sq, Skv, causal, window, offset)
+ATTN_SWEEP = [
+    (4, 4, 32, 32, True, None, 0),
+    (4, 2, 64, 64, True, None, 0),      # GQA group 2
+    (8, 2, 40, 72, True, 16, 0),        # GQA group 4 + SWA
+    (2, 1, 8, 128, True, None, 120),    # decode-like offset
+    (2, 2, 48, 48, False, None, 0),     # bidirectional (encoder)
+    (2, 2, 17, 33, True, 8, 0),         # ragged, non-multiple shapes
+]
+HEAD_SIZES = [32, 64, 120, 128]  # reduced configs, Danube (120), full MHA heads
+ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5  # tests/test_kernels.py (fp32)
+RMS_TOL = 1e-5                     # tests/test_kernels.py (fp32)
+# bf16 attention: P is rounded to bf16 before P.V (as in the reference
+# kernel) where the plain version keeps it in fp32, and the output is one
+# bf16 rounding: 2^-8 relative each, so 2e-2 as tests/test_kernels.py allows
+# for 16-bit types
+BF16_ATTN_TOL = 2e-2
+
+
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each value of ``ref`` (8 bits of
+    mantissa): the spacing an fp32 result may move by when it is rounded."""
+    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 CASES = (
     [(f"stencil-{t}", lambda ir: stencil(ir, 10), dict(pallas_nest=True, nest_tile=t))
      for t in [(3, 3), (4, 8), (16, 16)]]
@@ -103,3 +136,98 @@ def test_nest_kernel_on_card(card, label, build, knobs):
     p_nest.nest_plain(nk, ref)
     for name in env:
         assert max_rel(env[name].cpu().numpy(), ref[name].cpu().numpy()) < MAX_REL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8, 64), (100, 96), (5, 32), (1, 3840), (2048, 3840),
+                                    (8, 12288), (7, 30)])
+def test_rmsnorm_kernel_on_card(card, rows, d, dtype):
+    g = torch.Generator(device=card).manual_seed(rows * d)
+    x = torch.randn(rows, d, generator=g, device=card).to(dtype)
+    gamma = (1 + 0.5 * torch.randn(d, generator=g, device=card)).to(dtype)
+    before = p_rms.LAUNCHES["rmsnorm"]
+    got = p_rms.rmsnorm(x, gamma, eps=1e-6)
+    torch.cuda.synchronize()
+    assert p_rms.LAUNCHES["rmsnorm"] == before + 1 and got.dtype == dtype
+    want = p_ref.rmsnorm(x, gamma, eps=1e-6)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RMS_TOL, atol=RMS_TOL)
+    else:  # both round one fp32 result to bf16: at most one ulp apart
+        assert bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_SIZES)
+@pytest.mark.parametrize("bh,bkv,sq,skv,causal,window,off", ATTN_SWEEP)
+def test_flash_attention_kernel_on_card(card, bh, bkv, sq, skv, causal, window, off, d):
+    g = torch.Generator(device=card).manual_seed(bh * sq + d)
+    q = torch.randn(bh, sq, d, generator=g, device=card)
+    k = torch.randn(bkv, skv, d, generator=g, device=card)
+    v = torch.randn(bkv, skv, d, generator=g, device=card)
+    before = p_flash.LAUNCHES["flash_attention"]
+    got = p_flash.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert p_flash.LAUNCHES["flash_attention"] == before + 1
+    want = p_ref.attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.testing.assert_close(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = p_flash.flash_attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
+    want = p_ref.attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ATTN_TOL, atol=BF16_ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_attention_per_slot_offsets_on_card(card):
+    """Decode over slots at different cache lengths: one offset per slot."""
+    g = torch.Generator(device=card).manual_seed(3)
+    slots, heads, kv, d, skv = 5, 8, 2, 120, 300
+    q = torch.randn(slots * heads, 1, d, generator=g, device=card)
+    k = torch.randn(slots * kv, skv, d, generator=g, device=card)
+    v = torch.randn(slots * kv, skv, d, generator=g, device=card)
+    lens = torch.tensor([0, 1, 37, 250, 299], dtype=torch.int32, device=card)
+    got = p_flash.flash_attention(q, k, v, causal=True, q_offset=lens)
+    want = p_ref.attention(q, k, v, causal=True,
+                           q_offset=p_flash.expand_offsets(lens, slots * heads, card))
+    torch.testing.assert_close(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    for i, n in enumerate(lens.tolist()):  # each slot alone, with an int offset
+        rows = slice(i * heads, (i + 1) * heads)
+        alone = p_flash.flash_attention(q[rows], k[i * kv:(i + 1) * kv], v[i * kv:(i + 1) * kv],
+                                        causal=True, q_offset=n)
+        torch.testing.assert_close(got[rows], alone, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minicpm-2b"])
+def test_model_and_engine_on_card(card, arch):
+    """The reduced model on the card (K4/K5 inside) against the fp32 plain
+    forward, and the engine's greedy tokens against the same model on the
+    CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (1, 100), generator=torch.Generator().manual_seed(1))
+    launches = p_rms.LAUNCHES["rmsnorm"], p_flash.LAUNCHES["flash_attention"]
+    got = M.forward(cfg, params, {"tokens": toks.to(card)})
+    torch.cuda.synchronize()
+    assert p_rms.LAUNCHES["rmsnorm"] == launches[0] + 2 * cfg.n_layers + 1
+    assert p_flash.LAUNCHES["flash_attention"] == launches[1] + cfg.n_layers
+    want = plain.forward(cfg, params, toks[0].to(card))
+    torch.testing.assert_close(got[0], want, rtol=2e-3, atol=2e-3)
+
+    cpu_params = {k: ([{n: (vv.cpu() if isinstance(vv, torch.Tensor) else
+                            {m: w.cpu() for m, w in vv.items()}) for n, vv in blk.items()}
+                       for blk in v] if k == "layers" else v.cpu()) for k, v in params.items()}
+    prompts = [np.array([3, 1, 4, 1, 5], np.int32), np.array([9, 8, 7], np.int32),
+               np.array([2, 7, 1, 8, 2, 8, 1], np.int32)]
+    out = []
+    for p in (params, cpu_params):
+        eng = ServingEngine(cfg, p, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6))
+        hs = [eng.submit(pr) for pr in prompts]
+        eng.drain()
+        out.append([h.tokens for h in hs])
+    assert out[0] == out[1]
