@@ -503,11 +503,16 @@ def main_path(torch) -> None:
 # ---------------------------------------------------------------------------
 RMS_TOL = 1e-5                      # tests/test_kernels.py (fp32)
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # tests/test_kernels.py (fp32)
-# bf16 attention: the kernel rounds P to bf16 before P.V (as the reference
-# kernel does) where the plain version keeps it in fp32, and the output is
-# rounded once to bf16: 2^-8 relative each, so 2e-2, the reference tests'
-# tolerance for 16-bit types
-BF16_ATTN_TOL = 2e-2
+# bf16 attention, held per q row by the relative L2 error of the output, a
+# measure scaled to the output (a row that sees 4096 keys has outputs of about
+# 0.03, so an absolute limit would be as large as the output).  Both sides
+# round their output to bf16 (2^-9 relative at most) and the kernel also
+# rounds P to bf16 before P.V, as the reference kernel does, where the plain
+# version keeps it in fp32.  The largest reading on an H100 over the sweep and
+# Danube's shapes was 4.3e-3 (PERF.md); the limit is about twice that, so an
+# error of 1% in a row (one key of 4096 too many or too few, a wrong merge of
+# the warps' partial states) fails it.  fp32 is held tightly at every shape.
+BF16_ATTN_REL_L2 = 8e-3
 # tests/test_kernels.py's flash-attention sweep: (BHq, BHkv, Sq, Skv, causal, window, offset)
 ATTN_SWEEP = [(4, 4, 32, 32, True, None, 0), (4, 2, 64, 64, True, None, 0),
               (8, 2, 40, 72, True, 16, 0), (2, 1, 8, 128, True, None, 120),
@@ -605,28 +610,37 @@ def check_flash(torch, results: dict) -> None:
     worst = 0.0
 
     def compare(label, q, k, v, want_fn, **kw):
+        """(max abs diff, largest per-row relative L2 error) of K5 against
+        ``want_fn``; fp32 is held by allclose, bf16 by the row error."""
         nonlocal worst
         got = kf.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = want_fn(q, k, v, **kw)
         diff = float((got.float() - want.float()).abs().max())
+        row_err = float(rel_l2(torch, got, want).max())
         worst = max(worst, diff)
         if q.dtype == torch.float32:
             ok = torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
         else:
-            ok = torch.allclose(got.float(), want.float(), rtol=BF16_ATTN_TOL, atol=BF16_ATTN_TOL)
+            ok = row_err <= BF16_ATTN_REL_L2
         if not ok:
-            raise AssertionError(f"K5 {label}: max abs diff {diff:.3e}")
-        return diff
+            raise AssertionError(f"K5 {label}: max abs diff {diff:.3e}, "
+                                 f"row relative L2 {row_err:.3e}")
+        return diff, row_err
 
+    sweep_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for d in HEAD_SIZES:
         for bh, bkv, sq, skv, causal, window, off in ATTN_SWEEP:
             q, k, v = rnd(bh, sq, d), rnd(bkv, skv, d), rnd(bkv, skv, d)
             for dt in (torch.float32, torch.bfloat16):
-                compare(f"sweep {bh},{bkv},{sq},{skv},{causal},{window},{off} D={d} {dt}",
-                        q.to(dt), k.to(dt), v.to(dt), ref.attention,
-                        causal=causal, window=window, q_offset=off)
-    log(f"  K5 flash attention: tests/test_kernels.py sweep x D {HEAD_SIZES}, fp32 and bf16: ok")
+                _, row_err = compare(
+                    f"sweep {bh},{bkv},{sq},{skv},{causal},{window},{off} D={d} {dt}",
+                    q.to(dt), k.to(dt), v.to(dt), ref.attention,
+                    causal=causal, window=window, q_offset=off)
+                sweep_err[dt] = max(sweep_err[dt], row_err)
+    log(f"  K5 flash attention: tests/test_kernels.py sweep x D {HEAD_SIZES}: ok, "
+        f"largest row relative L2 fp32 {sweep_err[torch.float32]:.3e}, "
+        f"bf16 {sweep_err[torch.bfloat16]:.3e} (limit {BF16_ATTN_REL_L2:g})")
 
     slots, heads, kvh, d = 8, 32, 8, 120
     lens = torch.tensor([1, 300, 1111, 2047, 2500, 3333, 4000, 4095], dtype=torch.int32,
@@ -645,10 +659,9 @@ def check_flash(torch, results: dict) -> None:
     timings = {}
     for label, (kw, qs, ks, want_fn) in cases.items():
         q32, k32, v32 = rnd(*qs), rnd(*ks), rnd(*ks)
-        if label != "forward":
-            compare(f"Danube {label} fp32", q32, k32, v32, want_fn, **kw)
+        diff32, _ = compare(f"Danube {label} fp32", q32, k32, v32, want_fn, **kw)
         q, k, v = q32.bfloat16(), k32.bfloat16(), v32.bfloat16()
-        diff = compare(f"Danube {label} bf16", q, k, v, want_fn, **kw)
+        diff, row_err = compare(f"Danube {label} bf16", q, k, v, want_fn, **kw)
         ms = cuda_ms(lambda: kf.flash_attention(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: want_fn(q, k, v, **kw), repeats=3)
         # yardstick: SDPA over the same inputs with the KV heads repeated
@@ -678,7 +691,8 @@ def check_flash(torch, results: dict) -> None:
                           "operations" if t_ops >= t_bytes else "bytes")
         log(f"  K5 Danube {label} q {tuple(q.shape)} kv {tuple(k.shape)} bf16: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({timings[label][4]}), max abs diff {diff:.3e}")
+            f"({timings[label][4]}), max abs diff {diff:.3e}, row relative L2 {row_err:.3e}; "
+            f"fp32 max abs diff {diff32:.3e}")
         del q32, k32, v32, q, k, v
     ms, plain_ms, library_ms, bound, by = timings["prefill"]
     results["flash_attention"] = dict(
@@ -703,7 +717,7 @@ WATCHED = (0, 5, 10, 15)  # requests whose logits are held against the plain for
 EMBED_STD = 1e-3
 # Engine (bf16, K4/K5) against the fp32 plain forward: the largest relative
 # L2 error of one position's logits.  Measured on the card before it was
-# set (PERF.md, PR 13); the check below also proves that fp8 weights,
+# set (PERF.md); the check below also proves that fp8 weights,
 # eps = 0 and gamma = 1 each exceed it.
 LOGITS_REL_TOL = 5e-2
 

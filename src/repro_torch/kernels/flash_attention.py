@@ -18,6 +18,7 @@ launches and ``PLAIN`` the plain-version runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,16 +35,19 @@ ROWS_PER_BLOCK = 4  # csrc/flash_attention.cu: R
 
 def expand_offsets(q_offset, bhq: int, device) -> int | torch.Tensor:
     """An int stays an int; a tensor of ``n`` offsets (``bhq % n == 0``)
-    becomes an int32 tensor of one offset per q row on ``device``."""
+    becomes an int32 tensor of one offset per q row on ``device`` (returned as
+    it is when it already is one)."""
     if not isinstance(q_offset, torch.Tensor):
         return int(q_offset)
     off = q_offset.reshape(-1)
     n = off.numel()
     if n == 0 or bhq % n:
         raise ValueError(f"q_offset has {n} entries, which do not divide {bhq} q rows")
-    return off.to(device=device, dtype=torch.int32).repeat_interleave(bhq // n)
+    off = off.to(device=device, dtype=torch.int32)
+    return off if n == bhq else off.repeat_interleave(bhq // n)
 
 
+@functools.cache
 def _entry(dtype: torch.dtype):
     fn = getattr(cuda_library("flash_attention"), _DTYPES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,

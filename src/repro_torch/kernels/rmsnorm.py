@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/rmsnorm.py::rmsnorm`` (the Pallas TPU kernel).  The
 kernel is ``repro_torch/csrc/rmsnorm.cu``: one warp per row, fp32 math, gamma
-applied in fp32, the output in ``x``'s type (float32 or bfloat16).
+(in ``x``'s type) applied in fp32, the output in ``x``'s type (float32 or
+bfloat16).
 
 ``rmsnorm`` launches the kernel for CUDA tensors and takes
 ``kernels.ref.rmsnorm`` for CPU tensors only.  ``LAUNCHES`` counts kernel
@@ -11,6 +12,7 @@ launches and ``PLAIN`` the plain-version runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,8 +25,9 @@ PLAIN = {"rmsnorm": 0}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _entry(x_dtype: torch.dtype, g_dtype: torch.dtype):
-    fn = getattr(cuda_library("rmsnorm"), f"repro_rmsnorm_{_NAMES[x_dtype]}_{_NAMES[g_dtype]}")
+@functools.cache
+def _entry(dtype: torch.dtype):
+    fn = getattr(cuda_library("rmsnorm"), f"repro_rmsnorm_{_NAMES[dtype]}")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -33,12 +36,13 @@ def _entry(x_dtype: torch.dtype, g_dtype: torch.dtype):
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x**2, -1) + eps) * gamma`` over the last axis of ``x``
-    (any leading shape); ``gamma`` has ``x.shape[-1]`` entries."""
+    (any leading shape); ``gamma`` has ``x.shape[-1]`` entries of ``x``'s type."""
     d = x.shape[-1]
     if gamma.shape != (d,):
         raise ValueError(f"rmsnorm: gamma {tuple(gamma.shape)} for rows of {d}")
-    if x.dtype not in _NAMES or gamma.dtype not in _NAMES:
-        raise TypeError(f"rmsnorm: dtypes {x.dtype}, {gamma.dtype} (want float32 or bfloat16)")
+    if x.dtype not in _NAMES or gamma.dtype != x.dtype:
+        raise TypeError(f"rmsnorm: dtypes {x.dtype}, {gamma.dtype} "
+                        "(want both float32 or both bfloat16)")
     if x.device != gamma.device:
         raise ValueError(f"rmsnorm: x on {x.device}, gamma on {gamma.device}")
     if x.device.type == "cpu":
@@ -52,7 +56,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6) -> torch
     rows = x.numel() // d if d else 0
     if rows == 0 or d == 0:
         return out
-    fn = _entry(x.dtype, gamma.dtype)
+    fn = _entry(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d, float(eps), stream)

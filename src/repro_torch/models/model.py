@@ -26,6 +26,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.flash_attention import expand_offsets
 from . import layers as L
 
 Params = dict[str, Any]
@@ -184,6 +185,8 @@ def decode_slots(cfg: ModelConfig, params: Params, states: dict, tokens: torch.T
     clen = states["len"]
     x = params["embed"][tokens][:, None, :]  # (N, 1, D)
     wpos, aoff = _slots(cfg, clen, states["layers"][0].shape[3])
+    # one K5 offset per q row (slot x head), expanded once for every layer
+    aoff = expand_offsets(aoff, x.shape[0] * cfg.n_heads, x.device)
     logits = _run_layers(cfg, params, states, x, clen[:, None], wpos, aoff)
     states["len"] = clen + 1
     return logits[:, 0], states

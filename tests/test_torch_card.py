@@ -84,11 +84,11 @@ ATTN_SWEEP = [
 HEAD_SIZES = [32, 64, 120, 128]  # reduced configs, Danube (120), full MHA heads
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5  # tests/test_kernels.py (fp32)
 RMS_TOL = 1e-5                     # tests/test_kernels.py (fp32)
-# bf16 attention: P is rounded to bf16 before P.V (as in the reference
-# kernel) where the plain version keeps it in fp32, and the output is one
-# bf16 rounding: 2^-8 relative each, so 2e-2 as tests/test_kernels.py allows
-# for 16-bit types
-BF16_ATTN_TOL = 2e-2
+# bf16 attention, held per q row by the relative L2 error of the output (a
+# measure scaled to the output): both sides round their output to bf16 and
+# the kernel also rounds P to bf16 before P.V, as the reference kernel does.
+# The limit is chip_smoke.py's, set from its readings on an H100 (PERF.md).
+BF16_ATTN_REL_L2 = 8e-3
 
 
 def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
@@ -174,7 +174,9 @@ def test_flash_attention_kernel_on_card(card, bh, bkv, sq, skv, causal, window, 
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     got = p_flash.flash_attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
     want = p_ref.attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
-    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ATTN_TOL, atol=BF16_ATTN_TOL)
+    got, want = got.float(), want.float()
+    row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= BF16_ATTN_REL_L2
 
 
 @pytest.mark.cuda

@@ -68,6 +68,8 @@ def test_rmsnorm_rejects_bad_input():
         p_rms.rmsnorm(x, torch.ones(7))
     with pytest.raises(TypeError):
         p_rms.rmsnorm(x.double(), torch.ones(8).double())
+    with pytest.raises(TypeError):
+        p_rms.rmsnorm(x, torch.ones(8).bfloat16())
 
 
 # ---------------------------------------------------------------------------
