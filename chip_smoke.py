@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases, in order (any failure exits nonzero):
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA kernels K1 (GEMM), K4 (RMSNorm) and K5 (flash attention)
-   with ``nvcc`` from ``src/repro_torch/csrc``, one ``nvcc`` per source, all
-   started together, with ptxas's register and spill lines;
+2. build: the CUDA kernels K1 (GEMM), K4 (RMSNorm), K5 (flash attention) and
+   K6 (grouped matmul) with ``nvcc`` from ``src/repro_torch/csrc``, one
+   ``nvcc`` per source, all started together, with ptxas's register and
+   spill lines;
 3. kernels against their plain versions on the card: K1 at the kernel-test
    shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
@@ -18,7 +19,9 @@ Phases, in order (any failure exits nonzero):
    and bf16 over rows {1, 8, 2048, 8192} x D {128, 3840, 12288}; K5 over
    tests/test_kernels.py's sweep x D {32, 64, 120, 128}, per-slot offsets and
    H2O-Danube3-4B's prefill, 8192-token windowed forward and 8-slot decode;
-   then each kernel's time at a main-path shape beside its plain version's,
+   K6 in fp32 and bf16 at ragged shapes and at Mixtral 8x7B's expert
+   products (a 2048-token bucket's gate/up and down, a 16-slot decode step,
+   a 128-token bucket); then each kernel's time at a main-path shape beside its plain version's,
    its bound and, where one torch call computes the same function, that
    call's time;
 4. main path, PolyBench: ``Daisy(backend="cuda")`` on the 15 A variants and
@@ -39,7 +42,17 @@ Phases, in order (any failure exits nonzero):
    eps = 0 and gamma = 1 are each shown to exceed; K4/K5 launches (> 0);
 8. main path, forward: ``forward`` on one 8192-token sequence, so K5 runs
    with the 4096 window, held against the plain forward at 256 positions
-   beyond 4096; K4/K5 launches (> 0).
+   beyond 4096; K4/K5 launches (> 0);
+9. main path, MoE serving: Mixtral 8x7B at its published widths with all 8
+   experts and top-2, cut in depth to 16 of its 32 layers (one stage of a
+   two-stage pipeline over two cards), bf16, seeded weights, through
+   ``ServingEngine`` (16 slots, 4096 positions, 32 new tokens): 32 requests
+   with prompts of 128-2048 tokens; the serving metrics of phase 7, dropped
+   token-expert assignments per prefill, a decode step's breakdown; four
+   requests' logits held against the fp32 plain forward, which follows the
+   engine's dispatch groups and its near-tie routing choices; the three
+   mutants plus gates over all experts each exceed the tolerance; K4/K5/K6
+   launches (> 0).
 
 Kernel recipes are seeded, per canonical nest, for every nest the nest
 planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -54,6 +67,7 @@ result and exits nonzero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -61,6 +75,7 @@ import sys
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -705,7 +720,98 @@ def check_flash(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: the model stack's main path, H2O-Danube3-4B at full width
+# phase 3, the MoE layer: K6 against its plain version
+# ---------------------------------------------------------------------------
+# bf16 grouped matmul, held per output row by the relative L2 error against
+# the fp32 product of the same bf16 inputs.  The kernel accumulates in fp32 and
+# rounds the output to bf16 once (2^-9 relative at most per value), so a row's
+# error is that rounding alone: 1.68-2.25e-3 on an H100 over every shape below
+# (PERF.md).  The limit is about twice that; a copy of the kernel that drops
+# the last D slice of 32 exceeds it at every one of these shapes.
+BF16_GMM_REL_L2 = 5e-3
+MIXTRAL = "mixtral-8x7b"
+# Mixtral 8x7B's expert products (E 8, D 4096, F 14336): gate/up and down of a
+# 2048-token prefill bucket (capacity 640), gate/up of a 16-slot decode step
+# (capacity 16) and of a 128-token bucket (capacity 40)
+GMM_SHAPES = {"prefill 2048 gate/up": (8, 640, 4096, 14336),
+              "prefill 2048 down": (8, 640, 14336, 4096),
+              "decode 16 slots gate/up": (8, 16, 4096, 14336),
+              "bucket 128 gate/up": (8, 40, 4096, 14336)}
+# ragged and small shapes: C, D, F not multiples of 16 (E = 3), each tile
+# height, loads one by one (D or F not a multiple of 8) and 16 bytes at a time
+GMM_RAGGED = [(3, 13, 37, 29), (3, 70, 100, 45), (3, 130, 264, 200), (3, 50, 520, 1000),
+              (3, 17, 4096, 14336 - 8)]
+
+
+def check_grouped_matmul(torch, results: dict) -> None:
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst, worst_row = 0.0, 0.0
+
+    def inputs(e, c, d, f):
+        x = torch.randn(e, c, d, generator=g, device="cuda")
+        w = torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
+        return x, w
+
+    def bf16_row_err(x, w):
+        nonlocal worst, worst_row
+        xb, wb = x.bfloat16(), w.bfloat16()
+        got = km.grouped_matmul(xb, wb)
+        torch.cuda.synchronize()
+        want = ref.grouped_matmul(xb.float(), wb.float())
+        worst = max(worst, float((got.float() - want).abs().max()))
+        err = float(rel_l2(torch, got, want).max())
+        worst_row = max(worst_row, err)
+        return err
+
+    for e, c, d, f in GMM_RAGGED:
+        x, w = inputs(e, c, d, f)
+        got = km.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        err32 = max_rel(got, ref.grouped_matmul(x, w))
+        err = bf16_row_err(x, w)
+        log(f"  K6 grouped matmul ({e},{c},{d}) @ ({e},{d},{f}): fp32 max rel err {err32:.3e}, "
+            f"bf16 row relative L2 {err:.3e}")
+        if not (err32 <= KERNEL_MAX_REL and err <= BF16_GMM_REL_L2):
+            raise AssertionError(f"K6 ({e},{c},{d},{f}): fp32 {err32:.3e}, bf16 {err:.3e}")
+
+    timings = {}
+    for label, (e, c, d, f) in GMM_SHAPES.items():
+        x, w = inputs(e, c, d, f)
+        err = bf16_row_err(x, w)
+        if not err <= BF16_GMM_REL_L2:
+            raise AssertionError(f"K6 {label}: bf16 row relative L2 {err:.3e} > {BF16_GMM_REL_L2}")
+        xb, wb = x.bfloat16(), w.bfloat16()
+        del x, w
+        ms = cuda_ms(lambda: km.grouped_matmul(xb, wb))
+        plain_ms = cuda_ms(lambda: ref.grouped_matmul(xb, wb), repeats=3)
+        library_ms = cuda_ms(lambda: torch.bmm(xb, wb))
+        flops = 2.0 * e * c * d * f
+        nbytes = 2.0 * (e * c * d + e * d * f + e * c * f)
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        timings[label] = (ms, plain_ms, library_ms, max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes")
+        log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, torch.bmm "
+            f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms ({timings[label][4]}), "
+            f"row relative L2 {err:.3e}")
+        del xb, wb
+    log(f"  K6: largest bf16 row relative L2 {worst_row:.3e} (limit {BF16_GMM_REL_L2:g})")
+    ms, plain_ms, library_ms, bound, by = timings["prefill 2048 gate/up"]
+    results["grouped_matmul"] = dict(
+        name="grouped_matmul", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm.py:61", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+        shape="Mixtral prefill 2048 gate/up: (8, 640, 4096) @ (8, 4096, 14336), bf16",
+        other_shapes={k: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), t))
+                      for k, t in timings.items() if k != "prefill 2048 gate/up"})
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the model stack's main path at full width: H2O-Danube3-4B
+# (dense) and one pipeline stage of Mixtral 8x7B (MoE)
 # ---------------------------------------------------------------------------
 SEED = 0
 N_REQUESTS = 16
@@ -720,9 +826,18 @@ EMBED_STD = 1e-3
 # set (PERF.md); the check below also proves that fp8 weights,
 # eps = 0 and gamma = 1 each exceed it.
 LOGITS_REL_TOL = 5e-2
+# Phase 9: Mixtral 8x7B cut in depth to 16 of its 32 layers, every width and
+# all 8 experts kept: one stage of a two-stage pipeline over two H100s
+# (46.97 GB of bf16 weights; the whole model, 93.4 GB, does not fit one card).
+MIXTRAL_LAYERS = 16
+MIXTRAL_SLOTS = 16
+MIXTRAL_REQUESTS = 32
+MIXTRAL_WATCHED = (0, 10, 21, 31)
 
 
-def danube_params(torch, cfg):
+def seeded_params(torch, cfg):
+    """``init_params`` from SEED on the card, with gamma and the embeddings
+    redrawn as described at EMBED_STD."""
     from repro_torch.models import model as M
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -743,10 +858,23 @@ def rel_l2(torch, got, want):
     return (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
 
 
+class MappedLayers:
+    """The layers of a parameter tree, each mapped by ``fn`` only as it is
+    iterated: a changed copy of a 47 GB model does not fit beside it."""
+
+    def __init__(self, layers, fn):
+        self.layers, self.fn = layers, fn
+
+    def __iter__(self):
+        return (self.fn(b) for b in self.layers)
+
+
 def mutants(torch, cfg, params):
-    """The model computed wrongly in three ways the tolerance must catch:
-    weights rounded to fp8 (e4m3, power-of-two scale per matrix), every norm
-    without eps, every norm without gamma."""
+    """The model computed wrongly in ways the tolerance must catch: weights
+    rounded to fp8 (e4m3, power-of-two scale per matrix), every norm without
+    eps, every norm without gamma, and for MoE the gates taken from a softmax
+    over all experts' logits instead of the top-k.  Yields (label, config,
+    parameters, gate function for the plain forward or None)."""
     from dataclasses import replace
 
     def fp8(w):
@@ -756,50 +884,67 @@ def mutants(torch, cfg, params):
     def mapped(fn_w, fn_norm):
         out = {k: (fn_norm(v) if k == "final_norm" else fn_w(v))
                for k, v in params.items() if k != "layers"}
-        out["layers"] = [{"norm1": fn_norm(b["norm1"]), "norm2": fn_norm(b["norm2"]),
-                          "mixer": {k: fn_w(w) for k, w in b["mixer"].items()},
-                          "ffn": {k: fn_w(w) for k, w in b["ffn"].items()}}
-                         for b in params["layers"]]
+        out["layers"] = MappedLayers(params["layers"], lambda b: {
+            "norm1": fn_norm(b["norm1"]), "norm2": fn_norm(b["norm2"]),
+            "mixer": {k: fn_w(w) for k, w in b["mixer"].items()},
+            "ffn": {k: fn_w(w) for k, w in b["ffn"].items()}})
         return out
 
     same = lambda t: t  # noqa: E731
-    yield "fp8 weights", cfg, lambda: mapped(fp8, same)
-    yield "eps = 0", replace(cfg, norm_eps=0.0), lambda: params
-    yield "gamma = 1", cfg, lambda: mapped(same, torch.ones_like)
+    yield "fp8 weights", cfg, mapped(fp8, same), None
+    yield "eps = 0", replace(cfg, norm_eps=0.0), params, None
+    yield "gamma = 1", cfg, mapped(same, torch.ones_like), None
+    if cfg.is_moe:
+        yield ("gates over all experts", cfg, params,
+               lambda logits, experts: torch.softmax(logits, dim=-1).gather(1, experts))
 
 
-def serve_path(torch, smi: str) -> dict:
-    """Serve 16 requests through ``ServingEngine`` and hold the watched
-    requests' prefill and decode logits against the fp32 plain forward."""
+def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
+               watched: tuple[int, ...], seed: int) -> dict:
+    """Serve ``n_requests`` requests (prompts of 128-2048 tokens, all submitted
+    at once) through ``ServingEngine`` and hold the watched requests' prefill
+    and decode logits against the fp32 plain forward.  For MoE the engine's
+    routing is recorded: dropped assignments per prefill, and the plain
+    forward follows the engine's dispatch groups and its near-tie choices."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import plain
     from repro_torch.serve import ServeConfig, ServingEngine
 
-    cfg = get_config(DANUBE)
-    params = danube_params(torch, cfg)
+    moe = cfg.is_moe
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"  {DANUBE}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
-        f"{cfg.window}; {n_params / 1e9:.3f} B parameters in bf16")
-    scfg = ServeConfig(batch_slots=8, max_len=4096, max_new_tokens=32)
+        f"{cfg.window}" + (f", {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+                           f"{cfg.capacity_factor}" if moe else "")
+        + f"; {n_params / 1e9:.3f} B parameters in {cfg.dtype}")
+    scfg = ServeConfig(batch_slots=slots, max_len=4096, max_new_tokens=32)
 
     warm = ServingEngine(cfg, params, ServeConfig(batch_slots=2, max_len=256, max_new_tokens=4))
     warm.submit(np.arange(1, 100, dtype=np.int32))
     warm.drain()
     del warm
 
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(128, 2049, N_REQUESTS)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(128, 2049, n_requests)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     eng = ServingEngine(cfg, params, scfg)
 
-    # recording: the watched requests' logits, taken where the engine makes them
+    # recording: the watched requests' logits, taken where the engine makes
+    # them, and for MoE every call's experts (and the watched calls' fp32
+    # router logits, for the margin's reading)
     real_step, real_slots, real_prefill = M.decode_step, M.decode_slots, eng._prefill
-    last, rec_prefill, rec_decode = {}, {}, {rid: [] for rid in WATCHED}
+    real_route = L.moe_route
+    last, rec_prefill, rec_decode = {}, {}, {rid: [] for rid in watched}
+    route_log, prefill_routes, rec_route = [], {}, {rid: [] for rid in watched}
     prefill_s = [0.0]
+
+    def moe_route(x, router, k):
+        gates, experts = real_route(x, router, k)
+        route_log.append((experts, x.float() @ router))
+        return gates, experts
 
     def decode_step(*args):
         logits, state = real_step(*args)
@@ -807,30 +952,40 @@ def serve_path(torch, smi: str) -> dict:
         return logits, state
 
     def decode_slots(*args):
+        route_log.clear()
         logits, states = real_slots(*args)
         for i, h in enumerate(eng._slots):
             if h is not None and h.rid in rec_decode:
                 rec_decode[h.rid].append(logits[i].clone())
+                rec_route[h.rid].append([(e[i], lg[i]) for e, lg in route_log])
         return logits, states
 
     def prefill(h):
+        route_log.clear()
         t0 = time.perf_counter()
         out = real_prefill(h)
         torch.cuda.synchronize()
         prefill_s[0] += time.perf_counter() - t0
-        if h.rid in rec_prefill or h.rid in rec_decode:
+        if h.rid in rec_decode:
             rec_prefill[h.rid] = last["logits"][0, :h.prompt.size].clone()
+        if moe:  # every request's experts; the router logits of the watched ones
+            prefill_routes[h.rid] = [(e, lg if h.rid in rec_decode else None)
+                                     for e, lg in route_log]
         return out
 
     first_token = {}
     M.decode_step, M.decode_slots, eng._prefill = decode_step, decode_slots, prefill
-    t0 = time.perf_counter()
-    handles = [eng.submit(p, on_token=lambda h, t: first_token.setdefault(h.rid, time.perf_counter()))
-               for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    M.decode_step, M.decode_slots = real_step, real_slots
+    if moe:
+        L.moe_route = moe_route
+    try:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, on_token=lambda h, t: first_token.setdefault(
+            h.rid, time.perf_counter())) for p in prompts]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        M.decode_step, M.decode_slots, L.moe_route = real_step, real_slots, real_route
 
     bad = [(h.rid, h.state.value, repr(h.error)) for h in handles
            if h.state.value != "completed" or len(h.tokens) != scfg.max_new_tokens]
@@ -841,20 +996,24 @@ def serve_path(torch, smi: str) -> dict:
     decode_tokens = sum(len(h.tokens) - 1 for h in handles)
     all_tokens = sum(len(h.tokens) for h in handles)
     stats = dict(
-        requests=N_REQUESTS, prompt_tokens=prompt_tokens, wall_s=wall, prefill_s=prefill_s[0],
+        model=cfg.name, layers=cfg.n_layers, slots=slots,
+        requests=n_requests, prompt_tokens=prompt_tokens, wall_s=wall, prefill_s=prefill_s[0],
         prefill_tok_s=prompt_tokens / prefill_s[0],
         ttft_p50_s=float(np.percentile(ttft, 50)), ttft_p99_s=float(np.percentile(ttft, 99)),
         decode_tok_s=decode_tokens / (wall - prefill_s[0]),
         total_tok_s=all_tokens / wall)
-    log(f"  served {N_REQUESTS} requests (prompts {int(lens.min())}-{int(lens.max())} tokens, "
-        f"{prompt_tokens} in all; {scfg.max_new_tokens} new tokens each) in {wall:.2f} s; {smi}")
+    log(f"  served {n_requests} requests (prompts {int(lens.min())}-{int(lens.max())} tokens, "
+        f"{prompt_tokens} in all; {scfg.max_new_tokens} new tokens each; {slots} slots) in "
+        f"{wall:.2f} s; {smi}")
     log(f"  prefill {stats['prefill_tok_s']:.0f} tok/s ({prefill_s[0]:.2f} s); TTFT p50 "
         f"{stats['ttft_p50_s']:.3f} s, p99 {stats['ttft_p99_s']:.3f} s (all submitted at once); "
         f"decode {stats['decode_tok_s']:.1f} tok/s; total {stats['total_tok_s']:.1f} tok/s; {smi}")
+    if moe:
+        stats.update(prefill_drops(torch, cfg, handles, prefill_routes))
 
     # correctness: prefill and decode logits against the fp32 plain forward
-    seqs, engine_logits = {}, {}
-    for rid in WATCHED:
+    seqs, engine_logits, fwd_kw = {}, {}, {}
+    for rid in watched:
         h = handles[rid]
         p_len, g_len = h.prompt.size, len(h.tokens)
         seqs[rid] = torch.as_tensor(np.concatenate([h.prompt, h.tokens[:-1]]), device="cuda")
@@ -863,39 +1022,110 @@ def serve_path(torch, smi: str) -> dict:
         if not engine_logits[rid].shape[0] == p_len + g_len - 1 < cfg.window:
             raise AssertionError(f"request {rid}: {engine_logits[rid].shape[0]} logits recorded "
                                  f"for {p_len} + {g_len} tokens")
-    errs, refs = [], {}
-    for rid in WATCHED:
-        refs[rid] = plain.forward(cfg, params, seqs[rid])
+        fwd_kw[rid] = {}
+        if moe:  # the engine's dispatch groups: the padded bucket, then one per token
+            bucket = int(prefill_routes[rid][0][0].shape[0])
+            fwd_kw[rid]["moe_groups"] = (
+                [(0, p_len, L.moe_capacity(cfg, bucket))]
+                + [(t, t + 1, None) for t in range(p_len, p_len + g_len - 1)])
+    errs, refs, ties, agree_gap = [], {}, 0, 0.0
+    for rid in watched:
+        kw = dict(fwd_kw[rid])
+        if moe:
+            steps = rec_route[rid][:len(handles[rid].tokens) - 1]
+            p_len = handles[rid].prompt.size
+            kw["routing"] = [torch.cat([prefill_routes[rid][l][0][:p_len]]
+                                       + [s[l][0][None] for s in steps])
+                             for l in range(cfg.n_layers)]
+            engine_router = [torch.cat([prefill_routes[rid][l][1][:p_len]]
+                                       + [s[l][1][None] for s in steps])
+                             for l in range(cfg.n_layers)]
+            kw["stats"] = fstats = {}
+        refs[rid] = plain.forward(cfg, params, seqs[rid], **kw)
         err = rel_l2(torch, engine_logits[rid], refs[rid])
         errs.append(err)
         p_len = handles[rid].prompt.size
+        extra = ""
+        if moe:
+            gap = router_agreement(torch, cfg, engine_router, fstats)
+            ties += fstats.get("near_ties", 0)
+            agree_gap = max(agree_gap, gap)
+            extra = (f"; routing: {fstats.get('near_ties', 0)} near-tie token-layers took the "
+                     f"engine's choice (largest gap {fstats.get('max_tie_gap', 0.0):.4f}), "
+                     f"largest |engine - plain| router logit where they agree {gap:.4f}")
         log(f"  request {rid} ({p_len} + {len(handles[rid].tokens)} tokens): engine vs fp32 "
             f"plain, relative L2 per position: prefill max {float(err[:p_len].max()):.3e}, "
-            f"decode max {float(err[p_len:].max()):.3e}, median {float(err.median()):.3e}")
+            f"decode max {float(err[p_len:].max()):.3e}, median {float(err.median()):.3e}"
+            + extra)
     engine_err = float(torch.cat(errs).max())
+    if moe:
+        log(f"  routing over the watched requests: {ties} near-tie token-layers took the "
+            f"engine's choice (ROUTER_MARGIN {plain.ROUTER_MARGIN}); largest |engine - plain| "
+            f"router logit where the choices agree {agree_gap:.4f}")
+        stats.update(near_ties=ties, router_logit_gap=agree_gap)
     if not engine_err <= LOGITS_REL_TOL:
         raise AssertionError(f"engine logits: relative L2 {engine_err:.3e} > {LOGITS_REL_TOL}")
-    for label, mcfg, make in mutants(torch, cfg, params):
-        mparams = make()
-        merr = torch.cat([rel_l2(torch, plain.forward(mcfg, mparams, seqs[rid]), refs[rid])
-                          for rid in WATCHED])
+    labels = []
+    for label, mcfg, mparams, gate_fn in mutants(torch, cfg, params):
+        real_gates = plain.gates
+        plain.gates = gate_fn or real_gates
+        try:
+            merr = torch.cat([rel_l2(torch, plain.forward(mcfg, mparams, seqs[rid],
+                                                          **fwd_kw[rid]), refs[rid])
+                              for rid in watched])
+        finally:
+            plain.gates = real_gates
         del mparams
         log(f"  mutant '{label}' vs fp32 plain: relative L2 max {float(merr.max()):.3e}, "
             f"median {float(merr.median()):.3e}")
         if not float(merr.max()) > LOGITS_REL_TOL:
             raise AssertionError(f"tolerance {LOGITS_REL_TOL} does not catch '{label}'")
-    log(f"  engine logits within relative L2 {LOGITS_REL_TOL} (max {engine_err:.3e}); fp8 "
-        f"weights, eps = 0 and gamma = 1 each exceed it")
+        labels.append(label)
+    log(f"  engine logits within relative L2 {LOGITS_REL_TOL} (max {engine_err:.3e}); "
+        f"{', '.join(labels)} each exceed it")
     stats["max_rel_l2"] = engine_err
     stats.update(decode_breakdown(torch, cfg, params, eng._states, eng._tokens))
     log(f"  serving metrics: {json.dumps(stats)}")
     return dict(stats=stats, cfg=cfg, params=params)
 
 
+def prefill_drops(torch, cfg, handles, routes) -> dict:
+    """Token-expert assignments of real prompt tokens that the prefill's
+    capacity dropped: the padded bucket's tokens sort after the real ones of
+    each expert, so an expert drops max(0, real assignments - capacity)."""
+    from repro_torch.models import layers as L
+
+    drops = []
+    for h in handles:
+        p_len, n = h.prompt.size, 0
+        for experts, _ in routes[h.rid]:
+            cap = L.moe_capacity(cfg, experts.shape[0])
+            counts = torch.bincount(experts[:p_len].reshape(-1), minlength=cfg.n_experts)
+            n += int((counts - cap).clamp(min=0).sum())
+        drops.append(n)
+    assignments = sum(h.prompt.size for h in handles) * cfg.top_k * cfg.n_layers
+    log(f"  dropped token-expert assignments per prefill (real tokens, over {cfg.n_layers} "
+        f"layers): mean {sum(drops) / len(drops):.1f}, max {max(drops)}, "
+        f"{sum(drops)} of {assignments} in all ({sum(drops) / assignments:.3%})")
+    return dict(dropped_per_prefill=drops, dropped_share=sum(drops) / assignments)
+
+
+def router_agreement(torch, cfg, engine_router, fstats) -> float:
+    """The largest |engine - plain| fp32 router logit over the token-layers
+    where the plain forward's own top-k equals the engine's choice."""
+    gap = 0.0
+    for eng_lg, own_lg, used in zip(engine_router, fstats["router_logits"], fstats["experts"]):
+        own = torch.topk(own_lg, cfg.top_k, dim=-1).indices.sort(-1).values
+        agree = (own == used.sort(-1).values).all(-1)
+        if bool(agree.any()):
+            gap = max(gap, float((eng_lg.float() - own_lg)[agree].abs().max()))
+    return gap
+
+
 def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
     """Where one batched decode step's time goes: host-clock ms per step
-    (synchronized), and the device time of its kernels by group from
-    ``torch.profiler``, over the engine's final slot states."""
+    (synchronized), and the device time and launches of its kernels by group
+    from ``torch.profiler``, over the engine's final slot states."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
@@ -912,7 +1142,11 @@ def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         steps(5)
-    groups = {"K5 flash_attention": 0.0, "K4 rmsnorm": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    names = {"K6 grouped_matmul": ("moe_gmm",), "K5 flash_attention": ("flash_kernel",),
+             "K4 rmsnorm": ("rmsnorm_kernel",),
+             "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
+    groups = {k: 0.0 for k in [*names, "other"]}
+    counts = {k: 0 for k in groups}
     n_kernels = 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -922,22 +1156,20 @@ def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
             continue
         name = ev.key.lower()
         n_kernels += ev.count
-        if "flash_kernel" in name:
-            groups["K5 flash_attention"] += us
-        elif "rmsnorm_kernel" in name:
-            groups["K4 rmsnorm"] += us
-        elif any(t in name for t in ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")):
-            groups["matmul (cuBLAS)"] += us
-        else:
-            groups["other"] += us
+        group = next((g for g, keys in names.items() if any(t in name for t in keys)), "other")
+        groups[group] += us
+        counts[group] += ev.count
     per_step = {k: v / 5 / 1e3 for k, v in groups.items()}
     device_ms = sum(per_step.values())
-    log(f"  decode step (8 slots): {step_ms:.3f} ms on the host clock; device time per step "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in per_step.items())
+    idle = 1 - device_ms / step_ms if device_ms else None
+    log(f"  decode step ({tokens.shape[0]} slots): {step_ms:.3f} ms on the host clock; device "
+        "time per step " + ", ".join(f"{k} {v:.3f} ms ({counts[k] / 5:.0f} launches)"
+                                     for k, v in per_step.items())
         + f"; {n_kernels / 5:.0f} device ops per step; device idle "
-        + (f"{1 - device_ms / step_ms:.1%}" if device_ms else "not measured (no device events)"))
+        + (f"{idle:.1%}" if idle is not None else "not measured (no device events)"))
     return dict(decode_step_ms=step_ms, decode_device_ms=per_step,
-                decode_ops_per_step=n_kernels / 5)
+                decode_launches_per_step={k: v / 5 for k, v in counts.items()},
+                decode_ops_per_step=n_kernels / 5, decode_idle_share=idle)
 
 
 def _leaves(p):
@@ -993,10 +1225,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.configs import get_config
     from repro_torch.core import codegen
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import nest_kernel as nkm
     from repro_torch.kernels import rmsnorm as kr
 
@@ -1006,7 +1240,7 @@ def main() -> int:
 
     log("phase 2: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    sources = {"gemm": "K1", "rmsnorm": "K4", "flash_attention": "K5"}
+    sources = {"gemm": "K1", "rmsnorm": "K4", "flash_attention": "K5", "moe_gmm": "K6"}
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.cuda_library, sources))
     log(f"  built in {time.perf_counter() - t0:.2f} s")
@@ -1023,6 +1257,7 @@ def main() -> int:
     check_nest_kernel(torch, results)
     check_rmsnorm(torch, results)
     check_flash(torch, results)
+    check_grouped_matmul(torch, results)
 
     # the main path: every count starts at 0 here and is read right after
     kg.LAUNCHES["gemm"] = 0
@@ -1048,17 +1283,20 @@ def main() -> int:
     # the model stack's paths: the counts start at 0 before each, read right after
     def model_counts():
         return {"rmsnorm": kr.LAUNCHES["rmsnorm"], "flash_attention": kf.LAUNCHES["flash_attention"],
+                "grouped_matmul": km.LAUNCHES["grouped_matmul"],
                 "gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
 
     def reset_counts():
         kr.LAUNCHES["rmsnorm"] = kf.LAUNCHES["flash_attention"] = kg.LAUNCHES["gemm"] = 0
+        km.LAUNCHES["grouped_matmul"] = 0
         for k in nkm.EMITTED:
             nkm.EMITTED[k] = 0
 
     log(f"phase 7: main path, serving {DANUBE} at full width through ServingEngine")
     reset_counts()
-    served = serve_path(torch, smi)
+    served = serve_path(torch, smi, get_config(DANUBE), seeded_params(torch, get_config(DANUBE)),
+                        slots=8, n_requests=N_REQUESTS, watched=WATCHED, seed=SEED)
     torch.cuda.synchronize()
     serve_launches = model_counts()
     log(f"  launches: K4 rmsnorm {serve_launches['rmsnorm']}, K5 flash attention "
@@ -1080,9 +1318,38 @@ def main() -> int:
         if fwd_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the forward path")
     del served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = replace(get_config(MIXTRAL), n_layers=MIXTRAL_LAYERS)
+    log(f"phase 9: main path, serving {MIXTRAL} cut in depth to {MIXTRAL_LAYERS} of 32 layers "
+        f"(every width, all {mcfg.n_experts} experts, top-{mcfg.top_k}: one stage of a two-stage "
+        f"pipeline over two H100s) through ServingEngine")
+    torch.cuda.reset_peak_memory_stats()
+    mparams = seeded_params(torch, mcfg)
+    reset_counts()
+    served = serve_path(torch, smi, mcfg, mparams, slots=MIXTRAL_SLOTS,
+                        n_requests=MIXTRAL_REQUESTS, watched=MIXTRAL_WATCHED, seed=SEED + 9)
+    torch.cuda.synchronize()
+    moe_launches = model_counts()
+    log(f"  peak device memory over phase 9 (weights, caches, the fp32 yardstick): "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    per_step = served["stats"]["decode_launches_per_step"]
+    log(f"  launches: K6 grouped matmul {moe_launches['grouped_matmul']}, K5 flash attention "
+        f"{moe_launches['flash_attention']}, K4 rmsnorm {moe_launches['rmsnorm']} (K1 "
+        f"{moe_launches['gemm']}, K2 {moe_launches['pallas_nest']}, K3 "
+        f"{moe_launches['pallas_reduce']}); per profiled decode step K6 "
+        f"{per_step['K6 grouped_matmul']:.0f}, K5 {per_step['K5 flash_attention']:.0f}, K4 "
+        f"{per_step['K4 rmsnorm']:.0f}")
+    launches["grouped_matmul"] = moe_launches["grouped_matmul"]
+    for k in ("grouped_matmul", "rmsnorm", "flash_attention"):
+        if moe_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the MoE serving path")
+    del served, mparams
 
     kernels = []
-    for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention"):
+    for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
+                "grouped_matmul"):
         row = dict(results[key])
         row["launches"] = launches[key]
         kernels.append(row)

@@ -7,7 +7,9 @@
 * ``rmsnorm``         — K4, CUDA C++ (``csrc/rmsnorm.cu``), through
                         ``ops.rmsnorm`` in the model stack;
 * ``flash_attention`` — K5, CUDA C++ (``csrc/flash_attention.cu``), through
-                        ``ops.attention`` in the model stack.
+                        ``ops.attention`` in the model stack;
+* ``moe_gmm``         — K6, CUDA C++ (``csrc/moe_gmm.cu``), through
+                        ``ops.grouped_matmul`` in the MoE layer.
 
 ``ref`` holds the model-stack kernels' plain versions.
 """

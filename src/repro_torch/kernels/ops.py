@@ -2,13 +2,13 @@
 
 * ``einsum2`` — the daisy codegen's hook into K1: a clean 2-operand
   contraction -> GEMM;
-* ``rmsnorm`` — K4, ``attention`` — K5: the model stack's kernels.  On CUDA
-  tensors they launch the kernel or raise; on CPU tensors they take the plain
-  versions of ``kernels.ref`` (attention switches to the chunked one above
-  ``CHUNKED_ATTN_THRESHOLD`` score elements, as the reference's ``xla`` path
-  does).
+* ``rmsnorm`` — K4, ``attention`` — K5, ``grouped_matmul`` — K6: the model
+  stack's kernels.  On CUDA tensors they launch the kernel or raise; on CPU
+  tensors they take the plain versions of ``kernels.ref`` (attention switches
+  to the chunked one above ``CHUNKED_ATTN_THRESHOLD`` score elements, as the
+  reference's ``xla`` path does).
 
-``matmul`` and ``grouped_matmul`` (K6) are not ported yet.
+``matmul`` is not ported yet.
 
 The classifier (``einsum2_reject_reason``) is separate from the lowering so
 the codegen can decide before any launch whether a contraction goes to the
@@ -22,6 +22,7 @@ import torch
 from . import flash_attention as _fa
 from . import ref
 from .gemm import gemm
+from .moe_gmm import grouped_matmul  # noqa: F401
 from .rmsnorm import rmsnorm  # noqa: F401
 
 # Above this many score elements (Sq*Skv) the CPU path switches to the

@@ -1,7 +1,7 @@
 """Plain torch versions of the model-stack kernels (port of ``repro/kernels/ref.py``).
 
 They are what the wrappers in ``ops`` take for CPU tensors, and what
-``chip_smoke.py`` holds K4 and K5 against on the card.  Same masking and the
+``chip_smoke.py`` holds K4, K5 and K6 against on the card.  Same masking and the
 same fp32 arithmetic as the reference: scores and softmax in fp32, rows with
 no visible key give 0.
 
@@ -99,6 +99,12 @@ def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
         safe = torch.where(l == 0.0, torch.ones((), device=dev), l)
         out[:, q0:q0 + bq] = (acc / safe[..., None]).to(q.dtype)
     return out
+
+
+def grouped_matmul(x, w):
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F): each expert's product in fp32,
+    returned in x's type."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
 def rmsnorm(x, gamma, *, eps=1e-6):

@@ -14,11 +14,11 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .model import Params, _dense_only
+from .model import Params, check_family
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict[str, Any], device="cuda") -> Params:
-    _dense_only(cfg)
+    check_family(cfg)
     conv = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
     p: Params = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head") if k in tree}
     stacked = tree["layers"]

@@ -1,7 +1,9 @@
-"""Model building blocks of the dense decoder (port of ``repro/models/layers.py:80-188``).
+"""Model building blocks of the decoder (port of ``repro/models/layers.py:80-249``):
+rope, attention, the dense SwiGLU FFN and the MoE FFN.
 
 Plain functions over dicts of tensors.  Attention goes through
-``kernels.ops`` (K5 on the card), projections stay ``x @ w`` in torch with
+``kernels.ops`` (K5 on the card), the MoE experts through
+``ops.grouped_matmul`` (K6), projections stay ``x @ w`` in torch with
 the reference's ``(d_in, d_out)`` weight layout, as the reference leaves them
 to XLA outside any Pallas kernel.  The reference's ``constrain`` (sharding
 hints) has no counterpart: the port runs on one device.
@@ -133,3 +135,77 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
 
 def dense_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": _dense_init(gen, (d, e), torch.float32),
+        "wg": _dense_init(gen, (e, d, f), dtype),
+        "wu": _dense_init(gen, (e, d, f), dtype),
+        "wd": _dense_init(gen, (e, f, d), dtype),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert when ``n_tokens`` tokens are dispatched together."""
+    c = int(math.ceil(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
+    return max(8, -(-c // 8) * 8)  # round up to sublane multiple
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """Top-k routing: x (T, D) -> (gates (T, k) in x's type, experts (T, k)).
+    Router logits in fp32; gates are the softmax over the top-k logits."""
+    logits = x.float() @ router
+    top, experts = torch.topk(logits, k, dim=-1)
+    return torch.softmax(top, dim=-1).to(x.dtype), experts
+
+
+def moe_dispatch(experts: torch.Tensor, n_experts: int, capacity: int):
+    """Sort-based dispatch of the flattened (token, choice) assignments.
+
+    Returns ``(order, dest, keep)``: ``order`` sorts the assignments by expert,
+    stable, so each expert's assignments stay in token order and capacity keeps
+    the first ``capacity`` of them; ``dest`` is each sorted assignment's row of
+    the ``(E * capacity)`` dispatch buffer, or ``E * capacity`` (an overflow
+    row) where ``keep`` is False.  No host synchronisation.
+    """
+    fe = experts.reshape(-1)
+    order = torch.argsort(fe, stable=True)  # jnp.argsort is stable, torch's default is not
+    se = fe[order]
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=fe.device)
+    counts.scatter_add_(0, fe, torch.ones_like(fe))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(fe.numel(), device=fe.device) - starts[se]
+    keep = pos < capacity
+    dest = torch.where(keep, se * capacity + pos, n_experts * capacity)
+    return order, dest, keep
+
+
+def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
+            capacity: int | None = None) -> torch.Tensor:
+    """Top-k token-choice MoE with static capacity (sort-based dispatch).
+
+    x (T, D) -> (T, D).  ``capacity`` defaults to ``moe_capacity(cfg, T)``, the
+    reference's; assignments over it (capacity overflow) contribute 0.  The
+    batched decode passes ``capacity=T``, which drops nothing, as the
+    reference's per-slot decode (T = 1, capacity 8) never does.
+    """
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = moe_capacity(cfg, t) if capacity is None else capacity
+    gates, experts = moe_route(x, p["router"], k)
+    order, dest, keep = moe_dispatch(experts, e, c)
+    st = torch.div(order, k, rounding_mode="floor")  # token of each sorted assignment
+    sg = gates.reshape(-1)[order]
+
+    disp = x.new_zeros((e * c + 1, d))
+    disp.index_copy_(0, dest, x[st])  # kept rows are distinct; overflow rows land on e*c
+    disp = disp[: e * c].view(e, c, d)
+    h = ops.grouped_matmul(disp, p["wg"])
+    u = ops.grouped_matmul(disp, p["wu"])
+    y = ops.grouped_matmul(F.silu(h) * u, p["wd"])  # (E, C, D)
+
+    y_flat = torch.cat([y.view(e * c, d), y.new_zeros((1, d))])
+    contrib = y_flat[dest] * (sg * keep.to(sg.dtype))[:, None]
+    return x.new_zeros((t, d)).index_add_(0, st, contrib)

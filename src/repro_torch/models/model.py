@@ -1,10 +1,11 @@
-"""Model assembly for the dense decoder (port of ``repro/models/model.py:61-471``).
+"""Model assembly for the decoder (port of ``repro/models/model.py:61-471``).
 
 Ported: ``init_params``, ``forward``, ``init_decode_state`` (ring and full
 caches), ``decode_step`` (prefill s > 1 and decode s = 1),
 ``init_slot_states``, ``write_slot``, ``decode_slots`` and
-``decode_slots_greedy``, for the ``dense`` family.  The other families
-(moe, vlm, audio, hybrid, ssm) raise ``NotImplementedError``.
+``decode_slots_greedy``, for the ``dense`` and ``moe`` families (a ``moe``
+block's FFN is ``layers.moe_ffn``).  The other families (vlm, audio, hybrid,
+ssm) raise ``NotImplementedError``.
 
 From JAX to torch: the reference's ``lax.scan`` over stacked layers is a loop
 over a list of per-layer parameter dicts, and its ``vmap`` over serving slots
@@ -12,6 +13,12 @@ is a slot dimension written out — per-slot write positions go through
 advanced indexing into the caches, per-slot rope positions and K5 offsets
 come from the per-slot ``len``.  Decode states are updated in place (a
 Danube cache of 8 slots x 4096 positions is 3 GB) and returned.
+
+MoE capacity: ``forward`` and ``decode_step`` dispatch the ``B * s`` tokens
+of a call together with ``moe_capacity(cfg, B * s)``, as the reference does.
+The reference decodes slots one by one under ``vmap`` (T = 1, capacity 8:
+nothing is ever dropped); ``decode_slots`` dispatches all N slots in one
+call with a capacity of N per expert, which drops nothing either.
 
 State layout: ``{"len": int, "layers": (K, V)}`` with K and V of shape
 ``(n_layers, B, KV, S_cache, Dh)`` for ``decode_step``; slot states have
@@ -36,10 +43,14 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family only so far (got {cfg.family!r})")
+            f"{cfg.name}: the port runs the {' and '.join(PORTED_FAMILIES)} families only "
+            f"so far (got {cfg.family!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +59,7 @@ def _dense_only(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen.device``, drawn like the reference's
     ``init_params`` (same shapes and scales; other numbers)."""
-    _dense_only(cfg)
+    check_family(cfg)
     dt, dev = dtype_of(cfg), gen.device
     p: Params = {
         "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
@@ -63,9 +74,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
             "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "mixer": L.init_attention(gen, cfg, dt),
             "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "ffn": L.init_dense_ffn(gen, cfg, dt),
+            "ffn": (L.init_moe_ffn(gen, cfg, dt) if cfg.layer_is_moe(l)
+                    else L.init_dense_ffn(gen, cfg, dt)),
         }
-        for _ in range(cfg.n_layers)
+        for l in range(cfg.n_layers)
     ]
     return p
 
@@ -74,12 +86,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 # blocks, forward
 # ---------------------------------------------------------------------------
 def _apply_block(x, blk: Params, cfg: ModelConfig, positions, cache=None,
-                 write_pos=0, attn_offset=0):
+                 write_pos=0, attn_offset=0, moe_capacity=None):
     normed = ops.rmsnorm(x, blk["norm1"], eps=cfg.norm_eps)
     x = x + L.attention(normed, blk["mixer"], cfg, positions=positions, cache=cache,
                         write_pos=write_pos, attn_offset=attn_offset)
     normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
-    return x + L.dense_ffn(normed2, blk["ffn"])
+    if cfg.layer_is_moe(0):  # the reference's stack is homogeneous (model.py:219, 380)
+        b, s, d = normed2.shape
+        y = L.moe_ffn(normed2.reshape(b * s, d), blk["ffn"], cfg,
+                      capacity=moe_capacity).view(b, s, d)
+    else:
+        y = L.dense_ffn(normed2, blk["ffn"])
+    return x + y
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +108,7 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """batch: tokens (B, S) -> logits (B, S, V)."""
-    _dense_only(cfg)
+    check_family(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = params["embed"][tokens]
@@ -111,7 +129,7 @@ def _cache_len(cfg: ModelConfig, s_max: int, ring: bool) -> int:
 
 def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
                       device: str | torch.device = "cuda") -> dict:
-    _dense_only(cfg)
+    check_family(cfg)
     shape = (cfg.n_layers, b, cfg.n_kv_heads, _cache_len(cfg, s_max, ring), cfg.head_dim)
     return {"len": 0,
             "layers": (torch.zeros(shape, dtype=dtype_of(cfg), device=device),
@@ -130,11 +148,11 @@ def _slots(cfg: ModelConfig, clen, s_cache: int):
     return clen, clen
 
 
-def _run_layers(cfg, params, state, x, positions, wpos, aoff):
+def _run_layers(cfg, params, state, x, positions, wpos, aoff, moe_capacity=None):
     ks, vs = state["layers"]
     for l, blk in enumerate(params["layers"]):
         x = _apply_block(x, blk, cfg, positions, cache=(ks[l], vs[l]),
-                         write_pos=wpos, attn_offset=aoff)
+                         write_pos=wpos, attn_offset=aoff, moe_capacity=moe_capacity)
     return _logits(cfg, params, x)
 
 
@@ -144,7 +162,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: dict, tokens: torch.Ten
     s == 1 is a decode step; s > 1 prefills the cache (which must be a full
     cache, not a ring).  ``state`` is updated in place and returned.
     """
-    _dense_only(cfg)
+    check_family(cfg)
     b, s = tokens.shape
     clen = int(state["len"])
     x = params["embed"][tokens]
@@ -180,14 +198,16 @@ def write_slot(states: dict, i: int, state: dict) -> dict:
 def decode_slots(cfg: ModelConfig, params: Params, states: dict, tokens: torch.Tensor):
     """One decode step for every slot at once: tokens (N,) -> (logits (N, V),
     states).  Each slot advances at its own length: rope positions, cache
-    write rows and K5 offsets are per slot."""
-    _dense_only(cfg)
+    write rows and K5 offsets are per slot.  MoE layers dispatch the N
+    slots together with N slots per expert: nothing is dropped."""
+    check_family(cfg)
     clen = states["len"]
     x = params["embed"][tokens][:, None, :]  # (N, 1, D)
     wpos, aoff = _slots(cfg, clen, states["layers"][0].shape[3])
     # one K5 offset per q row (slot x head), expanded once for every layer
     aoff = expand_offsets(aoff, x.shape[0] * cfg.n_heads, x.device)
-    logits = _run_layers(cfg, params, states, x, clen[:, None], wpos, aoff)
+    logits = _run_layers(cfg, params, states, x, clen[:, None], wpos, aoff,
+                         moe_capacity=x.shape[0])
     states["len"] = clen + 1
     return logits[:, 0], states
 

@@ -1,4 +1,4 @@
-"""The dense decoder's forward pass written out in fp32: the yardstick.
+"""The decoder's forward pass written out in fp32: the yardstick.
 
 No cache, no batching, no kernels: ``kernels.ref`` for normalisation and
 attention and torch matmuls for the rest, every weight upcast to fp32 as it
@@ -6,6 +6,20 @@ is used.  The tests hold it against the reference's ``forward``, and
 ``chip_smoke.py`` holds the served model against it on the card at full
 width.  It applies the sliding window at every position, as the reference's
 ``forward`` does.
+
+An MoE layer computes, per expert, only the tokens routed to it.  Two
+optional arguments let it follow how the engine dispatched a sequence:
+
+* ``moe_groups`` — the spans of positions dispatched together, each with the
+  capacity of that call (``None``: nothing dropped).  A served request is its
+  prompt, ``(0, p_len, moe_capacity(cfg, bucket))``, then one no-drop span per
+  decoded token.  Default: one group of all S tokens with
+  ``moe_capacity(cfg, S)``, the reference's ``forward``.
+* ``routing`` — the engine's experts per layer, ``(S, top_k)`` each.  Where
+  they differ from this forward's own fp32 top-k, the engine's choice is taken
+  only if each of its experts' fp32 logit lies within ``ROUTER_MARGIN`` of the
+  own k-th largest (a near-tie from bf16 rounding); any other difference
+  raises.  Gates always come from this forward's fp32 logits.
 """
 from __future__ import annotations
 
@@ -14,9 +28,19 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ref
+from .layers import moe_capacity
+from .model import check_family
 
 # above this many score elements per head, attention runs in tiles
 CHUNKED_ABOVE = 1 << 22
+# How far (in fp32 router logit) an engine-chosen expert may lie below this
+# forward's own k-th largest logit and still count as a near-tie.  About twice
+# the largest |engine - plain| router logit where the two chose alike: 0.0599
+# over four served Mixtral 8x7B requests on an H100 (logits of std ~1; PERF.md),
+# where the near-ties taken lay at most 0.0467 below.  bf16 activations move
+# the logits that much, so a choice inside the margin is rounding, one
+# outside it a fault.
+ROUTER_MARGIN = 0.12
 
 
 def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
@@ -29,16 +53,98 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * ang.cos() - x2 * ang.sin(), x2 * ang.cos() + x1 * ang.sin()], dim=-1)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (S,) -> fp32 logits (S, V) of one sequence."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"plain forward covers the dense family, not {cfg.family!r}")
+def gates(logits: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
+    """Softmax over the chosen experts' logits: (S, E), (S, k) -> (S, k)."""
+    return torch.softmax(logits.gather(1, experts), dim=-1)
+
+
+def _groups(cfg: ModelConfig, s: int, moe_groups):
+    """(group of each position (S,), capacity of each group (G,))."""
+    if moe_groups is None:
+        moe_groups = [(0, s, moe_capacity(cfg, s))]
+    gid = torch.empty(s, dtype=torch.int64)
+    caps, at = [], 0
+    for i, (a, b, cap) in enumerate(moe_groups):
+        if a != at or b <= a:
+            raise ValueError(f"moe_groups must cover 0..{s} in order: {moe_groups}")
+        gid[a:b] = i
+        caps.append(b - a if cap is None else cap)  # one token gives an expert <= 1
+        at = b
+    if at != s:
+        raise ValueError(f"moe_groups cover 0..{at}, not 0..{s}")
+    return gid, torch.tensor(caps)
+
+
+def _route(logits, chosen, k: int, stats):
+    """The experts to use: own fp32 top-k, or the engine's ``chosen`` where it
+    differs only by a near-tie."""
+    top, own = torch.topk(logits, k, dim=-1)
+    if chosen is None:
+        return own
+    chosen = chosen.to(device=own.device, dtype=torch.int64)
+    differ = (own.sort(-1).values != chosen.sort(-1).values).any(-1)
+    gap = (top[:, -1:] - logits.gather(1, chosen)).amax(-1)  # how far below own k-th
+    bad = differ & (gap > ROUTER_MARGIN)
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0])
+        raise ValueError(f"routing at position {i}: engine chose {chosen[i].tolist()}, fp32 "
+                         f"top-{k} is {own[i].tolist()}, {float(gap[i]):.4f} below its k-th "
+                         f"logit (margin {ROUTER_MARGIN})")
+    if stats is not None and bool(differ.any()):
+        stats["near_ties"] = stats.get("near_ties", 0) + int(differ.sum())
+        stats["max_tie_gap"] = max(stats.get("max_tie_gap", 0.0), float(gap[differ].max()))
+    return torch.where(differ[:, None], chosen, own)
+
+
+def _moe(cfg: ModelConfig, y, m, gid, caps, chosen, stats, f):
+    """fp32 MoE FFN of y (S, D), per expert over the tokens routed to it and
+    kept by their group's capacity (first come, in position order)."""
+    e, k = cfg.n_experts, cfg.top_k
+    logits = y @ f(m["router"])
+    experts = _route(logits, chosen, k, stats)
+    if stats is not None:
+        stats.setdefault("router_logits", []).append(logits)
+        stats.setdefault("experts", []).append(experts)
+    g = gates(logits, experts).reshape(-1)
+    key = (gid.to(y.device)[:, None] * e + experts).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(int(caps.numel()) * e, dtype=torch.int64, device=y.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(key.numel(), device=y.device) - starts[key[order]]
+    keep = rank < caps.to(y.device)[key // e]
+    out = torch.zeros_like(y)
+    flat = experts.reshape(-1)
+    for ex in range(e):
+        idx = ((flat == ex) & keep).nonzero().squeeze(1)
+        if idx.numel() == 0:
+            continue
+        tok = idx // k
+        xt = y[tok]
+        o = (F.silu(xt @ f(m["wg"][ex])) * (xt @ f(m["wu"][ex]))) @ f(m["wd"][ex])
+        out.index_add_(0, tok, o * g[idx][:, None])
+    return out
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, moe_groups=None,
+            routing=None, stats: dict | None = None) -> torch.Tensor:
+    """tokens (S,) -> fp32 logits (S, V) of one sequence.
+
+    ``moe_groups`` and ``routing`` as in the module docstring.  A ``stats``
+    dict receives ``near_ties`` (positions that took the engine's choice),
+    ``max_tie_gap`` and, per MoE layer, ``router_logits`` and ``experts``.
+    """
+    check_family(cfg)
     f = lambda w: w.to(torch.float32)  # noqa: E731
     s = tokens.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attend = ref.attention_chunked if s * s > CHUNKED_ABOVE else ref.attention
     x = f(params["embed"][tokens])
-    for blk in params["layers"]:
+    moe = cfg.layer_is_moe(0)
+    if moe:
+        gid, caps = _groups(cfg, s, moe_groups)
+    for l, blk in enumerate(params["layers"]):
         a, m = blk["mixer"], blk["ffn"]
         y = ref.rmsnorm(x, f(blk["norm1"]), eps=cfg.norm_eps)
         bq, bk, bv = (f(a[n]) if n in a else 0.0 for n in ("bq", "bk", "bv"))
@@ -49,7 +155,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tenso
                    v.transpose(0, 1).contiguous(), causal=True, window=cfg.window)
         x = x + o.transpose(0, 1).reshape(s, h * dh) @ f(a["wo"])
         y = ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps)
-        x = x + (F.silu(y @ f(m["wg"])) * (y @ f(m["wu"]))) @ f(m["wd"])
+        if moe:
+            x = x + _moe(cfg, y, m, gid, caps, None if routing is None else routing[l],
+                         stats, f)
+        else:
+            x = x + (F.silu(y @ f(m["wg"])) * (y @ f(m["wu"]))) @ f(m["wd"])
     x = ref.rmsnorm(x, f(params["final_norm"]), eps=cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ f(head)

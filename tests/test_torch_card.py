@@ -9,7 +9,9 @@ built from the port's IR; ``test_torch_kernels.py`` runs the same cases
 through the plain versions against the reference on the CPU.  The K4/K5
 cases are tests/test_kernels.py's sweeps plus the head sizes the configs
 use; ``test_torch_model_kernels.py`` holds the plain versions against the
-reference on the CPU.
+reference on the CPU.  K6 runs at ragged shapes and at each of its tile
+heights (C up to 32, up to 64, above), with and without 16-byte loads;
+``test_torch_moe.py`` holds its plain version against the reference.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.core import ir as pir
 from repro_torch.core.scheduler import random_inputs
 from repro_torch.kernels import flash_attention as p_flash
 from repro_torch.kernels import gemm as p_gemm
+from repro_torch.kernels import moe_gmm as p_gmm
 from repro_torch.kernels import nest_kernel as p_nest
 from repro_torch.kernels import ref as p_ref
 from repro_torch.kernels import rmsnorm as p_rms
@@ -89,6 +92,10 @@ RMS_TOL = 1e-5                     # tests/test_kernels.py (fp32)
 # the kernel also rounds P to bf16 before P.V, as the reference kernel does.
 # The limit is chip_smoke.py's, set from its readings on an H100 (PERF.md).
 BF16_ATTN_REL_L2 = 8e-3
+# bf16 grouped matmul, held per output row by the relative L2 error against
+# the fp32 product of the same bf16 inputs: one bf16 rounding of the output.
+# The limit is chip_smoke.py's, set from its readings on an H100 (PERF.md).
+BF16_GMM_REL_L2 = 5e-3
 
 
 def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
@@ -119,6 +126,32 @@ def test_gemm_kernel_on_card(card, m, n, k):
     torch.cuda.synchronize()
     assert p_gemm.LAUNCHES["gemm"] == before + 1
     assert max_rel(got.cpu().numpy(), p_gemm.gemm_plain(x, y).cpu().numpy()) < MAX_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,offset", [
+    (3, 13, 37, 29, 0), (2, 33, 70, 17, 0), (3, 130, 264, 200, 0),  # ragged: loads one by one
+    (8, 16, 4096, 512, 0), (8, 40, 520, 1000, 0), (2, 200, 128, 136, 0),  # 16-byte loads
+    (4, 20, 64, 64, 1)])  # misaligned pointers: loads one by one
+def test_grouped_matmul_kernel_on_card(card, e, c, d, f, offset):
+    g = torch.Generator(device=card).manual_seed(e * c + d)
+    x = torch.randn(e * c * d + offset, generator=g, device=card)[offset:].view(e, c, d)
+    w = (torch.randn(e * d * f + offset, generator=g, device=card)[offset:].view(e, d, f)
+         / d ** 0.5)
+    before = p_gmm.LAUNCHES["grouped_matmul"]
+    got = p_gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert p_gmm.LAUNCHES["grouped_matmul"] == before + 1
+    assert max_rel(got.cpu().numpy(), p_ref.grouped_matmul(x, w).cpu().numpy()) < MAX_REL
+    xb, wb = x.bfloat16(), w.bfloat16()
+    if offset:  # .bfloat16() copies into an aligned buffer: offset it again
+        xb = torch.cat([xb.new_zeros(offset), xb.reshape(-1)])[offset:].view(e, c, d)
+        wb = torch.cat([wb.new_zeros(offset), wb.reshape(-1)])[offset:].view(e, d, f)
+        assert xb.data_ptr() % 16 and wb.data_ptr() % 16
+    got = p_gmm.grouped_matmul(xb, wb).float()
+    want = p_ref.grouped_matmul(xb.float(), wb.float())
+    row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= BF16_GMM_REL_L2
 
 
 @pytest.mark.cuda
@@ -200,11 +233,11 @@ def test_flash_attention_per_slot_offsets_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minicpm-2b", "mixtral-8x7b"])
 def test_model_and_engine_on_card(card, arch):
-    """The reduced model on the card (K4/K5 inside) against the fp32 plain
-    forward, and the engine's greedy tokens against the same model on the
-    CPU (plain versions)."""
+    """The reduced model on the card (K4/K5, and K6 for Mixtral, inside)
+    against the fp32 plain forward, and the engine's greedy tokens against
+    the same model on the CPU (plain versions)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models import plain
@@ -213,11 +246,13 @@ def test_model_and_engine_on_card(card, arch):
     cfg = get_config(arch).reduced()
     params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
     toks = torch.randint(0, cfg.vocab, (1, 100), generator=torch.Generator().manual_seed(1))
-    launches = p_rms.LAUNCHES["rmsnorm"], p_flash.LAUNCHES["flash_attention"]
+    launches = (p_rms.LAUNCHES["rmsnorm"], p_flash.LAUNCHES["flash_attention"],
+                p_gmm.LAUNCHES["grouped_matmul"])
     got = M.forward(cfg, params, {"tokens": toks.to(card)})
     torch.cuda.synchronize()
     assert p_rms.LAUNCHES["rmsnorm"] == launches[0] + 2 * cfg.n_layers + 1
     assert p_flash.LAUNCHES["flash_attention"] == launches[1] + cfg.n_layers
+    assert p_gmm.LAUNCHES["grouped_matmul"] == launches[2] + 3 * cfg.n_layers * cfg.is_moe
     want = plain.forward(cfg, params, toks[0].to(card))
     torch.testing.assert_close(got[0], want, rtol=2e-3, atol=2e-3)
 

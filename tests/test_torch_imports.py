@@ -22,7 +22,8 @@ def test_every_module_is_listed():
     assert "repro_torch.kernels.nest_kernel" in MODULES
     for m in ("repro_torch.configs", "repro_torch.configs.h2o_danube_3_4b",
               "repro_torch.kernels.ref", "repro_torch.kernels.rmsnorm",
-              "repro_torch.kernels.flash_attention", "repro_torch.models.layers",
+              "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe_gmm",
+              "repro_torch.models.layers",
               "repro_torch.models.model", "repro_torch.models.convert",
               "repro_torch.models.plain", "repro_torch.serve", "repro_torch.serve.engine"):
         assert m in MODULES, m

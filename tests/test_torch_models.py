@@ -1,5 +1,6 @@
-"""The port's dense decoder (``repro_torch.models``) against the reference's
-``repro.models.model`` at reduced size, in fp32 on the CPU.
+"""The port's decoders (``repro_torch.models``: dense, and Mixtral's MoE)
+against the reference's ``repro.models.model`` at reduced size, in fp32 on
+the CPU.
 
 Parameters come from the reference's ``init_params`` and are carried across
 with ``params_from_numpy``; tokens come from numpy.  Logits are compared with
@@ -24,7 +25,7 @@ from repro_torch.models.convert import params_from_numpy
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-3, atol=2e-3)  # tests/test_models.py
-ARCHS = ["h2o-danube-3-4b", "minicpm-2b"]
+ARCHS = ["h2o-danube-3-4b", "minicpm-2b", "mixtral-8x7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -215,7 +216,7 @@ def test_write_slot_replaces_cache_and_length(model):
     assert not states["layers"][1][:, 0].any() and not states["layers"][1][:, 2].any()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "llava-next-mistral-7b"])
 def test_other_families_are_not_ported_yet(arch):
     cfg = p_config(arch).reduced()
     with pytest.raises(NotImplementedError):

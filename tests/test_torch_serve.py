@@ -70,6 +70,18 @@ def test_greedy_matches_reference_engine_past_the_window():
     assert _serve(ServingEngine, ServeConfig, pcfg, pparams, prompts, **kw) == want
 
 
+def test_greedy_matches_reference_engine_moe():
+    """Mixtral's MoE decoder: prefill dispatches the padded bucket with its
+    capacity, the batched decode drops nothing, as the reference's per-slot
+    decode never does; prompts cross buckets and slots refill."""
+    rcfg, rparams, pcfg, pparams = _models("mixtral-8x7b")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, rcfg.vocab, n).astype(np.int32) for n in (5, 40, 17, 70, 9)]
+    kw = dict(batch_slots=3, max_len=128, max_new_tokens=8)
+    want = _serve(RServingEngine, RServeConfig, rcfg, rparams, prompts, **kw)
+    assert _serve(ServingEngine, ServeConfig, pcfg, pparams, prompts, **kw) == want
+
+
 def test_pipeline_depth_invariant(setup):
     _, _, pcfg, pparams = setup
     outs = [_serve(ServingEngine, ServeConfig, pcfg, pparams, PROMPTS[:3], batch_slots=2,
