@@ -19,6 +19,11 @@
 // about 4.3 us at 3.35 TB/s.  This simple kernel does not approach that peak: wgmma, TMA and
 // pipelining are left to later work.
 //
+// Batches: grid z walks a batch of independent products of one shape
+// (x (B, M, K), y (B, K, N), out (B, M, N), each row-major and contiguous).
+// K1 launches one; K6's float32 path (kernels/moe_gmm.py) launches one per
+// expert, so the MoE layer's fp32 configurations share this tiling.
+//
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
 // it is nonzero.
@@ -55,6 +60,11 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ ou
             int m, int n, int k) {
   __shared__ float xs[BK][BM + PAD];  // x tile, transposed: xs[kk][row]
   __shared__ float ys[BK][BN + PAD];  // y tile: ys[kk][col]
+
+  const size_t z = blockIdx.z;  // this block's product of the batch
+  x += z * m * k;
+  y += z * k * n;
+  out += z * m * n;
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
@@ -108,8 +118,9 @@ gemm_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ ou
 }
 
 template <typename T>
-int launch(const void* x, const void* y, void* out, int m, int n, int k, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+int launch(const void* x, const void* y, void* out, int batch, int m, int n, int k,
+           void* stream) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
   gemm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out), m, n, k);
   return static_cast<int>(cudaGetLastError());
@@ -119,10 +130,15 @@ int launch(const void* x, const void* y, void* out, int m, int n, int k, void* s
 
 extern "C" int repro_gemm_f32(const void* x, const void* y, void* out, int m, int n, int k,
                               void* stream) {
-  return launch<float>(x, y, out, m, n, k, stream);
+  return launch<float>(x, y, out, 1, m, n, k, stream);
 }
 
 extern "C" int repro_gemm_bf16(const void* x, const void* y, void* out, int m, int n, int k,
                                void* stream) {
-  return launch<__nv_bfloat16>(x, y, out, m, n, k, stream);
+  return launch<__nv_bfloat16>(x, y, out, 1, m, n, k, stream);
+}
+
+extern "C" int repro_gemm_batched_f32(const void* x, const void* y, void* out, int batch, int m,
+                                      int n, int k, void* stream) {
+  return launch<float>(x, y, out, batch, m, n, k, stream);
 }

@@ -24,10 +24,10 @@
 // loaded element by element instead.  No padded copy is made.  wgmma/TMA are
 // left to later work.
 //
-// Design (float32): K1's SIMT tiling (64x64 tiles, 4x4 per thread, fmaf in D
-// order) with the expert as the grid's z axis, for fp32 configurations.
+// float32 does not come here: kernels/moe_gmm.py launches K1's tiling in
+// gemm.cu with the expert as its batch (grid z) axis.
 //
-// Interface: plain C, loaded with ctypes.  Each entry point launches on the
+// Interface: plain C, loaded with ctypes.  The entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
 // it is nonzero.
 #include <cuda_bf16.h>
@@ -38,9 +38,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
 constexpr int BN = 128;          // output columns (F) per block
 constexpr int BK = 32;           // D slice per stage
 constexpr int STAGES = 3;        // cp.async ring depth
@@ -246,72 +243,6 @@ int launch_bf16(const void* x, const void* w, void* out, int e, int c, int d, in
   return launch_bf16_tile<4, VEC>(x, w, out, e, c, d, f, stream);
 }
 
-// ---------------------------------------------------------------------------
-// float32: K1's SIMT tiling with the expert as grid z
-// ---------------------------------------------------------------------------
-constexpr int FM = 64, FN = 64, FK = 16, FTM = 4, FTN = 4;
-constexpr int FTHREADS = (FM / FTM) * (FN / FTN);  // 256
-constexpr int FPAD = 4;
-
-__global__ void __launch_bounds__(FTHREADS)
-moe_gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ out, int c, int d, int f) {
-  __shared__ float xs[FK][FM + FPAD];  // x slice, transposed: xs[kk][row]
-  __shared__ float ws[FK][FN + FPAD];  // w slice: ws[kk][col]
-
-  const int e = blockIdx.z;
-  const float* xe = x + static_cast<size_t>(e) * c * d;
-  const float* we = w + static_cast<size_t>(e) * d * f;
-  float* oe = out + static_cast<size_t>(e) * c * f;
-  const int tid = threadIdx.x;
-  const int tx = tid % (FN / FTN), ty = tid / (FN / FTN);
-  const int row0 = blockIdx.y * FM, col0 = blockIdx.x * FN;
-
-  float acc[FTM][FTN];
-#pragma unroll
-  for (int i = 0; i < FTM; ++i)
-#pragma unroll
-    for (int j = 0; j < FTN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += FK) {
-    for (int q = tid; q < FM * FK; q += FTHREADS) {
-      const int r = q / FK, cc = q % FK;
-      const int gr = row0 + r, gk = k0 + cc;
-      xs[cc][r] = (gr < c && gk < d) ? xe[static_cast<size_t>(gr) * d + gk] : 0.f;
-    }
-    for (int q = tid; q < FK * FN; q += FTHREADS) {
-      const int r = q / FN, cc = q % FN;
-      const int gk = k0 + r, gc = col0 + cc;
-      ws[r][cc] = (gk < d && gc < f) ? we[static_cast<size_t>(gk) * f + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[FTM], b[FTN];
-#pragma unroll
-      for (int i = 0; i < FTM; ++i) a[i] = xs[kk][ty + (FM / FTM) * i];
-#pragma unroll
-      for (int j = 0; j < FTN; ++j) b[j] = ws[kk][tx + (FN / FTN) * j];
-#pragma unroll
-      for (int i = 0; i < FTM; ++i)
-#pragma unroll
-        for (int j = 0; j < FTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < FTM; ++i) {
-    const int r = row0 + ty + (FM / FTM) * i;
-    if (r >= c) continue;
-#pragma unroll
-    for (int j = 0; j < FTN; ++j) {
-      const int cc = col0 + tx + (FN / FTN) * j;
-      if (cc < f) oe[static_cast<size_t>(r) * f + cc] = acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e, int c, int d,
@@ -319,13 +250,4 @@ extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e
   auto s = static_cast<cudaStream_t>(stream);
   return vec ? launch_bf16<true>(x, w, out, e, c, d, f, s)
              : launch_bf16<false>(x, w, out, e, c, d, f, s);
-}
-
-extern "C" int repro_moe_gmm_f32(const void* x, const void* w, void* out, int e, int c, int d,
-                                 int f, void* stream) {
-  const dim3 grid((f + FN - 1) / FN, (c + FM - 1) / FM, e);
-  moe_gmm_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), c, d,
-      f);
-  return static_cast<int>(cudaGetLastError());
 }

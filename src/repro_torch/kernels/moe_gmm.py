@@ -4,8 +4,9 @@ Port of ``repro/kernels/moe_gmm.py::grouped_matmul`` (the Pallas TPU kernel).
 The kernel is ``repro_torch/csrc/moe_gmm.cu``: ``out[e] = x[e] @ w[e]`` for
 x ``(E, C, D)`` and w ``(E, D, F)``, an fp32 accumulator over D, the output in
 x's type.  bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16); float32
-on K1's SIMT tiling.  Ragged C, D and F are masked inside the kernel, so no
-padded copy is made (the reference pads to its block sizes).
+launches K1's SIMT kernel (``csrc/gemm.cu``) with the expert as its batch
+axis.  Ragged C, D and F are masked inside the kernels, so no padded copy is
+made (the reference pads to its block sizes).
 
 ``grouped_matmul`` launches the kernel for CUDA tensors and takes
 ``kernels.ref.grouped_matmul`` for CPU tensors only.  ``LAUNCHES`` counts
@@ -24,13 +25,15 @@ from .build import cuda_library
 LAUNCHES = {"grouped_matmul": 0}
 PLAIN = {"grouped_matmul": 0}
 
-_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# dtype -> (library, entry point, int arguments)
+_ENTRIES = {torch.bfloat16: ("moe_gmm", "repro_moe_gmm_bf16", 5),   # e, c, d, f, vec
+            torch.float32: ("gemm", "repro_gemm_batched_f32", 4)}  # batch, m, n, k
 
 
 @functools.cache
 def _entry(dtype: torch.dtype):
-    fn = getattr(cuda_library("moe_gmm"), f"repro_moe_gmm_{_NAMES[dtype]}")
-    ints = 5 if dtype == torch.bfloat16 else 4  # e, c, d, f (+ the 16-byte-load flag)
+    lib, name, ints = _ENTRIES[dtype]
+    fn = getattr(cuda_library(lib), name)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -40,7 +43,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, F) per expert -> (E, C, F) in x's type."""
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"grouped_matmul: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in _NAMES:
+    if x.dtype != w.dtype or x.dtype not in _ENTRIES:
         raise TypeError(f"grouped_matmul: dtypes {x.dtype}, {w.dtype} "
                         "(want both float32 or both bfloat16)")
     if x.device != w.device:
@@ -65,7 +68,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       and w.data_ptr() % 16 == 0)
             err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, vec, stream)
         else:
-            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, stream)
+            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, f, d, stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed with CUDA error {err}")
     LAUNCHES["grouped_matmul"] += 1

@@ -11,10 +11,10 @@ An MoE layer computes, per expert, only the tokens routed to it.  Two
 optional arguments let it follow how the engine dispatched a sequence:
 
 * ``moe_groups`` — the spans of positions dispatched together, each with the
-  capacity of that call (``None``: nothing dropped).  A served request is its
-  prompt, ``(0, p_len, moe_capacity(cfg, bucket))``, then one no-drop span per
-  decoded token.  Default: one group of all S tokens with
-  ``moe_capacity(cfg, S)``, the reference's ``forward``.
+  number of tokens in that call (padding included), whose capacity it keeps
+  (``None``: nothing dropped).  A served request is its prompt,
+  ``(0, p_len, bucket)``, then one no-drop span per decoded token.  Default:
+  one group of all S tokens, the reference's ``forward``.
 * ``routing`` — the engine's experts per layer, ``(S, top_k)`` each.  Where
   they differ from this forward's own fp32 top-k, the engine's choice is taken
   only if each of its experts' fp32 logit lies within ``ROUTER_MARGIN`` of the
@@ -23,13 +23,13 @@ optional arguments let it follow how the engine dispatched a sequence:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ref
-from .layers import moe_capacity
-from .model import check_family
 
 # above this many score elements per head, attention runs in tiles
 CHUNKED_ABOVE = 1 << 22
@@ -41,6 +41,14 @@ CHUNKED_ABOVE = 1 << 22
 # the logits that much, so a choice inside the margin is rounding, one
 # outside it a fault.
 ROUTER_MARGIN = 0.12
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """The reference's slots per expert when ``n_tokens`` tokens are
+    dispatched together (``repro/models/layers.py``), written out here so
+    that the yardstick shares no code with the engine it checks."""
+    c = math.ceil(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
 
 
 def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
@@ -61,14 +69,14 @@ def gates(logits: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
 def _groups(cfg: ModelConfig, s: int, moe_groups):
     """(group of each position (S,), capacity of each group (G,))."""
     if moe_groups is None:
-        moe_groups = [(0, s, moe_capacity(cfg, s))]
+        moe_groups = [(0, s, s)]
     gid = torch.empty(s, dtype=torch.int64)
     caps, at = [], 0
-    for i, (a, b, cap) in enumerate(moe_groups):
-        if a != at or b <= a:
+    for i, (a, b, n) in enumerate(moe_groups):
+        if a != at or b <= a or (n is not None and n < b - a):
             raise ValueError(f"moe_groups must cover 0..{s} in order: {moe_groups}")
         gid[a:b] = i
-        caps.append(b - a if cap is None else cap)  # one token gives an expert <= 1
+        caps.append(b - a if n is None else capacity(cfg, n))  # b - a tokens: no drop
         at = b
     if at != s:
         raise ValueError(f"moe_groups cover 0..{at}, not 0..{s}")
@@ -127,6 +135,17 @@ def _moe(cfg: ModelConfig, y, m, gid, caps, chosen, stats, f):
     return out
 
 
+def moe_ffn(cfg: ModelConfig, y: torch.Tensor, m: dict, n_tokens: int | None,
+            routing=None) -> torch.Tensor:
+    """One MoE layer in fp32 on ``y`` (S, D) with the parameters ``m``, its S
+    tokens dispatched in one call of ``n_tokens`` tokens (``None``: nothing
+    dropped); ``routing`` as in the module docstring, for one layer."""
+    s = y.shape[0]
+    gid, caps = _groups(cfg, s, [(0, s, n_tokens)])
+    return _moe(cfg, y.to(torch.float32), m, gid, caps, routing, None,
+                lambda w: w.to(torch.float32))
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, moe_groups=None,
             routing=None, stats: dict | None = None) -> torch.Tensor:
     """tokens (S,) -> fp32 logits (S, V) of one sequence.
@@ -135,7 +154,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, moe_groups=
     dict receives ``near_ties`` (positions that took the engine's choice),
     ``max_tie_gap`` and, per MoE layer, ``router_logits`` and ``experts``.
     """
-    check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the plain forward covers the dense and moe "
+                                  f"families only (got {cfg.family!r})")
     f = lambda w: w.to(torch.float32)  # noqa: E731
     s = tokens.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

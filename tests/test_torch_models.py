@@ -223,6 +223,8 @@ def test_other_families_are_not_ported_yet(arch):
         PM.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
         PM.init_decode_state(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        plain.forward(cfg, {}, torch.zeros(4, dtype=torch.int64))
 
 
 def test_qkv_bias_matches_reference():

@@ -62,13 +62,16 @@ def _params(rcfg, pcfg, biased: bool, seed: int = 0):
 # capacity and the grouped matmul
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("reduced", [False, True])
-def test_moe_capacity_matches_reference(reduced):
+@pytest.mark.parametrize("capacity", [PL.moe_capacity, plain.capacity],
+                         ids=["engine", "yardstick"])
+def test_moe_capacity_matches_reference(reduced, capacity):
+    """The engine's capacity and the fp32 yardstick's own copy of it."""
     rcfg, pcfg = r_config(ARCH), p_config(ARCH)
     if reduced:
         rcfg, pcfg = rcfg.reduced(), pcfg.reduced()
-    got = [PL.moe_capacity(pcfg, t) for t in range(1, 4097)]
+    got = [capacity(pcfg, t) for t in range(1, 4097)]
     assert got == [RL.moe_capacity(rcfg, t) for t in range(1, 4097)]
-    assert PL.moe_capacity(p_config(ARCH), 2048) == 640 and PL.moe_capacity(p_config(ARCH), 1) == 8
+    assert capacity(p_config(ARCH), 2048) == 640 and capacity(p_config(ARCH), 1) == 8
 
 
 @pytest.mark.parametrize("e,c,d,f", [(3, 13, 37, 29), (8, 10, 20, 12), (2, 33, 70, 17),
@@ -177,6 +180,24 @@ def test_moe_ffn_capacity_argument_drops_nothing(cfgs):
     assert not torch.allclose(PL.moe_ffn(x, p, pcfg), alone, **FFN_TOL)  # capacity 8 drops
 
 
+@pytest.mark.parametrize("t,biased", [(7, False), (64, True)])
+def test_plain_moe_ffn_matches_reference(cfgs, t, biased):
+    """The yardstick's one-layer MoE (its own routing, capacity and per-expert
+    products) against the reference's, drops included; ``n_tokens=None``
+    keeps every assignment, like the engine's ``capacity=T``."""
+    rcfg, pcfg = cfgs
+    p = _ffn_params(rcfg, biased)
+    x = np.random.default_rng(t + 100).normal(size=(t, rcfg.d_model)).astype(np.float32)
+    if biased:
+        x[:, 0] = BIAS
+    want = np.asarray(RL.moe_ffn(jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, p), rcfg))
+    pp = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = plain.moe_ffn(pcfg, torch.from_numpy(x), pp, t)
+    np.testing.assert_allclose(got.numpy(), want, **FFN_TOL)
+    torch.testing.assert_close(plain.moe_ffn(pcfg, torch.from_numpy(x), pp, None),
+                               PL.moe_ffn(torch.from_numpy(x), pp, pcfg, capacity=t), **FFN_TOL)
+
+
 # ---------------------------------------------------------------------------
 # decode: batched slots against the reference's vmap
 # ---------------------------------------------------------------------------
@@ -276,8 +297,8 @@ def test_plain_forward_with_engine_groups_matches_reference_serving(cfgs):
     rparams, pparams = _params(rcfg, pcfg, biased=True)
     prompt = np.random.default_rng(13).integers(0, rcfg.vocab, 50).astype(np.int32)
     seq, want = _served_ref(rcfg, rparams, prompt, 64, 8)
-    cap = PL.moe_capacity(pcfg, 64)
-    groups = [(0, 50, cap)] + [(t, t + 1, None) for t in range(50, seq.size)]
+    cap = plain.capacity(pcfg, 64)
+    groups = [(0, 50, 64)] + [(t, t + 1, None) for t in range(50, seq.size)]
     stats = {}
     got = plain.forward(pcfg, pparams, torch.from_numpy(seq), moe_groups=groups, stats=stats)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
