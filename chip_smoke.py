@@ -17,14 +17,16 @@ Phases, in order (any failure exits nonzero):
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
    guarded reduction with unroll 1/2/4 and each of + * max min; K4 in fp32
    and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288};
-   K5 over tests/test_kernels.py's sweep x D {32, 64, 120, 128}, per-slot
-   offsets, H2O-Danube3-4B's prefill, 8192-token windowed forward and 8-slot
-   decode, and Mixtral 8x7B's prefill and 16-slot decode; K6 in fp32 and
+   K5's two kernels (the tensor-core kernel in bf16, the SIMT kernel in
+   fp32 and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
+   H2O-Danube3-4B's prefill and 8192-token windowed forward and Mixtral
+   8x7B's prefill, and the SIMT kernel at both models' decode steps with
+   per-slot offsets; both kernels' times at q lengths 1-64; K6 in fp32 and
    bf16 at ragged shapes and at Mixtral 8x7B's expert products (gate/up and
    down of a 2048-token bucket and of a 16-slot decode step, gate/up of a
-   128-token bucket); then each kernel's time at a main-path shape beside its plain version's,
-   its bound and, where one torch call computes the same function, that
-   call's time;
+   128-token bucket); then each kernel's time at a main-path shape beside
+   its plain version's, its bound and, where one torch call computes the
+   same function, that call's time;
 4. main path, PolyBench: ``Daisy(backend="cuda")`` on the 15 A variants and
    the three CLOUDSC programs at a small size against the float64 numpy
    oracle, then on the 15 benchmarks x {a, b, np} at ``bench`` size and the
@@ -41,24 +43,27 @@ Phases, in order (any failure exits nonzero):
    tokens/s, time to first token, decode tokens/s; from the second, four
    requests' prefill and decode logits held against the fp32 plain forward
    (``models/plain.py``) within a relative L2 tolerance that fp8 weights,
-   eps = 0 and gamma = 1 are each shown to exceed; K4/K5 launches (> 0);
+   eps = 0 and gamma = 1 are each shown to exceed; a decode step's and a
+   2048-token prefill bucket's device time by kernel group; K4/K5 launches
+   (> 0), K5's prefill on the tensor-core kernel, its decode only on the
+   SIMT kernel;
 8. main path, forward: ``forward`` on one 8192-token sequence, so K5 runs
    with the 4096 window, held against the plain forward at 256 positions
-   beyond 4096; K4/K5 launches (> 0);
+   beyond 4096; K4/K5 launches (> 0), K5 on the tensor-core kernel;
 9. main path, MoE serving: Mixtral 8x7B at its published widths with all 8
    experts and top-2, cut in depth to 16 of its 32 layers (one stage of a
    two-stage pipeline over two cards), bf16, seeded weights, through
    ``ServingEngine`` (16 slots, 4096 positions, 32 new tokens): 32 requests
    with prompts of 128-2048 tokens, served twice as in phase 7; the serving
    metrics, dropped token-expert assignments per prefill, the tokens each
-   expert keeps in each layer for the watched requests, a decode step's
-   breakdown; four requests' logits held against the fp32 plain forward,
-   which follows the engine's dispatch groups and its near-tie routing
-   choices; the three mutants plus gates over all experts each exceed the
-   tolerance; K4/K5/K6 launches (> 0); then the MoE layer alone on every
-   layer's weights and random inputs, a 2048-token bucket and a 16-slot
-   decode step, against the plain fp32 layer, every expert keeping tokens
-   of the bucket.
+   expert keeps in each layer for the watched requests, a decode step's and
+   a prefill bucket's breakdown; four requests' logits held against the fp32
+   plain forward, which follows the engine's dispatch groups and its
+   near-tie routing choices; the three mutants plus gates over all experts
+   each exceed the tolerance; K4/K5/K6 launches (> 0), K5 split as in phase
+   7; then the MoE layer alone on every layer's weights and random inputs, a
+   2048-token bucket and a 16-slot decode step, against the plain fp32
+   layer, every expert keeping tokens of the bucket.
 
 Kernel recipes are seeded, per canonical nest, for every nest the nest
 planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -622,6 +627,10 @@ def _attn_bound(torch, q, k, q_offset, causal, window):
 
 
 def check_flash(torch, results: dict) -> None:
+    """K5's two kernels against the plain version at every shape either can
+    take, then their times at the main path's shapes beside the plain
+    version's, SDPA's and the bound, and both kernels' times over the short
+    q lengths where ``kernels.flash_attention.MMA_MIN_SQ`` draws the line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kf
@@ -631,11 +640,12 @@ def check_flash(torch, results: dict) -> None:
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
     worst = 0.0
 
-    def compare(label, q, k, v, want_fn, **kw):
-        """(max abs diff, largest per-row relative L2 error) of K5 against
-        ``want_fn``; fp32 is held by allclose, bf16 by the row error."""
+    def compare(label, kernel, q, k, v, want_fn, **kw):
+        """(max abs diff, largest per-row relative L2 error) of K5's
+        ``kernel`` against ``want_fn``; fp32 is held by allclose, bf16 by the
+        row error."""
         nonlocal worst
-        got = kf.flash_attention(q, k, v, **kw)
+        got = kf._launch(kernel, q, k, v, **kw)
         torch.cuda.synchronize()
         want = want_fn(q, k, v, **kw)
         diff = float((got.float() - want.float()).abs().max())
@@ -646,23 +656,26 @@ def check_flash(torch, results: dict) -> None:
         else:
             ok = row_err <= BF16_ATTN_REL_L2
         if not ok:
-            raise AssertionError(f"K5 {label}: max abs diff {diff:.3e}, "
+            raise AssertionError(f"K5 {kernel} {label}: max abs diff {diff:.3e}, "
                                  f"row relative L2 {row_err:.3e}")
         return diff, row_err
 
-    sweep_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    sweep_err = {"fp32 simt": 0.0, "bf16 simt": 0.0, "bf16 mma": 0.0}
     for d in HEAD_SIZES:
         for bh, bkv, sq, skv, causal, window, off in ATTN_SWEEP:
             q, k, v = rnd(bh, sq, d), rnd(bkv, skv, d), rnd(bkv, skv, d)
-            for dt in (torch.float32, torch.bfloat16):
-                _, row_err = compare(
-                    f"sweep {bh},{bkv},{sq},{skv},{causal},{window},{off} D={d} {dt}",
-                    q.to(dt), k.to(dt), v.to(dt), ref.attention,
-                    causal=causal, window=window, q_offset=off)
-                sweep_err[dt] = max(sweep_err[dt], row_err)
-    log(f"  K5 flash attention: tests/test_kernels.py sweep x D {HEAD_SIZES}: ok, "
-        f"largest row relative L2 fp32 {sweep_err[torch.float32]:.3e}, "
-        f"bf16 {sweep_err[torch.bfloat16]:.3e} (limit {BF16_ATTN_REL_L2:g})")
+            kw = dict(causal=causal, window=window, q_offset=off)
+            label = f"sweep {bh},{bkv},{sq},{skv},{causal},{window},{off} D={d}"
+            _, err = compare(f"{label} fp32", "simt", q, k, v, ref.attention, **kw)
+            sweep_err["fp32 simt"] = max(sweep_err["fp32 simt"], err)
+            for kernel in ("simt", "mma"):
+                _, err = compare(f"{label} bf16", kernel, q.bfloat16(), k.bfloat16(),
+                                 v.bfloat16(), ref.attention, **kw)
+                sweep_err[f"bf16 {kernel}"] = max(sweep_err[f"bf16 {kernel}"], err)
+    log(f"  K5 flash attention: tests/test_kernels.py sweep x D {HEAD_SIZES}, fp32 on the SIMT "
+        "kernel, bf16 on both: ok, largest row relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sweep_err.items())
+        + f" (bf16 limit {BF16_ATTN_REL_L2:g})")
 
     per_row = lambda q, k, v, **kw: ref.attention(  # noqa: E731
         q, k, v, causal=kw["causal"], q_offset=kf.expand_offsets(kw["q_offset"], q.shape[0],
@@ -670,17 +683,18 @@ def check_flash(torch, results: dict) -> None:
 
     def prefill(heads, kvh, d, s, window=None):
         return dict(kw=dict(causal=True, window=window, q_offset=0), q=(heads, s, d),
-                    kv=(kvh, s, d), want=ref.attention if window is None else ref.attention_chunked)
+                    kv=(kvh, s, d), want=ref.attention if window is None else ref.attention_chunked,
+                    kernels=("mma", "simt"))
 
     def decode(slots, heads, kvh, d, lens):
         return dict(kw=dict(causal=True, q_offset=torch.tensor(lens, dtype=torch.int32,
                                                                 device="cuda")),
                     q=(slots * heads, 1, d), kv=(slots * kvh, 4096, d), want=per_row,
-                    slots=slots, heads=heads)
+                    slots=slots, heads=heads, kernels=("simt",))
 
     # the shapes the serving paths give K5: a 2048-token prefill bucket, the
     # 8192-token forward (Danube) and a decode step over a 4096-position cache
-    # with one offset per slot
+    # with one offset per slot; prefill and forward through both kernels
     cases = {
         "Danube prefill": prefill(32, 8, 120, 2048),
         "Danube forward": prefill(32, 8, 120, 8192, window=4096),
@@ -692,10 +706,14 @@ def check_flash(torch, results: dict) -> None:
     for label, case in cases.items():
         kw, want_fn = case["kw"], case["want"]
         q32, k32, v32 = rnd(*case["q"]), rnd(*case["kv"]), rnd(*case["kv"])
-        diff32, _ = compare(f"{label} fp32", q32, k32, v32, want_fn, **kw)
+        diff32, _ = compare(f"{label} fp32", "simt", q32, k32, v32, want_fn, **kw)
         q, k, v = q32.bfloat16(), k32.bfloat16(), v32.bfloat16()
-        diff, row_err = compare(f"{label} bf16", q, k, v, want_fn, **kw)
-        ms = cuda_ms(lambda: kf.flash_attention(q, k, v, **kw))
+        del q32, k32, v32
+        chosen = kf.choose_kernel(q.dtype, q.shape[1], q.shape[2], True)
+        errs, ms = {}, {}
+        for kernel in case["kernels"]:
+            errs[kernel] = compare(f"{label} bf16", kernel, q, k, v, want_fn, **kw)
+            ms[kernel] = cuda_ms(lambda: kf._launch(kernel, q, k, v, **kw))
         plain_ms = cuda_ms(lambda: want_fn(q, k, v, **kw), repeats=3)
         # yardstick: SDPA over the same inputs with the KV heads repeated
         group = q.shape[0] // k.shape[0]
@@ -718,24 +736,44 @@ def check_flash(torch, results: dict) -> None:
                 band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < kw["window"])
                 lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=band)  # noqa: E731
         library_ms = cuda_ms(lib)
+        del qq, kk, vv
         t_ops, t_bytes = _attn_bound(torch, q, k, kf.expand_offsets(kw["q_offset"], q.shape[0],
                                                                     q.device),
                                      kw["causal"], kw.get("window"))
-        timings[label] = (ms, plain_ms, library_ms, max(t_ops, t_bytes),
-                          "operations" if t_ops >= t_bytes else "bytes")
-        log(f"  K5 {label} q {tuple(q.shape)} kv {tuple(k.shape)} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({timings[label][4]}), max abs diff {diff:.3e}, row relative L2 {row_err:.3e}; "
-            f"fp32 max abs diff {diff32:.3e}")
-        del q32, k32, v32, q, k, v
-    ms, plain_ms, library_ms, bound, by = timings["Danube prefill"]
+        timings[label] = dict(kernel=chosen, ms=ms[chosen], simt_ms=ms["simt"], plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                              bound_by="operations" if t_ops >= t_bytes else "bytes",
+                              row_rel_l2={k: e[1] for k, e in errs.items()})
+        log(f"  K5 {label} q {tuple(q.shape)} kv {tuple(k.shape)} bf16: "
+            + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items())
+            + f" (the wrapper takes {chosen}), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+            f"bound {max(t_ops, t_bytes):.4f} ms ({timings[label]['bound_by']}); "
+            + ", ".join(f"{k} max abs diff {e[0]:.3e}, row relative L2 {e[1]:.3e}"
+                        for k, e in errs.items())
+            + f"; fp32 (simt) max abs diff {diff32:.3e}")
+        del q, k, v
+
+    # where MMA_MIN_SQ draws the line: Danube's heads over a 4096-position
+    # cache (the engine's prefill bucket at cache length 0), short q
+    kv = [rnd(8, 4096, 120).bfloat16() for _ in range(2)]
+    short = {}
+    for sq in (1, 2, 4, 8, 16, 32, 64):
+        q = rnd(32, sq, 120).bfloat16()
+        short[sq] = {kernel: cuda_ms(lambda: kf._launch(kernel, q, *kv, causal=True))
+                     for kernel in ("mma", "simt")}
+    log("  K5 short q, q (32, Sq, 120) kv (8, 4096, 120) bf16, offset 0, mma / simt ms: "
+        + ", ".join(f"Sq {sq} {t['mma']:.4f} / {t['simt']:.4f}" for sq, t in short.items())
+        + f"; the wrapper takes mma from Sq {kf.MMA_MIN_SQ}")
+    del kv
+
+    main = timings.pop("Danube prefill")
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:117", max_abs_err=worst, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+        replaces="src/repro/kernels/flash_attention.py:117", max_abs_err=worst, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], kernel=main["kernel"], simt_ms=main["simt_ms"],
         shape="Danube prefill: q (32, 2048, 120), kv (8, 2048, 120), causal, bf16",
-        other_shapes={k: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), t))
-                      for k, t in timings.items() if k != "Danube prefill"})
+        other_shapes=timings, short_q_ms=short, sweep_row_rel_l2=sweep_err)
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1169,9 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
         f"{', '.join(labels)} each exceed it")
     stats["max_rel_l2"] = engine_err
     stats.update(decode_breakdown(torch, cfg, params, eng._states, eng._tokens))
+    del eng
+    gc.collect()
+    stats.update(prefill_breakdown(torch, cfg, params))
     log(f"  serving metrics: {json.dumps(stats)}")
     return dict(stats=stats, cfg=cfg, params=params)
 
@@ -1244,6 +1285,35 @@ def check_moe_layer(torch, cfg, params) -> dict:
     return dict(moe_layer_rel_l2=worst)
 
 
+# device-time groups of a profiled window: kernel-name fragments of each group
+KERNEL_GROUPS = {"K6 grouped_matmul": ("moe_gmm",),
+                 "K5 flash_attention": ("flash_kernel", "flash_mma_kernel"),
+                 "K4 rmsnorm": ("rmsnorm_kernel",),
+                 "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
+
+
+def device_groups(torch, prof, n: int):
+    """(device ms per call by group, launches per call by group, device ops
+    per call) over ``n`` calls profiled in ``prof``."""
+    groups = {k: 0.0 for k in [*KERNEL_GROUPS, "other"]}
+    counts = {k: 0 for k in groups}
+    n_kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        n_kernels += ev.count
+        group = next((g for g, keys in KERNEL_GROUPS.items() if any(t in name for t in keys)),
+                     "other")
+        groups[group] += us
+        counts[group] += ev.count
+    return ({k: v / n / 1e3 for k, v in groups.items()}, {k: v / n for k, v in counts.items()},
+            n_kernels / n)
+
+
 def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
     """Where one batched decode step's time goes: host-clock ms per step
     (synchronized), and the device time and launches of its kernels by group
@@ -1264,34 +1334,56 @@ def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         steps(5)
-    names = {"K6 grouped_matmul": ("moe_gmm",), "K5 flash_attention": ("flash_kernel",),
-             "K4 rmsnorm": ("rmsnorm_kernel",),
-             "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
-    groups = {k: 0.0 for k in [*names, "other"]}
-    counts = {k: 0 for k in groups}
-    n_kernels = 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not us or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.key.lower()
-        n_kernels += ev.count
-        group = next((g for g, keys in names.items() if any(t in name for t in keys)), "other")
-        groups[group] += us
-        counts[group] += ev.count
-    per_step = {k: v / 5 / 1e3 for k, v in groups.items()}
+    per_step, counts, n_ops = device_groups(torch, prof, 5)
     device_ms = sum(per_step.values())
     idle = 1 - device_ms / step_ms if device_ms else None
     log(f"  decode step ({tokens.shape[0]} slots): {step_ms:.3f} ms on the host clock; device "
-        "time per step " + ", ".join(f"{k} {v:.3f} ms ({counts[k] / 5:.0f} launches)"
+        "time per step " + ", ".join(f"{k} {v:.3f} ms ({counts[k]:.0f} launches)"
                                      for k, v in per_step.items())
-        + f"; {n_kernels / 5:.0f} device ops per step; device idle "
+        + f"; {n_ops:.0f} device ops per step; device idle "
         + (f"{idle:.1%}" if idle is not None else "not measured (no device events)"))
     return dict(decode_step_ms=step_ms, decode_device_ms=per_step,
-                decode_launches_per_step={k: v / 5 for k, v in counts.items()},
-                decode_ops_per_step=n_kernels / 5, decode_idle_share=idle)
+                decode_launches_per_step=counts, decode_ops_per_step=n_ops,
+                decode_idle_share=idle)
+
+
+def prefill_breakdown(torch, cfg, params, bucket: int = 2048) -> dict:
+    """Where one prefill bucket's time goes: ``M.decode_step`` on ``bucket``
+    tokens into an empty 4096-position cache, as the engine prefills a
+    request; host-clock ms (synchronized), and the device time and launches
+    of its kernels by group from ``torch.profiler``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    toks = torch.as_tensor(np.random.default_rng(SEED + 2).integers(0, cfg.vocab, (1, bucket)),
+                           device="cuda")
+    state = M.init_decode_state(cfg, 1, 4096, ring=False, device="cuda")
+
+    def calls(n):
+        for _ in range(n):
+            state["len"] = 0
+            M.decode_step(cfg, params, state, toks)
+        torch.cuda.synchronize()
+
+    calls(1)
+    t0 = time.perf_counter()
+    calls(3)
+    call_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls(2)
+    per_call, counts, n_ops = device_groups(torch, prof, 2)
+    device_ms = sum(per_call.values())
+    idle = 1 - device_ms / call_ms if device_ms else None
+    log(f"  prefill of one {bucket}-token bucket: {call_ms:.3f} ms on the host clock "
+        f"({bucket / call_ms * 1e3:.0f} tok/s); device time "
+        + ", ".join(f"{k} {v:.3f} ms ({counts[k]:.0f} launches)" for k, v in per_call.items())
+        + f"; {n_ops:.0f} device ops; device idle "
+        + (f"{idle:.1%}" if idle is not None else "not measured (no device events)"))
+    del state
+    return dict(prefill_bucket=bucket, prefill_call_ms=call_ms, prefill_device_ms=per_call,
+                prefill_launches=counts, prefill_ops=n_ops, prefill_idle_share=idle)
 
 
 def _leaves(p):
@@ -1330,6 +1422,44 @@ def forward_path(torch, cfg, params) -> None:
         raise AssertionError(f"forward logits: relative L2 {err:.3e} > {LOGITS_REL_TOL}")
 
 
+class PrefillPaths:
+    """While installed, K5's launches per kernel inside ``M.decode_step``,
+    which the engine calls once per prefill bucket (and ``prefill_breakdown``
+    too); a serving phase's other K5 launches are its decode steps'
+    (``decode_slots``)."""
+
+    def __init__(self, M, kf):
+        self.M, self.kf = M, kf
+        self.counts = {k: 0 for k in kf.PATHS}
+
+    def step(self, *args, **kw):
+        before = dict(self.kf.PATHS)
+        try:
+            return self.real(*args, **kw)
+        finally:
+            for k in self.counts:
+                self.counts[k] += self.kf.PATHS[k] - before[k]
+
+    def __enter__(self):
+        self.real, self.M.decode_step = self.M.decode_step, self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.M.decode_step = self.real
+
+
+def check_k5_paths(phase: str, total: dict, prefill: dict) -> dict:
+    """Fail unless the prefill launched the tensor-core kernel and decode
+    only the SIMT kernel; returns the decode's launches per kernel."""
+    decode = {k: total[k] - prefill[k] for k in total}
+    log(f"  K5 launches by kernel: prefill {prefill}, decode {decode}")
+    if prefill["mma"] <= 0:
+        raise AssertionError(f"{phase}: the prefill launched no mma K5 kernel: {prefill}")
+    if decode["mma"] != 0 or decode["simt"] <= 0:
+        raise AssertionError(f"{phase}: decode should launch only the simt K5 kernel: {decode}")
+    return decode
+
+
 def main() -> int:
     try:
         import torch
@@ -1355,6 +1485,7 @@ def main() -> int:
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import nest_kernel as nkm
     from repro_torch.kernels import rmsnorm as kr
+    from repro_torch.models import model as M
 
     smi = nvidia_smi()
     log(f"phase 1: device {torch.cuda.get_device_name(0)} "
@@ -1405,25 +1536,32 @@ def main() -> int:
     # the model stack's paths: the counts start at 0 before each, read right after
     def model_counts():
         return {"rmsnorm": kr.LAUNCHES["rmsnorm"], "flash_attention": kf.LAUNCHES["flash_attention"],
-                "grouped_matmul": km.LAUNCHES["grouped_matmul"],
+                "k5": dict(kf.PATHS), "grouped_matmul": km.LAUNCHES["grouped_matmul"],
                 "gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
 
     def reset_counts():
         kr.LAUNCHES["rmsnorm"] = kf.LAUNCHES["flash_attention"] = kg.LAUNCHES["gemm"] = 0
         km.LAUNCHES["grouped_matmul"] = 0
+        for k in kf.PATHS:
+            kf.PATHS[k] = 0
         for k in nkm.EMITTED:
             nkm.EMITTED[k] = 0
 
     log(f"phase 7: main path, serving {DANUBE} at full width through ServingEngine")
     reset_counts()
-    served = serve_path(torch, smi, get_config(DANUBE), seeded_params(torch, get_config(DANUBE)),
-                        slots=8, n_requests=N_REQUESTS, watched=WATCHED, seed=SEED)
+    with PrefillPaths(M, kf) as prefill_paths:
+        served = serve_path(torch, smi, get_config(DANUBE),
+                            seeded_params(torch, get_config(DANUBE)), slots=8,
+                            n_requests=N_REQUESTS, watched=WATCHED, seed=SEED)
     torch.cuda.synchronize()
     serve_launches = model_counts()
     log(f"  launches: K4 rmsnorm {serve_launches['rmsnorm']}, K5 flash attention "
         f"{serve_launches['flash_attention']} (K1 {serve_launches['gemm']}, K2 "
         f"{serve_launches['pallas_nest']}, K3 {serve_launches['pallas_reduce']})")
+    k5_paths = {"serving prefill": prefill_paths.counts,
+                "serving decode": check_k5_paths("phase 7", serve_launches["k5"],
+                                                 prefill_paths.counts)}
     for k in ("rmsnorm", "flash_attention"):
         launches[k] = serve_launches[k]
         if serve_launches[k] <= 0:
@@ -1435,10 +1573,13 @@ def main() -> int:
     torch.cuda.synchronize()
     fwd_launches = model_counts()
     log(f"  launches: K4 rmsnorm {fwd_launches['rmsnorm']}, K5 flash attention "
-        f"{fwd_launches['flash_attention']}")
+        f"{fwd_launches['flash_attention']} (by kernel {fwd_launches['k5']})")
     for k in ("rmsnorm", "flash_attention"):
         if fwd_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the forward path")
+    if fwd_launches["k5"]["mma"] <= 0:
+        raise AssertionError(f"the forward launched no mma K5 kernel: {fwd_launches['k5']}")
+    k5_paths["forward"] = fwd_launches["k5"]
     del served
     gc.collect()
     torch.cuda.empty_cache()
@@ -1450,10 +1591,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mparams = seeded_params(torch, mcfg)
     reset_counts()
-    served = serve_path(torch, smi, mcfg, mparams, slots=MIXTRAL_SLOTS,
-                        n_requests=MIXTRAL_REQUESTS, watched=MIXTRAL_WATCHED, seed=SEED + 9)
+    with PrefillPaths(M, kf) as prefill_paths:
+        served = serve_path(torch, smi, mcfg, mparams, slots=MIXTRAL_SLOTS,
+                            n_requests=MIXTRAL_REQUESTS, watched=MIXTRAL_WATCHED, seed=SEED + 9)
     torch.cuda.synchronize()
     moe_launches = model_counts()
+    k5_paths["MoE serving prefill"] = prefill_paths.counts
+    k5_paths["MoE serving decode"] = check_k5_paths("phase 9", moe_launches["k5"],
+                                                    prefill_paths.counts)
     log(f"  peak device memory over phase 9 (weights, caches, the fp32 yardstick): "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     per_step = served["stats"]["decode_launches_per_step"]
@@ -1475,6 +1620,8 @@ def main() -> int:
                 "grouped_matmul"):
         row = dict(results[key])
         row["launches"] = launches[key]
+        if key == "flash_attention":
+            row["launches_by_kernel"] = k5_paths
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

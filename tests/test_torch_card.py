@@ -8,10 +8,12 @@ fixture).  The nest-kernel cases are tests/test_tiling.py's edge cases,
 built from the port's IR; ``test_torch_kernels.py`` runs the same cases
 through the plain versions against the reference on the CPU.  The K4/K5
 cases are tests/test_kernels.py's sweeps plus the head sizes the configs
-use; ``test_torch_model_kernels.py`` holds the plain versions against the
-reference on the CPU.  K6 runs at ragged shapes and at each of its tile
-heights (C up to 32, up to 64, above), with and without 16-byte loads;
-``test_torch_moe.py`` holds its plain version against the reference.
+use, K5 through each of its two kernels (``_launch``: the tensor-core kernel
+in bf16, the SIMT kernel in fp32 and bf16); ``test_torch_model_kernels.py``
+holds the plain versions against the reference on the CPU.  K6 runs at
+ragged shapes and at each of its tile heights (C up to 32, up to 64, above),
+with and without 16-byte loads; ``test_torch_moe.py`` holds its plain
+version against the reference.
 """
 import numpy as np
 import pytest
@@ -190,26 +192,83 @@ def test_rmsnorm_kernel_on_card(card, rows, d, dtype):
         assert bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
 
 
+def _bf16_row_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _hold_flash_kernel(kernel, q, k, v, **kw):
+    """K5's ``kernel`` against the plain version: fp32 (SIMT only) by
+    allclose, bf16 by each q row's relative L2 error; both launches counted."""
+    before = p_flash.LAUNCHES["flash_attention"], p_flash.PATHS[kernel]
+    n = 0
+    if kernel == "simt":
+        got = p_flash._launch(kernel, q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, p_ref.attention(q, k, v, **kw), rtol=ATTN_RTOL,
+                                   atol=ATTN_ATOL)
+        n += 1
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = p_flash._launch(kernel, qb, kb, vb, **kw)
+    torch.cuda.synchronize()
+    assert p_flash.LAUNCHES["flash_attention"] == before[0] + n + 1
+    assert p_flash.PATHS[kernel] == before[1] + n + 1
+    assert _bf16_row_err(got, p_ref.attention(qb, kb, vb, **kw)) <= BF16_ATTN_REL_L2
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simt", "mma"])
 @pytest.mark.parametrize("d", HEAD_SIZES)
 @pytest.mark.parametrize("bh,bkv,sq,skv,causal,window,off", ATTN_SWEEP)
-def test_flash_attention_kernel_on_card(card, bh, bkv, sq, skv, causal, window, off, d):
+def test_flash_attention_kernel_on_card(card, bh, bkv, sq, skv, causal, window, off, d, kernel):
     g = torch.Generator(device=card).manual_seed(bh * sq + d)
     q = torch.randn(bh, sq, d, generator=g, device=card)
     k = torch.randn(bkv, skv, d, generator=g, device=card)
     v = torch.randn(bkv, skv, d, generator=g, device=card)
-    before = p_flash.LAUNCHES["flash_attention"]
-    got = p_flash.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
-    torch.cuda.synchronize()
-    assert p_flash.LAUNCHES["flash_attention"] == before + 1
-    want = p_ref.attention(q, k, v, causal=causal, window=window, q_offset=off)
-    torch.testing.assert_close(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    got = p_flash.flash_attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
-    want = p_ref.attention(qb, kb, vb, causal=causal, window=window, q_offset=off)
-    got, want = got.float(), want.float()
-    row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
-    assert float(row_err.max()) <= BF16_ATTN_REL_L2
+    _hold_flash_kernel(kernel, q, k, v, causal=causal, window=window, q_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simt", "mma"])
+@pytest.mark.parametrize("causal,window", [(True, 64), (True, None), (False, None)])
+def test_flash_attention_danube_head_ragged_on_card(card, causal, window, kernel):
+    """Danube's head size 120 (padded to 128 in the mma kernel's shared
+    memory) at Sq 200 over Skv 333: ragged q and key tiles, a window edge."""
+    g = torch.Generator(device=card).manual_seed(120)
+    q = torch.randn(8, 200, 120, generator=g, device=card)
+    k = torch.randn(2, 333, 120, generator=g, device=card)
+    v = torch.randn(2, 333, 120, generator=g, device=card)
+    _hold_flash_kernel(kernel, q, k, v, causal=causal, window=window, q_offset=133)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simt", "mma"])
+def test_flash_attention_per_head_offsets_prefill_on_card(card, kernel):
+    """One offset per q head with Sq > 1 (GQA group 2), rows near and past
+    the end of the keys included."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(16, 40, 128, generator=g, device=card)
+    k = torch.randn(8, 300, 128, generator=g, device=card)
+    v = torch.randn(8, 300, 128, generator=g, device=card)
+    offs = torch.tensor([0, 5, 100, 259, 260, 3, 70, 299, 1, 2, 150, 151, 0, 0, 280, 10],
+                        dtype=torch.int32, device=card)
+    _hold_flash_kernel(kernel, q, k, v, causal=True, q_offset=offs)
+    _hold_flash_kernel(kernel, q, k, v, causal=True, window=32, q_offset=offs)
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_prefill_to_mma_and_decode_to_simt(card):
+    """The public wrapper's choice on the card: a bf16 prefill bucket takes
+    the tensor-core kernel, a decode step and fp32 the SIMT kernel."""
+    g = torch.Generator(device=card).manual_seed(6)
+    k = torch.randn(8, 512, 120, generator=g, device=card).bfloat16()
+    for sq, dtype, kernel in [(256, torch.bfloat16, "mma"), (1, torch.bfloat16, "simt"),
+                              (256, torch.float32, "simt")]:
+        q = torch.randn(32, sq, 120, generator=g, device=card).to(dtype)
+        before = dict(p_flash.PATHS)
+        p_flash.flash_attention(q, k.to(dtype), k.to(dtype), q_offset=256)
+        assert p_flash.PATHS[kernel] == before[kernel] + 1
+        assert sum(p_flash.PATHS.values()) == sum(before.values()) + 1
 
 
 @pytest.mark.cuda

@@ -43,3 +43,39 @@ def test_pipeline_output_and_nest_fingerprints_match(label, build):
     assert [p_fp(n) for n in pn.body] == [r_fp(n) for n in rn.body]
     for a, b in zip(pn.body, rn.body):
         np.testing.assert_array_equal(p_embed(pn, a), r_embed(rn, b))
+
+
+def _fixpoint_example(ir):
+    """The 2x2 nest on which one ``normalize`` is not a fixpoint (ROADMAP.md
+    section 3, from tests/test_property.py): ``c0`` writes ``C[i1, i0+1]``
+    from ``A[0]``; ``c1`` writes ``C[i1, i0]`` from ``C[i1+1, i0+1]``."""
+    aff, access = ir.aff, ir.Access
+    c0 = ir.Computation("c0", access("C", (aff("i1"), aff("i0", const=1))),
+                        (access("A", (aff(const=0),)),), ir.Read(0) * 1.5)
+    c1 = ir.Computation("c1", access("C", (aff("i1"), aff("i0"))),
+                        (access("C", (aff("i1", const=1), aff("i0", const=1))),),
+                        ir.Read(0) * 0.5)
+    return ir.Program("fixpoint", (ir.Array("A", (6,)), ir.Array("C", (6, 6))),
+                      (ir.Loop("i0", 2, body=(ir.Loop("i1", 2, body=(c0, c1)),)),))
+
+
+def test_normalize_not_a_fixpoint_like_the_reference():
+    """Pins a reference fault the port copies on purpose: the first
+    ``normalize`` interchanges the loops and keeps both computations in one
+    nest; the second fissions the inner loop.  Both packages give the same
+    per-nest fingerprints after one pass and after two, so the port keeps the
+    reference's tuning-database keys, and this fails if either package alone
+    changes."""
+    from repro.core import ir as rir
+    from repro.core import normalize as r_norm
+    from repro_torch.core import ir as pir
+    from repro_torch.core import normalize as p_norm
+
+    keys = {}
+    for name, ir, norm, fp in (("repro", rir, r_norm, r_fp), ("repro_torch", pir, p_norm, p_fp)):
+        once = norm(_fixpoint_example(ir))
+        twice = norm(once)
+        keys[name] = ([fp(n) for n in once.body], [fp(n) for n in twice.body])
+    assert keys["repro_torch"] == keys["repro"]
+    once, twice = keys["repro"]
+    assert once != twice  # the fault: a second pass still changes the nests

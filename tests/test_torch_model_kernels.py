@@ -181,3 +181,59 @@ def test_cpu_attention_switches_to_chunked_above_threshold(monkeypatch):
     p_ops.attention(torch.from_numpy(q[:, :1]), torch.from_numpy(k), torch.from_numpy(v),
                     q_offset=95)
     assert calls == [1]  # a single q row never goes chunked
+
+
+# ---------------------------------------------------------------------------
+# K5's choice between its two CUDA kernels (made before any launch)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,sq,d,aligned,want", [
+    (torch.bfloat16, 2048, 120, True, "mma"),    # Danube prefill bucket / forward
+    (torch.bfloat16, 8192, 120, True, "mma"),    # the windowed forward
+    (torch.bfloat16, 2048, 128, True, "mma"),    # Mixtral prefill bucket
+    (torch.bfloat16, 200, 64, True, "mma"),
+    (torch.bfloat16, 40, 32, True, "mma"),       # the smallest head the kernel pads (to 32)
+    (torch.bfloat16, 1, 120, True, "simt"),      # decode
+    (torch.bfloat16, 1, 128, True, "simt"),
+    (torch.float32, 2048, 120, True, "simt"),    # fp32
+    (torch.float32, 1, 64, True, "simt"),
+    (torch.bfloat16, 2048, 136, True, "simt"),   # D > 128
+    (torch.bfloat16, 2048, 256, True, "simt"),
+    (torch.bfloat16, 2048, 30, True, "simt"),    # D % 8 != 0
+    (torch.bfloat16, 2048, 4, True, "simt"),
+    (torch.bfloat16, 2048, 120, False, "simt"),  # a pointer off 16 bytes
+])
+def test_flash_kernel_choice(dtype, sq, d, aligned, want):
+    assert p_flash.choose_kernel(dtype, sq, d, aligned) == want
+
+
+def test_flash_kernel_choice_at_the_q_length_threshold():
+    assert p_flash.MMA_MIN_SQ >= 2  # a decode step never takes the tensor-core kernel
+    assert p_flash.choose_kernel(torch.bfloat16, p_flash.MMA_MIN_SQ, 64, True) == "mma"
+    assert p_flash.choose_kernel(torch.bfloat16, p_flash.MMA_MIN_SQ - 1, 64, True) == "simt"
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b"])
+def test_main_path_shapes_take_mma_and_decode_takes_simt(arch):
+    """Every prefill bucket of the engine (against a 4096-position cache) and
+    the 8192-token forward take the tensor-core kernel; a decode step the
+    SIMT kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import prefill_buckets
+
+    dh = get_config(arch).head_dim
+    for sq in [*prefill_buckets(4096), 8192]:
+        assert p_flash.choose_kernel(torch.bfloat16, sq, dh, True) == "mma", sq
+    assert p_flash.choose_kernel(torch.bfloat16, 1, dh, True) == "simt"
+
+
+def test_named_kernel_entry_refuses_the_cpu_and_unknown_kernels():
+    """No kernel runs on CPU tensors, and nothing falls back: the named entry
+    raises instead of taking the plain version."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 2, 8, 8, 16))
+    before = dict(p_flash.PATHS), p_flash.PLAIN["flash_attention"]
+    for kernel in ("mma", "simt"):
+        with pytest.raises(ValueError):
+            p_flash._launch(kernel, q, k, v)
+    with pytest.raises(ValueError):
+        p_flash._launch("sdpa", q, k, v)
+    assert (dict(p_flash.PATHS), p_flash.PLAIN["flash_attention"]) == before
