@@ -19,9 +19,11 @@ Phases, in order (any failure exits nonzero):
    and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288};
    K5's two kernels (the tensor-core kernel in bf16, the SIMT kernel in
    fp32 and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
-   H2O-Danube3-4B's prefill and 8192-token windowed forward and Mixtral
-   8x7B's prefill, and the SIMT kernel at both models' decode steps with
-   per-slot offsets; both kernels' times at q lengths 1-64; K6 in fp32 and
+   H2O-Danube3-4B's prefill (2048- and 256-token buckets against the
+   engine's 4096-position cache) and 8192-token windowed forward and
+   Mixtral 8x7B's prefill, and the SIMT kernel at both models' decode steps
+   with per-slot offsets; both kernels' errors and times at q lengths 1-64
+   over a 4096-position cache; K6 in fp32 and
    bf16 at ragged shapes and at Mixtral 8x7B's expert products (gate/up and
    down of a 2048-token bucket and of a 16-slot decode step, gate/up of a
    128-token bucket); then each kernel's time at a main-path shape beside
@@ -45,11 +47,11 @@ Phases, in order (any failure exits nonzero):
    (``models/plain.py``) within a relative L2 tolerance that fp8 weights,
    eps = 0 and gamma = 1 are each shown to exceed; a decode step's and a
    2048-token prefill bucket's device time by kernel group; K4/K5 launches
-   (> 0), K5's prefill on the tensor-core kernel, its decode only on the
-   SIMT kernel;
+   (> 0), K5's prefill only on the tensor-core kernel, its decode only on
+   the SIMT kernel;
 8. main path, forward: ``forward`` on one 8192-token sequence, so K5 runs
    with the 4096 window, held against the plain forward at 256 positions
-   beyond 4096; K4/K5 launches (> 0), K5 on the tensor-core kernel;
+   beyond 4096; K4/K5 launches (> 0), K5 only on the tensor-core kernel;
 9. main path, MoE serving: Mixtral 8x7B at its published widths with all 8
    experts and top-2, cut in depth to 16 of its 32 layers (one stage of a
    two-stage pipeline over two cards), bf16, seeded weights, through
@@ -629,8 +631,9 @@ def _attn_bound(torch, q, k, q_offset, causal, window):
 def check_flash(torch, results: dict) -> None:
     """K5's two kernels against the plain version at every shape either can
     take, then their times at the main path's shapes beside the plain
-    version's, SDPA's and the bound, and both kernels' times over the short
-    q lengths where ``kernels.flash_attention.MMA_MIN_SQ`` draws the line."""
+    version's, SDPA's and the bound, and both kernels' errors and times over
+    the short q lengths where ``kernels.flash_attention.choose_kernel`` draws
+    the line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kf
@@ -681,9 +684,10 @@ def check_flash(torch, results: dict) -> None:
         q, k, v, causal=kw["causal"], q_offset=kf.expand_offsets(kw["q_offset"], q.shape[0],
                                                                   q.device))
 
-    def prefill(heads, kvh, d, s, window=None):
+    def prefill(heads, kvh, d, s, window=None, skv=None):
         return dict(kw=dict(causal=True, window=window, q_offset=0), q=(heads, s, d),
-                    kv=(kvh, s, d), want=ref.attention if window is None else ref.attention_chunked,
+                    kv=(kvh, skv or s, d),
+                    want=ref.attention if window is None else ref.attention_chunked,
                     kernels=("mma", "simt"))
 
     def decode(slots, heads, kvh, d, lens):
@@ -692,14 +696,16 @@ def check_flash(torch, results: dict) -> None:
                     q=(slots * heads, 1, d), kv=(slots * kvh, 4096, d), want=per_row,
                     slots=slots, heads=heads, kernels=("simt",))
 
-    # the shapes the serving paths give K5: a 2048-token prefill bucket, the
+    # the shapes the serving paths give K5: a prefill bucket (2048 and 256
+    # tokens) against the engine's whole 4096-position cache at offset 0, the
     # 8192-token forward (Danube) and a decode step over a 4096-position cache
     # with one offset per slot; prefill and forward through both kernels
     cases = {
-        "Danube prefill": prefill(32, 8, 120, 2048),
+        "Danube prefill": prefill(32, 8, 120, 2048, skv=4096),
+        "Danube prefill 256": prefill(32, 8, 120, 256, skv=4096),
         "Danube forward": prefill(32, 8, 120, 8192, window=4096),
         "Danube decode": decode(8, 32, 8, 120, [1, 300, 1111, 2047, 2500, 3333, 4000, 4095]),
-        "Mixtral prefill": prefill(32, 8, 128, 2048),
+        "Mixtral prefill": prefill(32, 8, 128, 2048, skv=4096),
         "Mixtral decode": decode(16, 32, 8, 128, [1 + 4094 * i // 15 for i in range(16)]),
     }
     timings = {}
@@ -753,17 +759,23 @@ def check_flash(torch, results: dict) -> None:
             + f"; fp32 (simt) max abs diff {diff32:.3e}")
         del q, k, v
 
-    # where MMA_MIN_SQ draws the line: Danube's heads over a 4096-position
-    # cache (the engine's prefill bucket at cache length 0), short q
+    # where choose_kernel draws the line: Danube's heads over a 4096-position
+    # cache (the engine's prefill bucket at cache length 0), short q; both
+    # kernels held against the plain version, then timed
     kv = [rnd(8, 4096, 120).bfloat16() for _ in range(2)]
-    short = {}
+    short, short_err = {}, {"mma": 0.0, "simt": 0.0}
     for sq in (1, 2, 4, 8, 16, 32, 64):
         q = rnd(32, sq, 120).bfloat16()
+        for kernel in ("mma", "simt"):
+            _, err = compare(f"short q {sq}", kernel, q, *kv, ref.attention, causal=True)
+            short_err[kernel] = max(short_err[kernel], err)
         short[sq] = {kernel: cuda_ms(lambda: kf._launch(kernel, q, *kv, causal=True))
                      for kernel in ("mma", "simt")}
+    first_mma = min(sq for sq in short if kf.choose_kernel(torch.bfloat16, sq, 120, True) == "mma")
     log("  K5 short q, q (32, Sq, 120) kv (8, 4096, 120) bf16, offset 0, mma / simt ms: "
         + ", ".join(f"Sq {sq} {t['mma']:.4f} / {t['simt']:.4f}" for sq, t in short.items())
-        + f"; the wrapper takes mma from Sq {kf.MMA_MIN_SQ}")
+        + f"; the wrapper takes mma from Sq {first_mma}; largest row relative L2 "
+        + ", ".join(f"{k} {e:.3e}" for k, e in short_err.items()))
     del kv
 
     main = timings.pop("Danube prefill")
@@ -772,7 +784,7 @@ def check_flash(torch, results: dict) -> None:
         replaces="src/repro/kernels/flash_attention.py:117", max_abs_err=worst, ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], kernel=main["kernel"], simt_ms=main["simt_ms"],
-        shape="Danube prefill: q (32, 2048, 120), kv (8, 2048, 120), causal, bf16",
+        shape="Danube prefill: q (32, 2048, 120), kv (8, 4096, 120), causal, offset 0, bf16",
         other_shapes=timings, short_q_ms=short, sweep_row_rel_l2=sweep_err)
 
 
@@ -1449,12 +1461,13 @@ class PrefillPaths:
 
 
 def check_k5_paths(phase: str, total: dict, prefill: dict) -> dict:
-    """Fail unless the prefill launched the tensor-core kernel and decode
-    only the SIMT kernel; returns the decode's launches per kernel."""
+    """Fail unless the prefill launched only the tensor-core kernel and
+    decode only the SIMT kernel; returns the decode's launches per kernel."""
     decode = {k: total[k] - prefill[k] for k in total}
     log(f"  K5 launches by kernel: prefill {prefill}, decode {decode}")
-    if prefill["mma"] <= 0:
-        raise AssertionError(f"{phase}: the prefill launched no mma K5 kernel: {prefill}")
+    if prefill["mma"] <= 0 or prefill["simt"] != 0:
+        raise AssertionError(f"{phase}: the prefill should launch only the mma K5 kernel: "
+                             f"{prefill}")
     if decode["mma"] != 0 or decode["simt"] <= 0:
         raise AssertionError(f"{phase}: decode should launch only the simt K5 kernel: {decode}")
     return decode
@@ -1577,8 +1590,9 @@ def main() -> int:
     for k in ("rmsnorm", "flash_attention"):
         if fwd_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the forward path")
-    if fwd_launches["k5"]["mma"] <= 0:
-        raise AssertionError(f"the forward launched no mma K5 kernel: {fwd_launches['k5']}")
+    if fwd_launches["k5"]["mma"] <= 0 or fwd_launches["k5"]["simt"] != 0:
+        raise AssertionError(f"the forward should launch only the mma K5 kernel: "
+                             f"{fwd_launches['k5']}")
     k5_paths["forward"] = fwd_launches["k5"]
     del served
     gc.collect()

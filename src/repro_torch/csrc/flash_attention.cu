@@ -47,8 +47,8 @@
 //   feeds two mma.sync, and a warp has twice the independent products
 //   between barriers (one m16 tile per warp, 64 rows per block with Q held
 //   in registers, was slower on an H100 at the prefill and forward shapes).
-//   The Q tile is staged once in shared memory with D padded to DP (32, 64
-//   or 128; Danube's 120 becomes 128) by cp.async's zero fill, and its
+//   The Q tile is staged once in shared memory with D padded to DP = 128
+//   (Danube's 120 becomes 128) by cp.async's zero fill, and its
 //   ldmatrix A fragments are reloaded per k step: both tiles' would not fit
 //   in registers beside O and S.
 // * K/V tiles of 64 keys x DP stream through a 2-stage cp.async ring in
@@ -65,9 +65,9 @@
 //   fragments come by ldmatrix.trans.  O is 32 x DP fp32 per warp.
 // * Epilogue: O / l (0 when l is 0), rounded to bf16, the D real columns
 //   stored with guarded 4-byte stores.
-// ptxas (sm_90a): 255 registers at DP = 128 with 100 bytes of spill stores
-// and 116 of loads per thread, 254 at DP = 64 and 196 at DP = 32 without
-// spills (chip_smoke.py prints these lines at every build).
+// ptxas (sm_90a): 255 registers with 100 bytes of spill stores and 116 of
+// loads per thread (chip_smoke.py prints these lines at every build).  One
+// DP serves every head: no main-path head is narrower than 120.
 // It takes D % 8 == 0, D <= 128 and 16-byte aligned pointers (rows then
 // start on 16 bytes, as cp.async needs); kernels/flash_attention.py sends
 // everything else to flash_kernel.  wgmma, TMA and warp specialisation are
@@ -674,10 +674,7 @@ int run_mma(const void* q, const void* k, const void* v, void* out, const Params
   if (p.d < 8 || p.d > 128 || p.d % 8 != 0 || !aligned || p.bhkv < 1 || p.bhq % p.bhkv != 0 ||
       p.sq < 1 || p.sq > 65535 * MMA_BM)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (p.d <= 32) return launch_mma_dp<32>(q, k, v, out, p, s);
-  if (p.d <= 64) return launch_mma_dp<64>(q, k, v, out, p, s);
-  return launch_mma_dp<128>(q, k, v, out, p, s);
+  return launch_mma_dp<128>(q, k, v, out, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -42,14 +42,7 @@ PLAIN = {"flash_attention": 0}
 
 _SIMT_ENTRIES = {torch.float32: "repro_flash_f32", torch.bfloat16: "repro_flash_bf16"}
 MAX_HEAD = 256      # csrc/flash_attention.cu: DMAX (flash_kernel)
-MMA_MAX_HEAD = 128  # flash_mma_kernel: D padded to 32, 64 or 128 in shared memory
-# The shortest q the tensor-core kernel takes.  Timed on an H100 at Danube's
-# heads over a 4096-position cache (chip_smoke.py phase 3, PERF.md), it was
-# the faster kernel at every Sq from 2 to 64, the engine's 16- and 32-token
-# buckets included.  Decode (Sq == 1) stays on the SIMT kernel, which splits
-# one q row's KV walk over 16 warps and holds the per-slot decode step level
-# with SDPA.
-MMA_MIN_SQ = 2
+MMA_MAX_HEAD = 128  # flash_mma_kernel: D padded to 128 in shared memory
 ROWS_PER_BLOCK = 4  # csrc/flash_attention.cu: R (flash_kernel)
 
 
@@ -71,16 +64,20 @@ def choose_kernel(dtype: torch.dtype, sq: int, d: int, aligned: bool) -> str:
     """``"mma"`` or ``"simt"`` for attention of this dtype, q length and head
     size; ``aligned``: q, k and v start on 16 bytes.
 
-    The tensor-core kernel takes bf16 with ``MMA_MIN_SQ <= Sq``, ``D <= 128``,
+    The tensor-core kernel takes bf16 with ``Sq > 1``, ``D <= 128``,
     ``D % 8 == 0`` and aligned pointers: rows of ``D`` bf16 values then start
-    on 16 bytes, which its ``cp.async`` copies need, and D pads to at most 128
-    in shared memory.  Everything else goes to the SIMT kernel: decode
-    (``Sq == 1``), fp32, ``D > 128`` or ``D % 8 != 0``, unaligned views.  No
-    main-path shape falls there except decode: the dense and MoE configs'
-    heads are 64-128 wide (Danube 120, Mixtral 128), and the model stack
-    hands K5 fresh tensors or views of whole cache rows, all aligned.
+    on 16 bytes, which its ``cp.async`` copies need, and D pads to 128 in
+    shared memory.  Timed on an H100 at Danube's heads over a 4096-position
+    cache (chip_smoke.py phase 3, PERF.md), it was the faster kernel at every
+    Sq from 2 to 64, the engine's 16- and 32-token buckets included.
+    Everything else goes to the SIMT kernel: decode (``Sq == 1``, where it
+    splits one q row's KV walk over 16 warps and holds the step level with
+    SDPA), fp32, ``D > 128`` or ``D % 8 != 0``, unaligned views.  No main-path
+    shape falls there except decode: the dense and MoE configs' heads are
+    64-128 wide (Danube 120, Mixtral 128), and the model stack hands K5 fresh
+    tensors or views of whole cache rows, all aligned.
     """
-    return "mma" if sq >= MMA_MIN_SQ and _mma_takes(dtype, d, aligned) else "simt"
+    return "mma" if sq > 1 and _mma_takes(dtype, d, aligned) else "simt"
 
 
 def _mma_takes(dtype: torch.dtype, d: int, aligned: bool) -> bool:
@@ -121,21 +118,21 @@ def _aligned(*ts) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """Attention over (BH, S, D) tensors (GQA via BHq = g * BHkv)."""
-    _check(q, k, v)
     if q.device.type == "cpu":
+        _check(q, k, v)
         PLAIN["flash_attention"] += 1
         off = expand_offsets(q_offset, q.shape[0], q.device)
         return ref.attention(q, k, v, causal=causal, window=window, q_offset=off)
-    kernel = choose_kernel(q.dtype, q.shape[1], q.shape[2], _aligned(q, k, v))
-    return _launch(kernel, q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _launch(None, q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
-def _launch(kernel: str, q, k, v, *, causal=True, window=None, q_offset=0):
-    """Launch the named kernel (``"mma"`` or ``"simt"``) on CUDA tensors, or
-    raise if it does not take them.  ``flash_attention`` goes through here
-    with ``choose_kernel``'s pick; the card tests and ``chip_smoke.py`` call
-    it directly to hold each kernel against the plain version."""
-    if kernel not in PATHS:
+def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0):
+    """Launch the named kernel (``"mma"`` or ``"simt"``; ``None``:
+    ``choose_kernel``'s pick) on CUDA tensors, or raise if it does not take
+    them.  ``flash_attention`` goes through here with ``None``; the card tests
+    and ``chip_smoke.py`` name a kernel to hold each against the plain
+    version."""
+    if kernel is not None and kernel not in PATHS:
         raise ValueError(f"flash_attention: no kernel {kernel!r}")
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -146,7 +143,10 @@ def _launch(kernel: str, q, k, v, *, causal=True, window=None, q_offset=0):
         raise ValueError(f"flash_attention: head size {d} > {MAX_HEAD}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if kernel == "mma" and not _mma_takes(q.dtype, d, _aligned(q, k, v)):
+    aligned = _aligned(q, k, v)
+    if kernel is None:
+        kernel = choose_kernel(q.dtype, sq, d, aligned)
+    elif kernel == "mma" and not _mma_takes(q.dtype, d, aligned):
         raise ValueError(f"flash_attention: the mma kernel takes bf16, D <= {MMA_MAX_HEAD}, "
                          f"D % 8 == 0 and 16-byte aligned tensors, not {q.dtype}, D = {d}")
     off = expand_offsets(q_offset, bhq, q.device)

@@ -191,7 +191,10 @@ def test_cpu_attention_switches_to_chunked_above_threshold(monkeypatch):
     (torch.bfloat16, 8192, 120, True, "mma"),    # the windowed forward
     (torch.bfloat16, 2048, 128, True, "mma"),    # Mixtral prefill bucket
     (torch.bfloat16, 200, 64, True, "mma"),
-    (torch.bfloat16, 40, 32, True, "mma"),       # the smallest head the kernel pads (to 32)
+    (torch.bfloat16, 40, 32, True, "mma"),       # a small head, padded to 128
+    (torch.bfloat16, 16, 120, True, "mma"),      # the engine's shortest bucket
+    (torch.bfloat16, 2, 64, True, "mma"),        # the shortest q the kernel takes
+    (torch.bfloat16, 1, 64, True, "simt"),       # a decode step never takes it
     (torch.bfloat16, 1, 120, True, "simt"),      # decode
     (torch.bfloat16, 1, 128, True, "simt"),
     (torch.float32, 2048, 120, True, "simt"),    # fp32
@@ -204,12 +207,6 @@ def test_cpu_attention_switches_to_chunked_above_threshold(monkeypatch):
 ])
 def test_flash_kernel_choice(dtype, sq, d, aligned, want):
     assert p_flash.choose_kernel(dtype, sq, d, aligned) == want
-
-
-def test_flash_kernel_choice_at_the_q_length_threshold():
-    assert p_flash.MMA_MIN_SQ >= 2  # a decode step never takes the tensor-core kernel
-    assert p_flash.choose_kernel(torch.bfloat16, p_flash.MMA_MIN_SQ, 64, True) == "mma"
-    assert p_flash.choose_kernel(torch.bfloat16, p_flash.MMA_MIN_SQ - 1, 64, True) == "simt"
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b"])
