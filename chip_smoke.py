@@ -15,7 +15,12 @@ Phases, in order (any failure exits nonzero):
 3. kernels against their plain versions on the card: K1 at the kernel-test
    shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
-   guarded reduction with unroll 1/2/4 and each of + * max min; K4 in fp32
+   guarded reduction with unroll 1/2/4 and each of + * max min, K3 in its
+   split form too; K3 at every PolyBench LARGE reduction nest of the main
+   path that splits (matrix-vector products, means, deviations: at least
+   two programs per SM, within 2e-4 of the plain version, bit-identical over
+   two runs), timed on the device beside the unsplit form, the bound and
+   ``torch.addmv``, and the 3-D products' split count (1); K4 in fp32
    and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288};
    K5's two kernels (the tensor-core kernel in bf16, the SIMT kernel in
    fp32 and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
@@ -24,9 +29,11 @@ Phases, in order (any failure exits nonzero):
    Mixtral 8x7B's prefill, and the SIMT kernel at both models' decode steps
    with per-slot offsets; both kernels' errors and times at q lengths 1-64
    over a 4096-position cache; K6 in fp32 and
-   bf16 at ragged shapes and at Mixtral 8x7B's expert products (gate/up and
-   down of a 2048-token bucket and of a 16-slot decode step, gate/up of a
-   128-token bucket); then each kernel's time at a main-path shape beside
+   through both bf16 kernels (wgmma/TMA and mma.sync) at ragged shapes (E =
+   3) and over C in {16, 40, 80, 160, 320, 640} at Mixtral 8x7B's gate/up
+   and down widths, the capacities of its 16-slot decode step and its
+   128-2048-token buckets, each timed beside ``torch.bmm`` and the bound;
+   then each kernel's time at a main-path shape beside
    its plain version's, its bound and, where one torch call computes the
    same function, that call's time;
 4. main path, PolyBench: ``Daisy(backend="cuda")`` on the 15 A variants and
@@ -63,7 +70,10 @@ Phases, in order (any failure exits nonzero):
    plain forward, which follows the engine's dispatch groups and its
    near-tie routing choices; the three mutants plus gates over all experts
    each exceed the tolerance; K4/K5/K6 launches (> 0), K5 split as in phase
-   7; then the MoE layer alone on every layer's weights and random inputs, a
+   7, every K6 launch on ``choose_kernel``'s pick (the decode step's on the
+   mma kernel, the buckets of 256 tokens and up on the wgmma kernel), the
+   prefill bucket's K6 time by kernel; then the MoE layer alone on every
+   layer's weights and random inputs, a
    2048-token bucket and a 16-slot decode step, against the plain fp32
    layer, every expert keeping tokens of the bucket.
 
@@ -254,13 +264,18 @@ def _nest_programs(ir):
         cases.append((f"guarded reduction 9x16 unroll={u}", syrk1(9, 16), red((4, 4, 8), u)))
         cases.append((f"guarded reduction 1024x512 unroll={u}", syrk1(1024, 512),
                       red((16, 16, 64), u)))
+    # a guarded reduction whose 16 parallel tiles split its 64 reduction tiles
+    cases.append(("guarded reduction 64x4096 tile=(16,16,64)", syrk1(64, 4096),
+                  red((16, 16, 64), 2)))
     for op in ("+", "*", "max", "min"):
         cases.append((f"reduction {op} 4096x64", reduce_op(op, 4096, 64), red(None)))
+        # one parallel tile over 64 reduction tiles: the split form
+        cases.append((f"reduction {op} 64x4096", reduce_op(op, 64, 4096), red(None)))
     out = []
     for label, prog, sched in cases:
         inp = random_inputs(prog, seed=7)
-        if prog.name == "reduce*":  # keep the product of 64 terms near 1
-            inp["A"] = np.random.default_rng(7).uniform(0.99, 1.01, size=(4096, 64)).astype(np.float32)
+        if prog.name == "reduce*":  # keep the product of the terms near 1
+            inp["A"] = np.random.default_rng(7).uniform(0.99, 1.01, size=inp["A"].shape).astype(np.float32)
         out.append((label, prog, sched, inp))
     return out
 
@@ -282,15 +297,77 @@ def _compare(got, want) -> tuple[float, float]:
     return rel, diff
 
 
+# PolyBench LARGE's reduction nests of the main path (A variants) that
+# fill too few programs for the card alone: matrix-vector products and the
+# means and deviations of correlation and covariance; and the 3-D products,
+# whose parallel tiles already fill it
+K3_SPLIT_NESTS = {"atax": ("t1", "t2"), "bicg": ("cs", "cq"), "gemver": ("x_up", "w_up"),
+                  "gesummv": ("ct", "cy"), "correlation": ("sm", "ss"), "covariance": ("sm",)}
+K3_FULL_NESTS = {"syrk": ("mac",), "syr2k": ("mac1", "mac2"), "correlation": ("cc",),
+                 "covariance": ("cc",)}
+
+
+def device_ms(torch, fn, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the kernels' own time summed
+    over ``n`` calls under ``torch.profiler``, divided by ``n`` (host gaps
+    and launch latency excluded, unlike ``cuda_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_groups(torch, prof, n)[0].values())
+
+
+def _nest_bound(nk, base) -> tuple[float, float]:
+    """(operation ms, byte ms) of a planned nest on these arrays."""
+    from repro_torch.core.ir import expr_ops
+
+    points = math.prod(a.trip for a in nk.plan.axes)
+    flops = float(points * sum(max(1, expr_ops(c.expr)) + (1 if c.accumulate else 0)
+                               for c in nk.plan.comps))
+    read = {r.array for c in nk.plan.comps for r in c.reads}
+    written = {c.write.array for c in nk.plan.comps}
+    if nk.kind == "pallas_reduce":
+        read |= written  # the old output is combined with the result
+    nbytes = 4.0 * (sum(base[a].numel() for a in read) + sum(base[a].numel() for a in written))
+    return flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def _main_nests(nkm, prog, kind=None, names=None):
+    """(nest program, planned kernel) of each canonical nest of ``prog``
+    the nest planner takes, as the main path plans it."""
+    from repro_torch.core import Daisy, Schedule
+    from repro_torch.core.scheduler import nest_program
+    from repro_torch.core.tiling import TilingError
+
+    norm = Daisy(backend="torch").plan(prog).program
+    out = []
+    for nest in norm.body:
+        try:
+            nk = nkm.plan_nest(norm, nest, Schedule(pallas_nest=True, pallas_reduce=True))
+        except TilingError:
+            continue
+        if (kind is None or nk.plan.kind == kind) and (
+                names is None or nk.plan.comps[0].name in names):
+            out.append((nest_program(norm, nest), nk))
+    return out
+
+
 def check_nest_kernel(torch, results: dict) -> None:
     from repro_torch.core import ir
     from repro_torch.kernels import nest_kernel as nkm
 
+    sms = nkm.sm_count(torch.device("cuda"))
     worst = {"pallas_nest": 0.0, "pallas_reduce": 0.0}
     for label, prog, sched, inp in _nest_programs(ir):
         nk = nkm.plan_nest(prog, prog.body[0], sched)
         base = _env(torch, prog, inp)
         got, want = _copy(base), _copy(base)
+        splits = nkm.reduce_splits(nk.plan, sms)
         t0 = time.perf_counter()
         nkm.run_nest(nk, got)
         torch.cuda.synchronize()
@@ -298,100 +375,143 @@ def check_nest_kernel(torch, results: dict) -> None:
         nkm.nest_plain(nk, want)
         err, diff = _compare(got, want)
         worst[nk.kind] = max(worst[nk.kind], diff)
+        forms = f"{splits} split{'s' if splits > 1 else ''}"
+        if nk.kind == "pallas_reduce" and splits == 1 and nk.plan.reduce_grid.n_tiles > 1:
+            # the split form too, where the launch would not take it
+            forced = _copy(base)
+            nkm.nest_launch(nk, forced, splits=nk.plan.reduce_grid.n_tiles)
+            torch.cuda.synchronize()
+            ferr, fdiff = _compare(forced, want)
+            worst[nk.kind] = max(worst[nk.kind], fdiff)
+            err = max(err, ferr)
+            forms += f"; split into {nk.plan.reduce_grid.n_tiles} max rel err {ferr:.3e}"
         log(f"  {'K2' if nk.kind == 'pallas_nest' else 'K3'} {label}: blocks "
-            f"{[a.block for a in nk.plan.axes]}, max rel err {err:.3e} "
+            f"{[a.block for a in nk.plan.axes]}, {forms}, max rel err {err:.3e} "
             f"(first launch incl. build {first:.2f} s)")
         if not err <= KERNEL_MAX_REL:
             raise AssertionError(f"nest kernel {label}: max rel err {err} > {KERNEL_MAX_REL}")
 
-    # times at main-path nests: K2 on the mini CLOUDSC scheme's parallel
-    # nest at 137 x 65,536, K3 on atax's matrix-vector reduction at LARGE
+    # K2's time at a main-path nest: the mini CLOUDSC scheme's parallel nest
+    # at 137 x 65,536
     from repro_torch.cloudsc import mini_cloudsc_program, scheme_inputs
-    from repro_torch.core import Daisy, Schedule
-    from repro_torch.core.ir import expr_ops
-    from repro_torch.core.scheduler import nest_program, random_inputs
-    from repro_torch.core.tiling import TilingError
+    from repro_torch.core.scheduler import random_inputs
     from repro_torch.polybench import BENCHMARKS
 
-    def main_nest(prog, kind):
-        norm = Daisy(backend="torch").plan(prog).program
-        best = None
-        for nest in norm.body:
-            try:
-                nk = nkm.plan_nest(norm, nest, Schedule(pallas_nest=True, pallas_reduce=True))
-            except TilingError:
-                continue
-            if nk.plan.kind == kind and (best is None or len(nk.plan.comps) > len(best[1].plan.comps)):
-                best = (nest_program(norm, nest), nk)
-        return best
+    nprog, nk = max(_main_nests(nkm, mini_cloudsc_program(NPROMA, KLEV), "parallel"),
+                    key=lambda pn: len(pn[1].plan.comps))
+    inp = random_inputs(nprog, seed=11)
+    inputs = scheme_inputs(NPROMA, KLEV)  # physical ranges for the thermodynamics
+    inp.update({k: v for k, v in inputs.items() if k in inp})
+    base = _env(torch, nprog, inp)
+    got, want = _copy(base), _copy(base)
+    nkm.run_nest(nk, got)
+    nkm.nest_plain(nk, want)
+    torch.cuda.synchronize()
+    err, diff = _compare(got, want)
+    worst["pallas_nest"] = max(worst["pallas_nest"], diff)
+    if not err <= KERNEL_MAX_REL:
+        raise AssertionError(f"pallas_nest on {nprog.name}: max rel err {err}")
+    work = _copy(base)
+    ms = cuda_ms(lambda: nkm.run_nest(nk, work))
+    plain_ms = cuda_ms(lambda: nkm.nest_plain(nk, work))
+    t_ops, t_bytes = _nest_bound(nk, base)
+    log(f"  K2 {nprog.name} {[a.trip for a in nk.plan.axes]}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library None, bound {max(t_ops, t_bytes):.4f} ms, max rel err {err:.3e}")
+    results["pallas_nest"] = dict(
+        name="nest_kernel[parallel]", route="triton", source="src/repro_torch/kernels/nest_kernel.py",
+        replaces="src/repro/kernels/nest_kernel.py:244 (_kernel)", max_abs_err=worst["pallas_nest"],
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+        shape=f"{nprog.name} {[a.trip for a in nk.plan.axes]}")
 
-    picks = {
-        "pallas_nest": (mini_cloudsc_program(NPROMA, KLEV), "parallel",
-                        scheme_inputs(NPROMA, KLEV)),
-        "pallas_reduce": (BENCHMARKS["atax"].variants["a"](LARGE["atax"]), "reduce", None),
-    }
-    for kind, (prog, pkind, inputs) in picks.items():
-        nprog, nk = main_nest(prog, pkind)
-        inp = random_inputs(nprog, seed=11)
-        if inputs is not None:  # physical ranges for the thermodynamics
-            inp.update({k: v for k, v in inputs.items() if k in inp})
-        base = _env(torch, nprog, inp)
-        got, want = _copy(base), _copy(base)
-        nkm.run_nest(nk, got)
-        nkm.nest_plain(nk, want)
-        torch.cuda.synchronize()
-        err, diff = _compare(got, want)
-        worst[kind] = max(worst[kind], diff)
-        if not err <= KERNEL_MAX_REL:
-            raise AssertionError(f"{kind} on {nprog.name}: max rel err {err}")
-        work = _copy(base)
-        ms = cuda_ms(lambda: nkm.run_nest(nk, work))
-        plain_ms = cuda_ms(lambda: nkm.nest_plain(nk, work))
-        points = math.prod(a.trip for a in nk.plan.axes)
-        flops = float(points * sum(max(1, expr_ops(c.expr)) + (1 if c.accumulate else 0)
-                                   for c in nk.plan.comps))
-        read = {r.array for c in nk.plan.comps for r in c.reads}
-        written = {c.write.array for c in nk.plan.comps}
-        if nk.kind == "pallas_reduce":
-            read |= written  # the old output is combined with the result
-        nbytes = 4.0 * (sum(base[a].numel() for a in read) + sum(base[a].numel() for a in written))
-        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-        library_ms = None
-        if kind == "pallas_reduce":
-            library_ms = _addmv_library_ms(torch, nk, base, want)
-        log(f"  {'K2' if kind == 'pallas_nest' else 'K3'} {nprog.name} "
-            f"{[a.trip for a in nk.plan.axes]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms if library_ms is None else f'{library_ms:.4f} ms'}, "
-            f"bound {max(t_ops, t_bytes):.4f} ms, max rel err {err:.3e}")
-        results[kind] = dict(
-            name=f"nest_kernel[{'parallel' if kind == 'pallas_nest' else 'reduce'}]",
-            route="triton", source="src/repro_torch/kernels/nest_kernel.py",
-            replaces=("src/repro/kernels/nest_kernel.py:244 (_kernel)" if kind == "pallas_nest"
-                      else "src/repro/kernels/nest_kernel.py:244 (_emit_reduce)"),
-            max_abs_err=worst[kind], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms, shape=f"{nprog.name} {[a.trip for a in nk.plan.axes]}")
+    # K3 at every LARGE reduction nest of the main path: the launch's split
+    # against the plain version, twice (bit-identical), then timed beside the
+    # unsplit form, the bound and torch.addmv where it computes the same
+    # function; device times from the profiler (the kernels are microseconds
+    # long, so a timed single call measures the host's launch)
+    timings = {}
+    for name, comps in K3_SPLIT_NESTS.items():
+        prog = BENCHMARKS[name].variants["a"](LARGE[name])
+        for nprog, nk in _main_nests(nkm, prog, "reduce", comps):
+            label = f"{name} {nk.plan.comps[0].name}"
+            splits = nkm.reduce_splits(nk.plan, sms)
+            programs = math.prod(a.n_tiles for a in nk.plan.parallel)
+            if programs * splits < nkm.PROGRAMS_PER_SM * sms:
+                raise AssertionError(f"K3 {label}: {programs} x {splits} programs, fewer than "
+                                     f"{nkm.PROGRAMS_PER_SM} per SM")
+            base = _env(torch, nprog, random_inputs(nprog, seed=11))
+            got, again, want = _copy(base), _copy(base), _copy(base)
+            split_runs = nkm.SPLIT["pallas_reduce"]
+            nkm.run_nest(nk, got)
+            nkm.run_nest(nk, again)
+            torch.cuda.synchronize()
+            if nkm.SPLIT["pallas_reduce"] != split_runs + 2:
+                raise AssertionError(f"K3 {label}: the launch did not take the split form")
+            nkm.nest_plain(nk, want)
+            err, diff = _compare(got, want)
+            worst["pallas_reduce"] = max(worst["pallas_reduce"], diff)
+            same = all(torch.equal(got[k], again[k]) for k in got)
+            if not (err <= KERNEL_MAX_REL and same):
+                raise AssertionError(f"K3 {label}: max rel err {err:.3e}, bit-identical {same}")
+            work = _copy(base)
+            t = dict(splits=splits, programs=programs * splits, max_rel_err=err,
+                     ms=device_ms(torch, lambda: nkm.run_nest(nk, work)),
+                     unsplit_ms=device_ms(torch, lambda: nkm.nest_launch(nk, work, splits=1)),
+                     event_ms=cuda_ms(lambda: nkm.run_nest(nk, work)),
+                     plain_ms=cuda_ms(lambda: nkm.nest_plain(nk, work)))
+            t_ops, t_bytes = _nest_bound(nk, base)
+            t.update(bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+            t["library_ms"], t["library_event_ms"] = _addmv_library_ms(torch, nk, base, want)
+            timings[label] = t
+            lib = ("torch.addmv none" if t["library_ms"] is None else
+                   f"torch.addmv {t['library_ms']:.4f} (call {t['library_event_ms']:.4f})")
+            log(f"  K3 {label} {[a.trip for a in nk.plan.axes]}: {programs} parallel tiles x "
+                f"{splits} splits = {programs * splits} programs; device ms: split {t['ms']:.4f}, "
+                f"unsplit {t['unsplit_ms']:.4f}, {lib}, bound {t['bound_ms']:.4f} ({t['bound_by']}); "
+                f"a timed call {t['event_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; max rel err "
+                f"{err:.3e}, bit-identical over two runs")
+    for name, comps in K3_FULL_NESTS.items():
+        prog = BENCHMARKS[name].variants["a"](LARGE[name])
+        for _, nk in _main_nests(nkm, prog, "reduce", comps):
+            splits = nkm.reduce_splits(nk.plan, sms)
+            programs = math.prod(a.n_tiles for a in nk.plan.parallel)
+            log(f"  K3 {name} {nk.plan.comps[0].name} {[a.trip for a in nk.plan.axes]}: "
+                f"{programs} programs, {splits} split (the parallel tiles fill the card)")
+            if splits != 1:
+                raise AssertionError(f"K3 {name}: {programs} programs split into {splits}")
+    main = timings.pop("atax t1")
+    results["pallas_reduce"] = dict(
+        name="nest_kernel[reduce]", route="triton", source="src/repro_torch/kernels/nest_kernel.py",
+        replaces="src/repro/kernels/nest_kernel.py:244 (_emit_reduce)",
+        max_abs_err=worst["pallas_reduce"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
+        shape=f"atax tmp (t1) [1900, 2100], {main['splits']} splits, device ms (profiler)",
+        event_ms=main["event_ms"], unsplit_ms=main["unsplit_ms"], splits=main["splits"],
+        programs=main["programs"], other_shapes=timings)
 
 
 def _addmv_library_ms(torch, nk, base, want):
-    """``torch.addmv`` time when it reproduces the reduction ``y[i] += c *
-    A[i,j] * x[j]`` (either orientation of A); None when it does not."""
+    """``torch.addmv``'s (device ms, timed-call ms) when it reproduces the
+    reduction ``y[i] += c * A[i,j] * x[j]`` (either orientation of A);
+    (None, None) when it does not."""
     comp = nk.plan.comps[0]
     if comp.accumulate != "+" or comp.guards or len(comp.reads) != 2:
-        return None
+        return None, None
     y = base[comp.write.array]
     mats = [r for r in comp.reads if len(r.index) == 2]
     vecs = [r for r in comp.reads if len(r.index) == 1]
     if y.ndim != 1 or len(mats) != 1 or len(vecs) != 1:
-        return None
+        return None, None
     A, x = base[mats[0].array], base[vecs[0].array]
     scale = float(comp.expr(1.0, 1.0))
     for mat in (A, A.t()):
         if mat.shape == (y.shape[0], x.shape[0]):
             out = torch.addmv(y, mat, x, alpha=scale)
             if max_rel(out, want[comp.write.array]) <= KERNEL_MAX_REL:
-                return cuda_ms(lambda: torch.addmv(y, mat, x, alpha=scale))
-    return None
+                call = lambda: torch.addmv(y, mat, x, alpha=scale)  # noqa: E731
+                return device_ms(torch, call), cuda_ms(call)
+    return None, None
 
 
 # ---------------------------------------------------------------------------
@@ -792,11 +912,11 @@ def check_flash(torch, results: dict) -> None:
 # phase 3, the MoE layer: K6 against its plain version
 # ---------------------------------------------------------------------------
 # bf16 grouped matmul, held per output row by the relative L2 error against
-# the fp32 product of the same bf16 inputs.  The kernel accumulates in fp32 and
-# rounds the output to bf16 once (2^-9 relative at most per value), so a row's
-# error is that rounding alone: 1.68-2.25e-3 on an H100 over every shape below
-# (PERF.md).  The limit is about twice that; a copy of the kernel that drops
-# the last D slice of 32 exceeds it at every one of these shapes.
+# the fp32 product of the same bf16 inputs.  Each kernel accumulates in fp32
+# and rounds the output to bf16 once (2^-9 relative at most per value), so a
+# row's error is that rounding alone: 1.68-2.25e-3 on an H100 over every shape
+# below (PERF.md).  The limit is about twice that; a copy of the mma kernel
+# that drops the last D slice of 32 exceeds it at every one of these shapes.
 BF16_GMM_REL_L2 = 5e-3
 MIXTRAL = "mixtral-8x7b"
 # Mixtral 8x7B's expert products (E 8, D 4096, F 14336): gate/up and down of a
@@ -807,33 +927,45 @@ GMM_SHAPES = {"prefill 2048 gate/up": (8, 640, 4096, 14336),
               "decode 16 slots gate/up": (8, 16, 4096, 14336),
               "decode 16 slots down": (8, 16, 14336, 4096),
               "bucket 128 gate/up": (8, 40, 4096, 14336)}
-# ragged and small shapes: C, D, F not multiples of 16 (E = 3), each tile
-# height, loads one by one (D or F not a multiple of 8) and 16 bytes at a time
+# ragged and small shapes (E = 3): C, D, F not multiples of 16 or of the
+# wgmma kernel's 128 x 256 tile and 64-deep slices, each mma tile height,
+# loads one by one (D or F not a multiple of 8: mma only) and 16 bytes at a time
 GMM_RAGGED = [(3, 13, 37, 29), (3, 70, 100, 45), (3, 130, 264, 200), (3, 50, 520, 1000),
-              (3, 17, 4096, 14336 - 8)]
+              (3, 17, 4096, 14336 - 8), (3, 200, 1032, 264), (3, 333, 136, 72),
+              (3, 129, 4096, 264)]
+# the capacities of the 16-slot decode step and of the 128-2048-token prefill
+# buckets (models/layers.py moe_capacity), where choose_kernel draws its line
+GMM_SWEEP_C = (16, 40, 80, 160, 320, 640)
+GMM_WIDTHS = {"gate/up": (4096, 14336), "down": (14336, 4096)}
 
 
 def check_grouped_matmul(torch, results: dict) -> None:
+    """K6's kernels against the plain version: fp32 (K1's batched kernel)
+    and both bf16 kernels through ``_launch`` at every ragged shape each one
+    takes; then both bf16 kernels over the C sweep at Mixtral's widths, held
+    and timed beside ``torch.bmm`` and the bound, and the plain version's
+    time at the main path's shapes."""
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    worst, worst_row = 0.0, 0.0
+    worst, worst_row = 0.0, {"wgmma": 0.0, "mma": 0.0}
 
     def inputs(e, c, d, f):
         x = torch.randn(e, c, d, generator=g, device="cuda")
         w = torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
         return x, w
 
-    def bf16_row_err(x, w):
-        nonlocal worst, worst_row
-        xb, wb = x.bfloat16(), w.bfloat16()
-        got = km.grouped_matmul(xb, wb)
+    def bf16_row_err(kernel, xb, wb, want):
+        nonlocal worst
+        got = km._launch(kernel, xb, wb)
         torch.cuda.synchronize()
-        want = ref.grouped_matmul(xb.float(), wb.float())
         worst = max(worst, float((got.float() - want).abs().max()))
         err = float(rel_l2(torch, got, want).max())
-        worst_row = max(worst_row, err)
+        worst_row[kernel] = max(worst_row[kernel], err)
+        if not err <= BF16_GMM_REL_L2:
+            raise AssertionError(f"K6 {kernel} {tuple(xb.shape)} @ {tuple(wb.shape)}: bf16 row "
+                                 f"relative L2 {err:.3e} > {BF16_GMM_REL_L2}")
         return err
 
     for e, c, d, f in GMM_RAGGED:
@@ -841,42 +973,79 @@ def check_grouped_matmul(torch, results: dict) -> None:
         got = km.grouped_matmul(x, w)
         torch.cuda.synchronize()
         err32 = max_rel(got, ref.grouped_matmul(x, w))
-        err = bf16_row_err(x, w)
+        if not err32 <= KERNEL_MAX_REL:
+            raise AssertionError(f"K6 fp32 ({e},{c},{d},{f}): max rel err {err32:.3e}")
+        xb, wb = x.bfloat16(), w.bfloat16()
+        want = ref.grouped_matmul(xb.float(), wb.float())
+        kernels = ["mma"] + (["wgmma"] if km._wgmma_takes(xb.dtype, d, f, True) else [])
+        errs = {k: bf16_row_err(k, xb, wb, want) for k in kernels}
         log(f"  K6 grouped matmul ({e},{c},{d}) @ ({e},{d},{f}): fp32 max rel err {err32:.3e}, "
-            f"bf16 row relative L2 {err:.3e}")
-        if not (err32 <= KERNEL_MAX_REL and err <= BF16_GMM_REL_L2):
-            raise AssertionError(f"K6 ({e},{c},{d},{f}): fp32 {err32:.3e}, bf16 {err:.3e}")
+            "bf16 row relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
+    # the C sweep at Mixtral's widths: both kernels held and timed
+    sweep = {}
+    for width, (d, f) in GMM_WIDTHS.items():
+        for c in GMM_SWEEP_C:
+            x, w = inputs(8, c, d, f)
+            xb, wb = x.bfloat16(), w.bfloat16()
+            del x, w
+            want = ref.grouped_matmul(xb.float(), wb.float())
+            errs = {k: bf16_row_err(k, xb, wb, want) for k in ("wgmma", "mma")}
+            del want
+            ms = {k: cuda_ms(lambda: km._launch(k, xb, wb)) for k in ("wgmma", "mma")}
+            flops = 2.0 * 8 * c * d * f
+            nbytes = 2.0 * (8 * c * d + 8 * d * f + 8 * c * f)
+            t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = dict(wgmma_ms=ms["wgmma"], mma_ms=ms["mma"],
+                       library_ms=cuda_ms(lambda: torch.bmm(xb, wb)),
+                       bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       kernel=km.choose_kernel(xb.dtype, c, d, f, True),
+                       row_rel_l2=errs, flops=flops)
+            sweep[(width, c)] = row
+            log(f"  K6 sweep {width} (8,{c},{d}) @ (8,{d},{f}) bf16: wgmma {ms['wgmma']:.4f} ms "
+                f"({flops / ms['wgmma'] / 1e9:.1f} TFLOP/s), mma {ms['mma']:.4f} ms "
+                f"({flops / ms['mma'] / 1e9:.1f} TFLOP/s), torch.bmm {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the wrapper takes "
+                f"{row['kernel']}; row relative L2 wgmma {errs['wgmma']:.3e}, mma {errs['mma']:.3e}")
+            del xb, wb
+    faster = [c for c in GMM_SWEEP_C
+              if all(sweep[(wd, c2)]["wgmma_ms"] <= sweep[(wd, c2)]["mma_ms"]
+                     for wd in GMM_WIDTHS for c2 in GMM_SWEEP_C if c2 >= c)]
+    log(f"  K6 sweep: the wgmma kernel is as fast or faster at both widths from C = "
+        f"{min(faster) if faster else 'none'} of {GMM_SWEEP_C}; choose_kernel takes it from "
+        f"C = {km.WGMMA_MIN_C}; largest bf16 row relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst_row.items()) + f" (limit {BF16_GMM_REL_L2:g})")
+
+    # the main path's shapes: the wrapper's kernel, with the plain version's time
     timings = {}
     for label, (e, c, d, f) in GMM_SHAPES.items():
+        row = sweep[(label.split()[-1], c)]
         x, w = inputs(e, c, d, f)
-        err = bf16_row_err(x, w)
-        if not err <= BF16_GMM_REL_L2:
-            raise AssertionError(f"K6 {label}: bf16 row relative L2 {err:.3e} > {BF16_GMM_REL_L2}")
         xb, wb = x.bfloat16(), w.bfloat16()
         del x, w
-        ms = cuda_ms(lambda: km.grouped_matmul(xb, wb))
         plain_ms = cuda_ms(lambda: ref.grouped_matmul(xb, wb), repeats=3)
-        library_ms = cuda_ms(lambda: torch.bmm(xb, wb))
-        flops = 2.0 * e * c * d * f
-        nbytes = 2.0 * (e * c * d + e * d * f + e * c * f)
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
-        timings[label] = (ms, plain_ms, library_ms, max(t_ops, t_bytes),
-                          "operations" if t_ops >= t_bytes else "bytes")
-        log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, torch.bmm "
-            f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms ({timings[label][4]}), "
-            f"row relative L2 {err:.3e}")
         del xb, wb
-    log(f"  K6: largest bf16 row relative L2 {worst_row:.3e} (limit {BF16_GMM_REL_L2:g})")
-    ms, plain_ms, library_ms, bound, by = timings["prefill 2048 gate/up"]
+        chosen = row["kernel"]
+        timings[label] = dict(kernel=chosen, ms=row[f"{chosen}_ms"], wgmma_ms=row["wgmma_ms"],
+                              mma_ms=row["mma_ms"], plain_ms=plain_ms,
+                              library_ms=row["library_ms"], bound_ms=row["bound_ms"],
+                              bound_by=row["bound_by"], row_rel_l2=row["row_rel_l2"])
+        log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: the wrapper takes {chosen}, "
+            f"{row[f'{chosen}_ms']:.4f} ms; plain {plain_ms:.4f} ms, torch.bmm "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    main = timings.pop("prefill 2048 gate/up")
     results["grouped_matmul"] = dict(
         name="grouped_matmul", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
-        replaces="src/repro/kernels/moe_gmm.py:61", max_abs_err=worst, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+        replaces="src/repro/kernels/moe_gmm.py:61", max_abs_err=worst, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], kernel=main["kernel"], wgmma_ms=main["wgmma_ms"],
+        mma_ms=main["mma_ms"],
         shape="Mixtral prefill 2048 gate/up: (8, 640, 4096) @ (8, 4096, 14336), bf16",
-        other_shapes={k: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), t))
-                      for k, t in timings.items() if k != "prefill 2048 gate/up"})
+        other_shapes=timings,
+        sweep={f"{wd} C={c}": {k: v for k, v in row.items() if k != "flops"}
+               for (wd, c), row in sweep.items()},
+        threshold_c=km.WGMMA_MIN_C, sweep_row_rel_l2=worst_row)
 
 
 # ---------------------------------------------------------------------------
@@ -1298,7 +1467,8 @@ def check_moe_layer(torch, cfg, params) -> dict:
 
 
 # device-time groups of a profiled window: kernel-name fragments of each group
-KERNEL_GROUPS = {"K6 grouped_matmul": ("moe_gmm",),
+KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
+                 "K6 grouped_matmul mma": ("moe_gmm_bf16",),
                  "K5 flash_attention": ("flash_kernel", "flash_mma_kernel"),
                  "K4 rmsnorm": ("rmsnorm_kernel",),
                  "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
@@ -1460,6 +1630,62 @@ class PrefillPaths:
         self.M.decode_step = self.real
 
 
+class GmmPaths:
+    """While installed, every K6 launch's C and the kernel it took (the
+    ``PATHS`` entry that moved), beside ``choose_kernel``'s pick for its
+    dtype, C, D, F and alignment."""
+
+    def __init__(self, km):
+        self.km = km
+        self.launches: list[tuple[int, str, str]] = []  # (C, taken, chosen)
+
+    def launch(self, kernel, x, w):
+        before = dict(self.km.PATHS)
+        try:
+            return self.real(kernel, x, w)
+        finally:
+            taken = [k for k in before if self.km.PATHS[k] != before[k]]
+            if taken:
+                aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+                self.launches.append((x.shape[1], taken[0], self.km.choose_kernel(
+                    x.dtype, x.shape[1], x.shape[2], w.shape[2], aligned)))
+
+    def __enter__(self):
+        self.real, self.km._launch = self.km._launch, self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.km._launch = self.real
+
+    def by_c(self) -> dict:
+        out: dict = {}
+        for c, taken, _ in self.launches:
+            out.setdefault(c, {}).setdefault(taken, 0)
+            out[c][taken] += 1
+        return dict(sorted(out.items()))
+
+
+def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int) -> dict:
+    """Fail unless every K6 launch took the kernel ``choose_kernel`` names
+    for it, the decode step (C = ``decode_c``) the mma kernel and every
+    prefill bucket of 256 tokens or more (C >= 80) the wgmma kernel;
+    returns the launches by C and kernel."""
+    by_c = paths.by_c()
+    log(f"  K6 launches by C and kernel: {by_c}")
+    wrong = [(c, t, k) for c, t, k in paths.launches if t != k]
+    if wrong:
+        raise AssertionError(f"{phase}: K6 launches that did not take choose_kernel's pick: "
+                             f"{wrong[:5]} ({len(wrong)} in all)")
+    if not by_c.get(decode_c, {}).get("mma") or set(by_c.get(decode_c, {})) != {"mma"}:
+        raise AssertionError(f"{phase}: the decode step (C = {decode_c}) should launch only the "
+                             f"mma K6 kernel: {by_c.get(decode_c)}")
+    big = {c: n for c, n in by_c.items() if c >= 80}
+    if not big or any(set(n) != {"wgmma"} for n in big.values()):
+        raise AssertionError(f"{phase}: the prefill buckets (C >= 80) should launch only the "
+                             f"wgmma K6 kernel: {big}")
+    return {str(c): n for c, n in by_c.items()}
+
+
 def check_k5_paths(phase: str, total: dict, prefill: dict) -> dict:
     """Fail unless the prefill launched only the tensor-core kernel and
     decode only the SIMT kernel; returns the decode's launches per kernel."""
@@ -1529,22 +1755,26 @@ def main() -> int:
     kg.LAUNCHES["gemm"] = 0
     for k in nkm.EMITTED:
         nkm.EMITTED[k] = 0
+    nkm.SPLIT["pallas_reduce"] = 0
     codegen.ROUTED.clear()
     main_path(torch)
     torch.cuda.synchronize()
     launches = {"gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
+    split_runs = nkm.SPLIT["pallas_reduce"]
     routed = dict(codegen.ROUTED)
 
     log("phase 6: counts over phases 4-5")
     log(f"  launches: K1 gemm {launches['gemm']}, K2 nest {launches['pallas_nest']}, "
-        f"K3 reduce {launches['pallas_reduce']}")
+        f"K3 reduce {launches['pallas_reduce']} ({split_runs} of them split)")
     log(f"  kernel recipes routed to torch: {sum(routed.values())}")
     for reason, n in sorted(routed.items()):
         log(f"    {n} x {reason}")
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    if split_runs <= 0:
+        raise AssertionError("no K3 run on the main path took the split form")
 
     # the model stack's paths: the counts start at 0 before each, read right after
     def model_counts():
@@ -1605,11 +1835,12 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mparams = seeded_params(torch, mcfg)
     reset_counts()
-    with PrefillPaths(M, kf) as prefill_paths:
+    with PrefillPaths(M, kf) as prefill_paths, GmmPaths(km) as gmm_paths:
         served = serve_path(torch, smi, mcfg, mparams, slots=MIXTRAL_SLOTS,
                             n_requests=MIXTRAL_REQUESTS, watched=MIXTRAL_WATCHED, seed=SEED + 9)
     torch.cuda.synchronize()
     moe_launches = model_counts()
+    k6_paths = check_k6_paths("phase 9", gmm_paths, MIXTRAL_SLOTS)
     k5_paths["MoE serving prefill"] = prefill_paths.counts
     k5_paths["MoE serving decode"] = check_k5_paths("phase 9", moe_launches["k5"],
                                                     prefill_paths.counts)
@@ -1620,7 +1851,8 @@ def main() -> int:
         f"{moe_launches['flash_attention']}, K4 rmsnorm {moe_launches['rmsnorm']} (K1 "
         f"{moe_launches['gemm']}, K2 {moe_launches['pallas_nest']}, K3 "
         f"{moe_launches['pallas_reduce']}); per profiled decode step K6 "
-        f"{per_step['K6 grouped_matmul']:.0f}, K5 {per_step['K5 flash_attention']:.0f}, K4 "
+        f"{per_step['K6 grouped_matmul wgmma'] + per_step['K6 grouped_matmul mma']:.0f} "
+        f"(mma {per_step['K6 grouped_matmul mma']:.0f}), K5 {per_step['K5 flash_attention']:.0f}, K4 "
         f"{per_step['K4 rmsnorm']:.0f}")
     launches["grouped_matmul"] = moe_launches["grouped_matmul"]
     for k in ("grouped_matmul", "rmsnorm", "flash_attention"):
@@ -1636,6 +1868,10 @@ def main() -> int:
         row["launches"] = launches[key]
         if key == "flash_attention":
             row["launches_by_kernel"] = k5_paths
+        if key == "grouped_matmul":
+            row["launches_by_c"] = k6_paths
+        if key == "pallas_reduce":
+            row["split_launches"] = split_runs
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

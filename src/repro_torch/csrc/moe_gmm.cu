@@ -10,7 +10,29 @@
 // those bytes, 0.28 ms at 3.35 TB/s; a 2048-token prefill bucket (C = 640) does
 // 601 GFLOP, 0.61 ms at 989 TFLOP/s bf16, and is bound by operations.
 //
-// Design (bf16): tensor-core fragments, mma.sync.aligned.m16n8k16 with fp32
+// Two kernels compute it in bf16; kernels/moe_gmm.py::choose_kernel picks one
+// before launch from the dtype, C, D, F and the pointers' alignment.
+//
+// moe_gmm_wgmma_kernel (prefill, operation bound): Hopper's warpgroup MMA fed
+// by the Tensor Memory Accelerator.  A block owns a 128 x 256 output tile of
+// one expert: two consumer warpgroups of 64 rows each run
+// wgmma.mma_async.m64n256k16 with fp32 accumulators in registers (128 a
+// thread), and one producer warp starts TMA copies of the D slices (64 deep)
+// into a ring of 4 stages behind full/empty mbarriers, so the copies need no
+// thread's registers or address arithmetic.  Both operands land in shared
+// memory with the 128-byte swizzle: x's (128 x 64) tile is K-major, w's
+// (64 x 256) tile is read as four 64-column boxes, MN-major (F contiguous),
+// and wgmma reads it with its transpose bit.  The tensor maps are rank 3 with
+// the expert as a coordinate, so TMA zero-fills rows past C, columns past F
+// and the slice past D without crossing into the next expert; stores are
+// guarded.  Blocks walk the C tiles of one F tile first, so the expert
+// weights, the bytes that dominate, come from device memory about once.  The
+// tensor maps are built on the host by cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no -lcuda).  It takes D % 8 == 0, F % 8 == 0 and
+// 16-byte aligned pointers (TMA's strides and addresses).
+//
+// moe_gmm_bf16_kernel (decode, byte bound, and whatever the first does not
+// take): tensor-core fragments, mma.sync.aligned.m16n8k16 with fp32
 // accumulators.  The expert is the grid's outer (z) axis; a block owns a
 // (32 * MT) x 128 output tile of one expert and 8 warps (2 along C, 4 along F),
 // each warp (16 * MT) x 32.  The TPU kernel's sequential D grid axis becomes a
@@ -21,15 +43,16 @@
 // operations a 128-row tile would.  Ragged C, D and F are masked in the kernel
 // (cp.async zero-fills a slice out of range, stores are guarded); when D or F
 // is not a multiple of 8 (or a pointer is not 16-byte aligned) the slices are
-// loaded element by element instead.  No padded copy is made.  wgmma/TMA are
-// left to later work.
+// loaded element by element instead.  No padded copy is made.
 //
 // float32 does not come here: kernels/moe_gmm.py launches K1's tiling in
 // gemm.cu with the expert as its batch (grid z) axis.
 //
-// Interface: plain C, loaded with ctypes.  The entry point launches on the
-// given stream and returns cudaGetLastError(); the Python wrapper raises when
-// it is nonzero.
+// Interface: plain C, loaded with ctypes.  Each entry point launches on the
+// given stream and returns cudaGetLastError(), or WGMMA_MAP_ERROR plus the
+// CUresult when a tensor map cannot be encoded; the Python wrapper
+// raises when it is nonzero.
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -245,9 +268,274 @@ int launch_bf16(const void* x, const void* w, void* out, int e, int c, int d, in
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// moe_gmm_wgmma_kernel: wgmma + TMA (prefill)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BM = 128;          // output rows (C) per block: two consumer warpgroups of 64
+constexpr int BN = 256;          // output columns (F) per block
+constexpr int BK = 64;           // D slice per stage: one 128-byte swizzle row of bf16
+constexpr int STAGES = 4;        // TMA ring depth
+constexpr int CONSUMERS = 256;   // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int A_BYTES = BM * BK * 2;     // 16 KB: x's tile, K-major
+constexpr int BOX_BYTES = BK * 64 * 2;   // 8 KB: one 64-column box of w's tile, MN-major
+constexpr int B_BYTES = (BN / 64) * BOX_BYTES;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete.  A wait that
+// lasts about 10 seconds traps, so a fault in the pipeline surfaces as a
+// launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000ll) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a rank-3 tensor map (coordinates innermost first) into shared
+// memory; its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 256, fp32, 128 registers a thread) = A (64 x 16, K-major) . B
+// (16 x 256, MN-major: imm-trans-b = 1), both from shared memory, plus D
+// itself when `accumulate` (scale-d) is nonzero.
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
+                     int c, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: stage buffers start on 1024
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int slices = (d + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);               // the producer's arrive, plus the bytes
+      mbar_init(&empty[s], CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread starts every copy
+    if (threadIdx.x == CONSUMERS) {
+      const int boxes = min(BN / 64, (f - n0 + 63) / 64);  // boxes wholly past F are not loaded
+      const unsigned bytes = A_BYTES + boxes * BOX_BYTES;
+      for (int kt = 0; kt < slices; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);  // the first round passes at once
+        unsigned char* st = smem + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load(st, &xmap, &full[s], kt * BK, m0, e);
+        for (int j = 0; j < boxes; ++j)
+          tma_load(st + A_BYTES + j * BOX_BYTES, &wmap, &full[s], n0 + 64 * j, kt * BK, e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns rows m0 + 64 g .. + 63 of the tile
+  const int g = threadIdx.x / 128;
+  // no instruction but wgmma defines the accumulator (the first product
+  // overwrites it), so ptxas keeps the products of a slice in flight together
+  float acc[BN / 2];
+
+  for (int kt = 0; kt < slices; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* a = smem + s * STAGE_BYTES + g * 64 * 128;
+    const unsigned char* b = smem + s * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      // A: 16 values = 32 bytes along a 128-byte row, 8-row groups 1024 apart.
+      // B: 16 rows of 128 bytes = 2048 bytes deeper; 8-row groups 1024 apart,
+      //    64-column boxes BOX_BYTES apart.
+      wgmma_m64n256(acc, smem_desc(a + kk * 32, 16, 1024),
+                    smem_desc(b + kk * 2048, BOX_BYTES, 1024), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slice's products are done: release its stage
+    if (kt > 0 && threadIdx.x % 32 == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+
+  // epilogue: accumulator (row 16 * warp + lane / 4 [+ 8], columns
+  // 8 j + 2 (lane % 4) + {0, 1}) -> bf16; F % 8 == 0, so a pair is in or out
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row = m0 + g * 64 + warp * 16 + lane / 4;
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * c * f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane % 4) * 2;
+    if (col >= f) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + 8 * h >= c) continue;
+      *reinterpret_cast<__nv_bfloat162*>(oe + static_cast<size_t>(row + 8 * h) * f + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int WGMMA_MAP_ERROR = 10000;
+
+// A rank-3 bf16 tensor map over (outer, rows, inner), inner contiguous, with
+// boxes of (1, box_rows, 64) and the 128-byte swizzle; 0 or WGMMA_MAP_ERROR +
+// its CUresult.
+int make_map(CUtensorMap* map, const void* base, int outer, int rows, int inner, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return WGMMA_MAP_ERROR + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * rows * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : WGMMA_MAP_ERROR + static_cast<int>(r);
+}
+
+int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
+           cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  int err = make_map(&xmap, x, e, c, d, BM);
+  if (err == 0) err = make_map(&wmap, w, e, d, f, BK);
+  if (err != 0) return err;
+  static bool configured = false;  // above 48 KB only after this attribute is set
+  if (!configured) {
+    const cudaError_t e2 = cudaFuncSetAttribute(
+        moe_gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    configured = true;
+  }
+  const dim3 grid((c + BM - 1) / BM, (f + BN - 1) / BN, e);  // C tiles fastest: w read ~once
+  moe_gmm_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e, int c, int d,
                                   int f, int vec, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return vec ? launch_bf16<true>(x, w, out, e, c, d, f, s)
              : launch_bf16<false>(x, w, out, e, c, d, f, s);
+}
+
+// bf16 with D % 8 == 0, F % 8 == 0 and 16-byte aligned x, w (the wrapper checks).
+extern "C" int repro_moe_gmm_wgmma_bf16(const void* x, const void* w, void* out, int e, int c,
+                                        int d, int f, void* stream) {
+  return wg::launch(x, w, out, e, c, d, f, static_cast<cudaStream_t>(stream));
 }

@@ -1,16 +1,27 @@
 """K6: the CUDA grouped matmul of the MoE layer's experts.
 
 Port of ``repro/kernels/moe_gmm.py::grouped_matmul`` (the Pallas TPU kernel).
-The kernel is ``repro_torch/csrc/moe_gmm.cu``: ``out[e] = x[e] @ w[e]`` for
-x ``(E, C, D)`` and w ``(E, D, F)``, an fp32 accumulator over D, the output in
-x's type.  bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16); float32
-launches K1's SIMT kernel (``csrc/gemm.cu``) with the expert as its batch
-axis.  Ragged C, D and F are masked inside the kernels, so no padded copy is
-made (the reference pads to its block sizes).
+``out[e] = x[e] @ w[e]`` for x ``(E, C, D)`` and w ``(E, D, F)``, an fp32
+accumulator over D, the output in x's type.  Three kernels compute it:
 
-``grouped_matmul`` launches the kernel for CUDA tensors and takes
+* ``"wgmma"`` — ``moe_gmm_wgmma_kernel`` in ``repro_torch/csrc/moe_gmm.cu``,
+  bf16 on Hopper's warpgroup MMA fed by TMA, 128 x 256 output tiles: the
+  prefill buckets, bound by operations;
+* ``"mma"`` — ``moe_gmm_bf16_kernel`` in the same file, bf16 on ``mma.sync``
+  m16n8k16 fragments with a ``cp.async`` ring, tiles as tall as C needs: the
+  decode step, bound by the weights' bytes, and any bf16 shape the first does
+  not take;
+* ``"gemm"`` — float32 on K1's SIMT kernel (``csrc/gemm.cu``) with the
+  expert as its batch axis.
+
+``choose_kernel`` picks one from the dtype, C, D, F and the pointers'
+alignment alone, before any launch.  Ragged C, D and F are masked inside the
+kernels, so no padded copy is made (the reference pads to its block sizes).
+
+``grouped_matmul`` launches a kernel for CUDA tensors and takes
 ``kernels.ref.grouped_matmul`` for CPU tensors only.  ``LAUNCHES`` counts
-kernel launches and ``PLAIN`` the plain-version runs.
+kernel launches (all three), ``PATHS`` the launches of each, and ``PLAIN``
+the plain-version runs.
 """
 from __future__ import annotations
 
@@ -23,53 +34,117 @@ from . import ref
 from .build import cuda_library
 
 LAUNCHES = {"grouped_matmul": 0}
+PATHS = {"wgmma": 0, "mma": 0, "gemm": 0}
 PLAIN = {"grouped_matmul": 0}
 
-# dtype -> (library, entry point, int arguments)
-_ENTRIES = {torch.bfloat16: ("moe_gmm", "repro_moe_gmm_bf16", 5),   # e, c, d, f, vec
-            torch.float32: ("gemm", "repro_gemm_batched_f32", 4)}  # batch, m, n, k
+# kernel -> (library, entry point, int arguments)
+_ENTRIES = {"wgmma": ("moe_gmm", "repro_moe_gmm_wgmma_bf16", 4),  # e, c, d, f
+            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5),           # e, c, d, f, vec
+            "gemm": ("gemm", "repro_gemm_batched_f32", 4)}         # batch, m, n, k
+_DTYPES = {"wgmma": torch.bfloat16, "mma": torch.bfloat16, "gemm": torch.float32}
+
+# The wgmma kernel takes C from here up (see choose_kernel).
+WGMMA_MIN_C = 32
+
+
+def choose_kernel(dtype: torch.dtype, c: int, d: int, f: int, aligned: bool) -> str:
+    """``"wgmma"``, ``"mma"`` or ``"gemm"`` for a grouped matmul of this
+    dtype and shape; ``aligned``: x and w start on 16 bytes.
+
+    float32 takes ``"gemm"``.  bf16 takes the wgmma/TMA kernel when
+    ``D % 8 == 0``, ``F % 8 == 0`` and both pointers are aligned (TMA needs
+    16-byte row strides and addresses) and ``C >= WGMMA_MIN_C``; everything
+    else takes the ``mma.sync`` kernel.
+
+    The threshold comes from chip_smoke.py's sweep of both kernels over C in
+    {16, 40, 80, 160, 320, 640} at Mixtral 8x7B's gate/up and down widths,
+    three full runs on an H100 80GB HBM3 at 700 W (PERF.md section 6).  From
+    C = 40, the 128-token bucket, the wgmma kernel was faster at both widths
+    in every run: 0.349-0.366 against 0.419-0.442 ms gate/up and 0.332-0.400
+    against 0.380-0.425 down at C = 40, 0.89-0.93 against 2.66-2.77 and
+    0.82-0.83 against 2.71-2.79 at C = 640.  At C = 16, the 16-slot decode
+    step, it was ahead too, by 5-9% gate/up and 2-3% down; the step streams
+    the expert weights either way (a 128-row wgmma tile does 8x its
+    operations).  The decode step keeps the mma kernel, whose time the step
+    was measured with, until an A/B of the step moves it (ROADMAP queue 2b),
+    so the line sits between the decode step's C and the smallest bucket's.
+    """
+    if dtype == torch.float32:
+        return "gemm"
+    return "wgmma" if c >= WGMMA_MIN_C and _wgmma_takes(dtype, d, f, aligned) else "mma"
+
+
+def _wgmma_takes(dtype: torch.dtype, d: int, f: int, aligned: bool) -> bool:
+    return dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0 and aligned
 
 
 @functools.cache
-def _entry(dtype: torch.dtype):
-    lib, name, ints = _ENTRIES[dtype]
+def _entry(kernel: str):
+    lib, name, ints = _ENTRIES[kernel]
     fn = getattr(cuda_library(lib), name)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E, C, D) @ w (E, D, F) per expert -> (E, C, F) in x's type."""
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"grouped_matmul: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in _ENTRIES:
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"grouped_matmul: dtypes {x.dtype}, {w.dtype} "
                         "(want both float32 or both bfloat16)")
     if x.device != w.device:
         raise ValueError(f"grouped_matmul: x on {x.device}, w on {w.device}")
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, D) @ w (E, D, F) per expert -> (E, C, F) in x's type."""
+    _check(x, w)
     if x.device.type == "cpu":
         PLAIN["grouped_matmul"] += 1
         return ref.grouped_matmul(x, w)
+    return _launch(None, x, w)
+
+
+def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the named kernel (``"wgmma"``, ``"mma"`` or ``"gemm"``;
+    ``None``: ``choose_kernel``'s pick) on CUDA tensors, or raise if it does
+    not take them.  ``grouped_matmul`` goes through here with ``None``; the
+    card tests and ``chip_smoke.py`` name a kernel to hold each against the
+    plain version at any shape."""
+    if kernel is not None and kernel not in PATHS:
+        raise ValueError(f"grouped_matmul: no kernel {kernel!r}")
+    _check(x, w)
     if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+        raise ValueError(f"grouped_matmul: kernel {kernel!r} on device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("grouped_matmul: x and w must be contiguous")
     e, c, d = x.shape
     f = w.shape[2]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if kernel is None:
+        kernel = choose_kernel(x.dtype, c, d, f, aligned)
+    elif x.dtype != _DTYPES[kernel]:
+        raise TypeError(f"grouped_matmul: the {kernel} kernel takes {_DTYPES[kernel]}, "
+                        f"not {x.dtype}")
+    elif kernel == "wgmma" and not _wgmma_takes(x.dtype, d, f, aligned):
+        raise ValueError("grouped_matmul: the wgmma kernel takes D % 8 == 0, F % 8 == 0 and "
+                         f"16-byte aligned tensors, not D = {d}, F = {f}, aligned = {aligned}")
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _entry(x.dtype)
+    if kernel == "wgmma":
+        ints = (e, c, d, f)
+    elif kernel == "mma":
+        ints = (e, c, d, f, int(d % 8 == 0 and f % 8 == 0 and aligned))
+    else:
+        ints = (e, c, f, d)
+    fn = _entry(kernel)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            vec = int(d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0
-                      and w.data_ptr() % 16 == 0)
-            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f, vec, stream)
-        else:
-            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, f, d, stream)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_matmul kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"grouped_matmul {kernel} kernel launch failed with error {err}")
     LAUNCHES["grouped_matmul"] += 1
+    PATHS[kernel] += 1
     return out

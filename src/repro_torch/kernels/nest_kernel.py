@@ -18,11 +18,17 @@ source, one module per distinct source text:
   against old content, and only lanes inside the domain, the guards and the
   array are stored;
 * K3 (``pallas_reduce``): one accumulating computation.  The TPU's
-  sequential reduction grid axis becomes a loop inside the program over the
-  whole reduction, with ``unroll`` chunks per tile combined in order into an
+  sequential reduction grid axis becomes a loop inside the program over
+  reduction tiles, with ``unroll`` chunks per tile combined in order into an
   fp32 accumulator seeded with the neutral element; masked lanes contribute
-  the neutral element, and the result is combined with the old output.  No
-  atomics, so results are deterministic.
+  the neutral element, and the result is combined with the old output.
+  When the parallel tiles alone are too few programs for the card
+  (``reduce_splits``: fewer than two per SM, as at every matrix-vector nest
+  of PolyBench LARGE, 19-33 programs), the reduction is split: a second grid
+  axis takes contiguous ranges of the reduction tiles, each program writes
+  its fp32 partial to a workspace the wrapper allocates, and a second
+  kernel combines the partials in split order with the nest's op, then once
+  with the old output.  No atomics, so results are deterministic.
 
 Extents, loop bounds and strides are runtime arguments; only the block sizes,
 the access structure and the expression are baked into the source, so one
@@ -31,14 +37,19 @@ compiled kernel serves every problem size with the same canonical structure
 
 Bound: these kernels are memory bound (a few flops per element, except the
 CLOUDSC thermodynamics); the least time is the bytes each array is read and
-written once over 3.35 TB/s.  This first version reloads the old content of
-every written array and, in K3, re-reads operands that do not span the
-reduction axis once per parallel tile.
+written once over 3.35 TB/s.  What held K3 back at the matrix-vector nests
+was the launch, not re-reads: one program per parallel tile walked the whole
+reduction alone, so 19-33 programs left most of the 132 SMs idle; the split
+fills the card.  Both forms still reload the old content of every written
+array, and K3 re-reads operands that do not span the reduction axis once
+per parallel tile.
 
 ``run_nest`` launches the kernel for CUDA tensors and takes ``nest_plain`` —
 the same plan evaluated over the whole extent in torch, with the same masks,
 neutral elements and final combine — for CPU tensors only.  ``EMITTED``
-counts kernel launches and ``PLAIN`` the plain-version runs.
+counts nest runs on the card (one per run, split or not), ``SPLIT`` the
+runs that took the split form (two launches) and ``PLAIN`` the
+plain-version runs.
 """
 from __future__ import annotations
 
@@ -55,7 +66,13 @@ from ..core.tiling import TilePlan, TilingError, next_pow2, plan_nest_tiling
 from .build import generated_module, import_triton
 
 EMITTED = {"pallas_nest": 0, "pallas_reduce": 0}
+SPLIT = {"pallas_reduce": 0}
 PLAIN = {"pallas_nest": 0, "pallas_reduce": 0}
+
+# A reduction nest is split until it launches this many programs per SM.
+PROGRAMS_PER_SM = 2
+# Pipeline depth of the split form's reduction loop.
+SPLIT_STAGES = 3
 
 _NEUTRAL_SRC = {"+": "0.0", "*": "1.0", "max": 'float("-inf")', "min": 'float("inf")'}
 _COMBINE_SRC = {"+": "({a} + {b})", "*": "({a} * {b})",
@@ -83,9 +100,49 @@ class NestKernel:
     def num_warps(self) -> int:
         return 4 if self.plan.block_elems <= 2048 else 8
 
+    @property
+    def par_block_elems(self) -> int:
+        """Elements of one program's output block (the parallel blocks)."""
+        return math.prod(a.block for a in self.plan.parallel)
+
     @functools.cached_property
     def source(self) -> str:
         return triton_source(self)
+
+    @functools.cached_property
+    def split_source(self) -> str:
+        """The split form of a reduction: ``nest_partial`` and ``nest_combine``."""
+        return triton_source(self, split=True)
+
+
+def reduce_splits(plan: TilePlan, sms: int) -> int:
+    """How many contiguous ranges of reduction tiles a reduction nest's
+    launch splits into, from its plan and the card's SM count alone: 1 when
+    the parallel tiles already give ``PROGRAMS_PER_SM`` programs per SM (or
+    there is one reduction tile), else enough ranges of ``split_tiles``
+    tiles each to reach that, never an empty one."""
+    if plan.kind != "reduce" or plan.reduce_grid is None:
+        return 1
+    programs = math.prod(p.n_tiles for p in plan.parallel)
+    tiles = plan.reduce_grid.n_tiles
+    want = PROGRAMS_PER_SM * sms
+    if programs >= want or tiles <= 1:
+        return 1
+    per = tiles // min(tiles, -(-want // programs))
+    return -(-tiles // per)
+
+
+def split_tiles(plan: TilePlan, splits: int) -> int:
+    """Reduction tiles per range when the launch splits into ``splits``;
+    every one of the ``splits`` ranges is non-empty (for ``reduce_splits``'
+    counts, ``cdiv(tiles, split_tiles) == splits``)."""
+    return -(-plan.reduce_grid.n_tiles // splits)
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def plan_nest(program: Program, nest: Node, schedule) -> NestKernel:
@@ -158,10 +215,12 @@ def run_nest(nk: NestKernel, env: dict[str, torch.Tensor]) -> None:
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
-def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor]) -> None:
-    """Launch the generated Triton kernel on ``env``'s CUDA tensors."""
+def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor], splits: int | None = None) -> None:
+    """Launch the generated Triton kernel on ``env``'s CUDA tensors: one
+    launch, or for a split reduction the partials into a workspace and their
+    combine.  ``splits`` is ``reduce_splits``' count unless given (the card
+    tests and ``chip_smoke.py`` name one to hold and time each form)."""
     import_triton()
-    kernel = generated_module(nk.source, "nest").nest_kernel
     args: list[Any] = []
     dev = None
     for name in nk.arrays:
@@ -178,9 +237,25 @@ def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor]) -> None:
         args.extend(t.stride())
     for ax in nk.plan.axes:
         args.extend((ax.start, ax.stop))
-    grid = (math.prod(p.n_tiles for p in nk.plan.parallel),)
+    programs = math.prod(p.n_tiles for p in nk.plan.parallel)
+    if splits is None:
+        splits = reduce_splits(nk.plan, sm_count(dev))
+    elif splits < 1 or splits > 1 and (nk.kind != "pallas_reduce"
+                                       or splits > nk.plan.reduce_grid.n_tiles):
+        raise ValueError(f"nest kernel: {splits} splits of a {nk.kind} nest")
     with torch.cuda.device(dev):
-        kernel[grid](*args, num_warps=nk.num_warps)
+        if splits == 1:
+            generated_module(nk.source, "nest").nest_kernel[(programs,)](
+                *args, num_warps=nk.num_warps)
+        else:
+            mod = generated_module(nk.split_source, "nest_split")
+            ws = torch.empty((splits, programs, nk.par_block_elems), dtype=torch.float32,
+                             device=dev)
+            mod.nest_partial[(programs, splits)](
+                *args, ws, split_tiles(nk.plan, splits), num_warps=nk.num_warps,
+                num_stages=SPLIT_STAGES)
+            mod.nest_combine[(programs,)](*args, ws, splits, num_warps=nk.num_warps)
+            SPLIT[nk.kind] += 1
     EMITTED[nk.kind] += 1
 
 
@@ -235,9 +310,15 @@ def _helpers(nk: NestKernel) -> list[str]:
     return out
 
 
-def triton_source(nk: NestKernel) -> str:
-    """The Triton module text for a planned nest (no triton import needed)."""
+def triton_source(nk: NestKernel, split: bool = False) -> str:
+    """The Triton module text for a planned nest (no triton import needed):
+    ``nest_kernel``, or with ``split`` (reductions only) ``nest_partial``,
+    whose second grid axis takes ranges of ``per`` reduction tiles and
+    writes fp32 partials to ``ws``, and ``nest_combine``, which combines the
+    ``splits`` partials in order and then with the old output."""
     plan = nk.plan
+    if split and plan.kind != "reduce":
+        raise ValueError("only a reduction nest has a split form")
     axes = plan.axes
     n_axes = len(axes)
     n_par = len(plan.parallel)
@@ -254,18 +335,20 @@ def triton_source(nk: NestKernel) -> str:
     for k in range(n_axes):
         params += [f"lo{k}", f"hi{k}"]
 
-    body: list[str] = ["pid = tl.program_id(0)"]
+    decomp: list[str] = []
     for k in range(n_par - 1, -1, -1):  # innermost parallel axis varies fastest
         t = axes[k].tile
-        body.append(f"nt{k} = tl.cdiv(hi{k} - lo{k}, {t})")
-        body.append(f"t{k} = pid % nt{k}")
-        body.append(f"pid = pid // nt{k}")
-        body.append(f"r{k} = tl.arange(0, {axes[k].block})")
-        body.append(f"x{k} = lo{k} + t{k} * {t} + r{k}")
-        body.append(f"m{k} = (r{k} < {t}) & (x{k} < hi{k})")
+        decomp.append(f"nt{k} = tl.cdiv(hi{k} - lo{k}, {t})")
+        decomp.append(f"t{k} = pid % nt{k}")
+        decomp.append(f"pid = pid // nt{k}")
+        decomp.append(f"r{k} = tl.arange(0, {axes[k].block})")
+        decomp.append(f"x{k} = lo{k} + t{k} * {t} + r{k}")
+        decomp.append(f"m{k} = (r{k} < {t}) & (x{k} < hi{k})")
+    inner: list[str] = []
     for k in range(n_par, n_axes - (1 if plan.reduce_grid else 0)):  # inner reductions
-        body.append(f"x{k} = lo{k} + tl.arange(0, {axes[k].block})")
-        body.append(f"m{k} = x{k} < hi{k}")
+        inner.append(f"x{k} = lo{k} + tl.arange(0, {axes[k].block})")
+        inner.append(f"m{k} = x{k} < hi{k}")
+    body: list[str] = ["pid = tl.program_id(0)"] + decomp + inner
 
     def expand(k: int, rank: int) -> str:
         """Index pattern placing 1-D axis ``k`` at its slab position."""
@@ -340,9 +423,7 @@ def triton_source(nk: NestKernel) -> str:
         u = nk.unroll if tile_r % nk.unroll == 0 else 1
         chunk = tile_r // u
         par_shape = "[" + ", ".join(str(axes[k].block) for k in range(n_par)) + "]"
-        body.append(f"acc = tl.zeros({par_shape}, dtype=tl.float32) + {_NEUTRAL_SRC[op]}")
-        body.append(f"nt{rk} = tl.cdiv(hi{rk} - lo{rk}, {tile_r})")
-        body.append(f"for kt in range(0, nt{rk}):")
+        init = f"acc = tl.zeros({par_shape}, dtype=tl.float32) + {_NEUTRAL_SRC[op]}"
         loop: list[str] = []
         full_mask = " & ".join(f"m{k}{expand(k, n_axes)}" for k in range(n_axes))
         guard = guard_src(comp, n_axes)
@@ -363,18 +444,42 @@ def triton_source(nk: NestKernel) -> str:
             if c:
                 loop.append(f"z0 = " + _COMBINE_SRC[op].format(a="z0", b=f"z{c}"))
         loop.append("acc = " + _COMBINE_SRC[op].format(a="acc", b="z0"))
-        body += ["    " + ln for ln in loop]
+        loop = ["    " + ln for ln in loop]
         wptr, wmask = access_src(comp.write, n_par)
-        body.append(f"w = {wptr}")
-        body.append(f"old = tl.load(w, mask={wmask}, other=0.0)")
-        body.append("tl.store(w, " + _COMBINE_SRC[op].format(a="old", b="acc") + f", mask={wmask})")
+        write = [f"w = {wptr}", f"old = tl.load(w, mask={wmask}, other=0.0)",
+                 "tl.store(w, " + _COMBINE_SRC[op].format(a="old", b="acc") + f", mask={wmask})"]
+        tiles = f"nt{rk} = tl.cdiv(hi{rk} - lo{rk}, {tile_r})"
+        if not split:
+            body += [init, tiles, f"for kt in range(0, nt{rk}):"] + loop + write
+        else:
+            # the flat offset of each lane of the output block in one partial
+            strides = [math.prod(axes[j].block for j in range(k + 1, n_par)) for k in range(n_par)]
+            off = "off = " + " + ".join(f"r{k}{expand(k, n_par)} * {strides[k]}"
+                                        for k in range(n_par))
+            size = nk.par_block_elems
+            partial = (["prog = tl.program_id(0)", "pid = prog"] + decomp + inner
+                       + [init, tiles, "k0 = tl.program_id(1) * per",
+                          f"for kt in range(k0, tl.minimum(k0 + per, nt{rk})):"] + loop
+                       + [off, f"part = ws + (tl.program_id(1) * tl.num_programs(0) + prog) * {size}",
+                          "tl.store(part + off, acc)"])
+            combine = (["prog = tl.program_id(0)", "pid = prog"] + decomp
+                       + [off, f"acc = tl.load(ws + prog * {size} + off)",
+                          "for s in range(1, splits):",
+                          f"    z = tl.load(ws + (s * tl.num_programs(0) + prog) * {size} + off)",
+                          "    acc = " + _COMBINE_SRC[op].format(a="acc", b="z")]
+                       + write)
 
     src = ["import triton", "import triton.language as tl", ""]
     src += ["", "@triton.jit", "def _mul(a, b):", "    return a * b", ""]
     for h in _helpers(nk):
         src += ["", h, ""]
-    src += ["", "@triton.jit", f"def nest_kernel({', '.join(params)}):"]
-    src += ["    " + ln for ln in body]
+    if not split:
+        src += ["", "@triton.jit", f"def nest_kernel({', '.join(params)}):"]
+        src += ["    " + ln for ln in body]
+    else:
+        for name, extra, lines in (("nest_partial", "per", partial), ("nest_combine", "splits", combine)):
+            src += ["", "@triton.jit", f"def {name}({', '.join(params + ['ws', extra])}):"]
+            src += ["    " + ln for ln in lines] + [""]
     return "\n".join(src) + "\n"
 
 

@@ -5,15 +5,19 @@ Needs an NVIDIA card and imports nothing of jax, so it runs on a machine
 with the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_card.py``.  Without a card every test skips (decided in a
 fixture).  The nest-kernel cases are tests/test_tiling.py's edge cases,
-built from the port's IR; ``test_torch_kernels.py`` runs the same cases
-through the plain versions against the reference on the CPU.  The K4/K5
+built from the port's IR, plus K3's split form at every split count of a
+reduction with each op, with and without a guard; ``test_torch_kernels.py``
+runs the same cases through the plain versions against the reference on
+the CPU.  The K4/K5
 cases are tests/test_kernels.py's sweeps plus the head sizes the configs
 use, K5 through each of its two kernels (``_launch``: the tensor-core kernel
 in bf16, the SIMT kernel in fp32 and bf16); ``test_torch_model_kernels.py``
 holds the plain versions against the reference on the CPU.  K6 runs at
 ragged shapes and at each of its tile heights (C up to 32, up to 64, above),
-with and without 16-byte loads; ``test_torch_moe.py`` holds its plain
-version against the reference.
+with and without 16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync)
+named through ``_launch`` at ragged C, D and F with E = 3, and the
+wrapper's routing of buckets, decode steps and misaligned views;
+``test_torch_moe.py`` holds its plain version against the reference.
 """
 import numpy as np
 import pytest
@@ -74,6 +78,17 @@ def reduce_op(ir, op, n=10, m=12):
     c = ir.Computation("r", ir.acc("y", "i"), (ir.acc("A", "i", "k"), ir.acc("w", "k")),
                        ir.Read(0) * ir.Read(1) + 0.25, accumulate=op)
     return ir.Program(f"reduce{op}", (ir.Array("A", (n, m)), ir.Array("w", (m,)), ir.Array("y", (n,))),
+                      (ir.Loop("i", n, body=(ir.Loop("k", m, body=(c,)),)),))
+
+
+def guarded_reduce_op(ir, op, n, m):
+    """``reduce_op`` under the guard ``k >= i``: masked lanes of every split
+    must contribute the neutral element."""
+    c = ir.Computation("r", ir.acc("y", "i"), (ir.acc("A", "i", "k"), ir.acc("w", "k")),
+                       ir.Read(0) * ir.Read(1) + 0.25, accumulate=op,
+                       guards=(ir.aff("k", ("i", -1)),))
+    return ir.Program(f"greduce{op}", (ir.Array("A", (n, m)), ir.Array("w", (m,)),
+                                       ir.Array("y", (n,))),
                       (ir.Loop("i", n, body=(ir.Loop("k", m, body=(c,)),)),))
 
 
@@ -150,10 +165,61 @@ def test_grouped_matmul_kernel_on_card(card, e, c, d, f, offset):
         xb = torch.cat([xb.new_zeros(offset), xb.reshape(-1)])[offset:].view(e, c, d)
         wb = torch.cat([wb.new_zeros(offset), wb.reshape(-1)])[offset:].view(e, d, f)
         assert xb.data_ptr() % 16 and wb.data_ptr() % 16
+    paths = dict(p_gmm.PATHS)
     got = p_gmm.grouped_matmul(xb, wb).float()
     want = p_ref.grouped_matmul(xb.float(), wb.float())
     row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
     assert float(row_err.max()) <= BF16_GMM_REL_L2
+    took = p_gmm.choose_kernel(torch.bfloat16, c, d, f, not offset)
+    assert took == "mma" if offset else took in ("wgmma", "mma")
+    assert p_gmm.PATHS[took] == paths[took] + 1  # a misaligned view takes the mma kernel
+
+
+# ragged C, D and F at E = 3: past the wgmma kernel's 128 x 256 tile, its
+# 64-deep slices and 64-column boxes, and the mma kernel's tile heights
+GMM_RAGGED = [(3, 13, 40, 24), (3, 70, 96, 48), (3, 200, 1032, 264), (3, 333, 136, 72),
+              (3, 129, 4096, 264), (3, 130, 264, 200), (3, 17, 520, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wgmma", "mma"])
+@pytest.mark.parametrize("e,c,d,f", GMM_RAGGED)
+def test_grouped_matmul_both_kernels_on_card(card, kernel, e, c, d, f):
+    """Each bf16 kernel, named through ``_launch``, against the fp32 product
+    of the same bf16 inputs, whatever ``choose_kernel`` would pick."""
+    g = torch.Generator(device=card).manual_seed(e * c + d * f)
+    xb = torch.randn(e, c, d, generator=g, device=card).bfloat16()
+    wb = (torch.randn(e, d, f, generator=g, device=card) / d ** 0.5).bfloat16()
+    before = dict(p_gmm.PATHS)
+    got = p_gmm._launch(kernel, xb, wb).float()
+    torch.cuda.synchronize()
+    assert p_gmm.PATHS[kernel] == before[kernel] + 1
+    want = p_ref.grouped_matmul(xb.float(), wb.float())
+    row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= BF16_GMM_REL_L2
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_routes_buckets_to_wgmma_and_decode_to_mma(card):
+    """The public wrapper's choice on the card: a 640-row prefill bucket
+    takes the wgmma kernel, a 16-row decode step and a misaligned view the
+    mma kernel, fp32 K1's batched kernel; the wgmma kernel refuses what it
+    cannot take instead of falling back."""
+    g = torch.Generator(device=card).manual_seed(8)
+    w = torch.randn(8, 256, 512, generator=g, device=card).bfloat16()
+    flat = torch.randn(8 * 640 * 256 + 1, generator=g, device=card).bfloat16()
+    for x, wt, kernel in [(flat[:8 * 640 * 256].view(8, 640, 256), w, "wgmma"),
+                          (flat[:8 * 16 * 256].view(8, 16, 256), w, "mma"),
+                          (flat[1:].view(8, 640, 256), w, "mma"),
+                          (flat[:8 * 640 * 256].view(8, 640, 256).float(), w.float(), "gemm")]:
+        before = dict(p_gmm.PATHS)
+        p_gmm.grouped_matmul(x, wt)
+        assert p_gmm.PATHS[kernel] == before[kernel] + 1, kernel
+        assert sum(p_gmm.PATHS.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError):
+        p_gmm._launch("wgmma", flat[1:].view(8, 640, 256), w)
+    with pytest.raises(ValueError):
+        p_gmm._launch("wgmma", flat[:8 * 640 * 250].view(8, 640, 250), w[:, :250].contiguous())
 
 
 @pytest.mark.cuda
@@ -171,6 +237,40 @@ def test_nest_kernel_on_card(card, label, build, knobs):
     p_nest.nest_plain(nk, ref)
     for name in env:
         assert max_rel(env[name].cpu().numpy(), ref[name].cpu().numpy()) < MAX_REL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guarded", [False, True], ids=["plain", "guarded"])
+@pytest.mark.parametrize("op", ["+", "*", "max", "min"])
+def test_nest_kernel_split_form_on_card(card, op, guarded):
+    """K3's split form against the plain version at every split count from
+    1 to one range per reduction tile (the launch's own count among them),
+    each bit-identical over two runs, the split runs counted."""
+    build = guarded_reduce_op if guarded else reduce_op
+    prog = build(pir, op, 40, 96)
+    inp = random_inputs(prog, seed=9)
+    base = {k: torch.tensor(v, device=card) for k, v in inp.items()}
+    nk = p_nest.plan_nest(prog, prog.body[0],
+                          Schedule(use_idioms=False, pallas_reduce=True, nest_tile=(8, 8)))
+    tiles = nk.plan.reduce_grid.n_tiles
+    chosen = p_nest.reduce_splits(nk.plan, p_nest.sm_count(card))
+    assert tiles == 12 and chosen == tiles  # 5 parallel tiles: split as far as it goes
+    want = {k: v.clone() for k, v in base.items()}
+    p_nest.nest_plain(nk, want)
+    for splits in sorted({1, 2, 5, chosen}):
+        runs = []
+        for _ in range(2):
+            env = {k: v.clone() for k, v in base.items()}
+            before = p_nest.SPLIT["pallas_reduce"], p_nest.EMITTED["pallas_reduce"]
+            p_nest.nest_launch(nk, env, splits=splits)
+            torch.cuda.synchronize()
+            assert p_nest.SPLIT["pallas_reduce"] == before[0] + (splits > 1)
+            assert p_nest.EMITTED["pallas_reduce"] == before[1] + 1
+            runs.append(env)
+        assert torch.equal(runs[0]["y"], runs[1]["y"]), splits
+        assert max_rel(runs[0]["y"].cpu().numpy(), want["y"].cpu().numpy()) < MAX_REL, splits
+    with pytest.raises(ValueError):
+        p_nest.nest_launch(nk, {k: v.clone() for k, v in base.items()}, splits=tiles + 1)
 
 
 @pytest.mark.cuda

@@ -182,15 +182,115 @@ def _eligible_nests():
 
 
 def test_generated_triton_source_parses_for_every_eligible_nest():
+    """Every nest's kernel source, and every reduction's split form
+    (``nest_partial`` writing partials, ``nest_combine`` combining them)."""
     kernels = _eligible_nests()
     kinds = {nk.kind for nk in kernels}
     assert kinds == {"pallas_nest", "pallas_reduce"} and len(kernels) > 60
-    calls = 0
+    calls = splits = 0
     for nk in kernels:
-        tree = ast.parse(nk.source)
-        fns = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
-        assert "nest_kernel" in fns
-        assert all(any(ast.unparse(d) == "triton.jit" for d in f.decorator_list)
-                   for f in fns.values())
-        calls += any(name in fns for name in ("foeewm", "foedem", "foeldcpm", "finish_std"))
-    assert calls >= 2  # CLOUDSC thermodynamics and correlation's finish_std
+        sources = {"source": ("nest_kernel",)}
+        if nk.kind == "pallas_reduce":
+            sources["split_source"] = ("nest_partial", "nest_combine")
+        else:
+            with pytest.raises(ValueError):
+                nk.split_source
+        for attr, entries in sources.items():
+            tree = ast.parse(getattr(nk, attr))
+            fns = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+            assert all(e in fns for e in entries)
+            assert all(any(ast.unparse(d) == "triton.jit" for d in f.decorator_list)
+                       for f in fns.values())
+            calls += any(name in fns for name in ("foeewm", "foedem", "foeldcpm", "finish_std"))
+        if nk.kind == "pallas_reduce":
+            splits += 1
+            fns = {f.name: f for f in ast.parse(nk.split_source).body
+                   if isinstance(f, ast.FunctionDef)}
+            assert [a.arg for a in fns["nest_partial"].args.args][-2:] == ["ws", "per"]
+            assert [a.arg for a in fns["nest_combine"].args.args][-2:] == ["ws", "splits"]
+            assert "atomic" not in nk.split_source  # partials combined in a fixed order
+    assert calls >= 3  # CLOUDSC thermodynamics and correlation's finish_std, split or not
+    assert splits > 20
+
+
+# ---------------------------------------------------------------------------
+# K3's split form: its launch geometry (a pure function of the plan and the
+# SM count) and its generated source
+# ---------------------------------------------------------------------------
+H100_SMS = 132
+# PolyBench/C 4.2.1 LARGE_DATASET of the benchmarks whose reductions K3 runs
+LARGE = {"atax": dict(m=1900, n=2100), "bicg": dict(n=2100, m=1900), "gemver": dict(n=2000),
+         "gesummv": dict(n=1300), "correlation": dict(m=1200, n=1400),
+         "covariance": dict(m=1200, n=1400), "syrk": dict(n=1200, m=1000),
+         "syr2k": dict(n=1200, m=1000)}
+# reductions whose parallel tiles alone are too few programs (matrix-vector
+# products, the means and deviations), and those that fill the card already
+SPLIT_NESTS = {"atax": {"t1", "t2"}, "bicg": {"cs", "cq"}, "gemver": {"x_up", "w_up"},
+               "gesummv": {"ct", "cy"}, "correlation": {"sm", "ss"}, "covariance": {"sm"}}
+FULL_NESTS = {"syrk": {"mac"}, "syr2k": {"mac1", "mac2"}, "correlation": {"cc"},
+              "covariance": {"cc"}}
+
+
+def _large_reductions(name):
+    """{computation: planned kernel} of the A variant's reduction nests at
+    LARGE, planned as the main path plans them (default tiles)."""
+    from repro_torch.polybench import BENCHMARKS
+
+    norm = Daisy(backend="torch", device="cpu").plan(
+        BENCHMARKS[name].variants["a"](LARGE[name])).program
+    out = {}
+    for nest in norm.body:
+        try:
+            nk = p_nest.plan_nest(norm, nest, Schedule(pallas_nest=True, pallas_reduce=True))
+        except TilingError:
+            continue
+        if nk.plan.kind == "reduce":
+            out[nk.plan.comps[0].name] = nk
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_NESTS))
+def test_reduce_splits_fill_an_h100_at_large_matrix_vector_nests(name):
+    nests = _large_reductions(name)
+    for comp in SPLIT_NESTS[name]:
+        plan = nests[comp].plan
+        programs = int(np.prod([a.n_tiles for a in plan.parallel]))
+        splits = p_nest.reduce_splits(plan, H100_SMS)
+        assert 19 <= programs <= 33 and splits > 1, (comp, programs, splits)
+        assert programs * splits >= p_nest.PROGRAMS_PER_SM * H100_SMS, (comp, programs, splits)
+        per = p_nest.split_tiles(plan, splits)
+        assert -(-plan.reduce_grid.n_tiles // per) == splits  # no empty range
+        # loads stay wide: the tiles of the plan are the reference's, 64 lanes
+        assert all(a.tile == 64 for a in plan.axes), comp
+
+
+@pytest.mark.parametrize("name", sorted(FULL_NESTS))
+def test_reduce_splits_leave_the_3d_products_alone(name):
+    nests = _large_reductions(name)
+    for comp in FULL_NESTS[name]:
+        plan = nests[comp].plan
+        assert int(np.prod([a.n_tiles for a in plan.parallel])) == 22800
+        assert p_nest.reduce_splits(plan, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("n,m,sms", [(64, 4096, 132), (1900, 2100, 132), (1900, 2100, 16),
+                                     (10, 12, 132), (4096, 64, 132), (8, 8, 132),
+                                     (640, 900, 8), (64, 4096, 1), (300, 20000, 132)])
+def test_reduce_splits_rule(n, m, sms):
+    """A pure function of the plan and the SM count: no split once the
+    parallel tiles give two programs per SM or there is one reduction tile;
+    otherwise at least two programs per SM where the reduction tiles allow,
+    in contiguous non-empty ranges."""
+    prog = reduce_op(pir, "+", n, m)
+    plan = p_plan(prog, prog.body[0])
+    programs = int(np.prod([a.n_tiles for a in plan.parallel]))
+    tiles = plan.reduce_grid.n_tiles
+    splits = p_nest.reduce_splits(plan, sms)
+    assert splits == p_nest.reduce_splits(plan, sms)
+    assert 1 <= splits <= tiles
+    if programs >= 2 * sms or tiles == 1:
+        assert splits == 1
+    else:
+        assert programs * splits >= min(2 * sms, programs * tiles)
+        per = p_nest.split_tiles(plan, splits)
+        assert (splits - 1) * per < tiles <= splits * per

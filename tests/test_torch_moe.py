@@ -114,6 +114,67 @@ def test_grouped_matmul_rejects_bad_input():
 
 
 # ---------------------------------------------------------------------------
+# K6's choice between its kernels (made before any launch)
+# ---------------------------------------------------------------------------
+BF16, F32 = torch.bfloat16, torch.float32
+MIN_C = p_gmm.WGMMA_MIN_C
+
+
+@pytest.mark.parametrize("dtype,c,d,f,aligned,want", [
+    (BF16, 640, 4096, 14336, True, "wgmma"),     # Mixtral 2048-token bucket, gate/up
+    (BF16, 640, 14336, 4096, True, "wgmma"),     # ... down
+    (BF16, 80, 4096, 14336, True, "wgmma"),      # 256-token bucket
+    (BF16, 40, 4096, 14336, True, "wgmma"),      # 128-token bucket
+    (BF16, MIN_C, 4096, 14336, True, "wgmma"),   # at the threshold
+    (BF16, MIN_C + 1, 64, 64, True, "wgmma"),
+    (BF16, MIN_C - 1, 4096, 14336, True, "mma"),  # just below it
+    (BF16, 16, 4096, 14336, True, "mma"),        # the 16-slot decode step
+    (BF16, 16, 14336, 4096, True, "mma"),
+    (BF16, 1, 64, 64, True, "mma"),
+    (BF16, 640, 4100, 14336, True, "mma"),       # D % 8 != 0
+    (BF16, 640, 4096, 14330, True, "mma"),       # F % 8 != 0
+    (BF16, 640, 37, 29, True, "mma"),
+    (BF16, 640, 0, 64, True, "mma"),             # no D: nothing for TMA to load
+    (BF16, 640, 4096, 14336, False, "mma"),      # a pointer off 16 bytes
+    (F32, 640, 4096, 14336, True, "gemm"),       # fp32: K1's batched kernel
+    (F32, 16, 4096, 14336, True, "gemm"),
+    (F32, 640, 37, 29, False, "gemm"),
+])
+def test_grouped_matmul_kernel_choice(dtype, c, d, f, aligned, want):
+    assert p_gmm.choose_kernel(dtype, c, d, f, aligned) == want
+    assert p_gmm.choose_kernel(dtype, c, d, f, aligned) == want  # a pure function
+
+
+def test_main_path_capacities_take_wgmma_and_decode_takes_mma():
+    """Every prefill bucket of 128 tokens or more (C = 40-640 at Mixtral's
+    capacity factor) takes the wgmma kernel at gate/up and down; the 16-slot
+    decode step (capacity = slots) the mma kernel."""
+    from repro_torch.serve.engine import prefill_buckets
+
+    cfg = p_config(ARCH)
+    for t in prefill_buckets(4096):
+        c = PL.moe_capacity(cfg, t)
+        for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            assert p_gmm.choose_kernel(BF16, c, d, f, True) == ("wgmma" if t >= 128 else "mma"), t
+    assert PL.moe_capacity(cfg, 2048) == 640 and PL.moe_capacity(cfg, 128) == 40
+    assert p_gmm.choose_kernel(BF16, 16, cfg.d_model, cfg.d_ff, True) == "mma"
+
+
+def test_named_grouped_matmul_kernel_refuses_the_cpu_and_unknown_kernels():
+    """No kernel runs on CPU tensors, and nothing falls back: the named
+    entry raises instead of taking the plain version."""
+    x, w = torch.ones(2, 16, 64).bfloat16(), torch.ones(2, 64, 64).bfloat16()
+    before = dict(p_gmm.PATHS), p_gmm.PLAIN["grouped_matmul"], p_gmm.LAUNCHES["grouped_matmul"]
+    for kernel in ("wgmma", "mma", "gemm", None):
+        with pytest.raises(ValueError):
+            p_gmm._launch(kernel, x, w)
+    with pytest.raises(ValueError):
+        p_gmm._launch("bmm", x, w)
+    after = dict(p_gmm.PATHS), p_gmm.PLAIN["grouped_matmul"], p_gmm.LAUNCHES["grouped_matmul"]
+    assert after == before
+
+
+# ---------------------------------------------------------------------------
 # the MoE layer
 # ---------------------------------------------------------------------------
 def _ffn_params(rcfg, biased: bool):
