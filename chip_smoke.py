@@ -307,19 +307,30 @@ K3_FULL_NESTS = {"syrk": ("mac",), "syr2k": ("mac1", "mac2"), "correlation": ("c
                  "covariance": ("cc",)}
 
 
-def device_ms(torch, fn, n: int = 20) -> float:
+def device_ms(torch, fn, n: int = 20, tries: int = 3) -> float | None:
     """Device milliseconds per call of ``fn``: the kernels' own time summed
     over ``n`` calls under ``torch.profiler``, divided by ``n`` (host gaps
-    and launch latency excluded, unlike ``cuda_ms``)."""
+    and launch latency excluded, unlike ``cuda_ms``).  A profile that
+    recorded no device time (seen once on an H100 for a split K3 nest) is
+    taken again, up to ``tries`` times; None if none recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_groups(torch, prof, n)[0].values())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(device_groups(torch, prof, n)[0].values())
+        if ms > 0:
+            return ms
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    """A time in ms to 4 decimals, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _nest_bound(nk, base) -> tuple[float, float]:
@@ -464,11 +475,11 @@ def check_nest_kernel(torch, results: dict) -> None:
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
             t["library_ms"], t["library_event_ms"] = _addmv_library_ms(torch, nk, base, want)
             timings[label] = t
-            lib = ("torch.addmv none" if t["library_ms"] is None else
-                   f"torch.addmv {t['library_ms']:.4f} (call {t['library_event_ms']:.4f})")
+            lib = ("torch.addmv none" if t["library_event_ms"] is None else
+                   f"torch.addmv {fmt_ms(t['library_ms'])} (call {t['library_event_ms']:.4f})")
             log(f"  K3 {label} {[a.trip for a in nk.plan.axes]}: {programs} parallel tiles x "
-                f"{splits} splits = {programs * splits} programs; device ms: split {t['ms']:.4f}, "
-                f"unsplit {t['unsplit_ms']:.4f}, {lib}, bound {t['bound_ms']:.4f} ({t['bound_by']}); "
+                f"{splits} splits = {programs * splits} programs; device ms: split {fmt_ms(t['ms'])}, "
+                f"unsplit {fmt_ms(t['unsplit_ms'])}, {lib}, bound {t['bound_ms']:.4f} ({t['bound_by']}); "
                 f"a timed call {t['event_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; max rel err "
                 f"{err:.3e}, bit-identical over two runs")
     for name, comps in K3_FULL_NESTS.items():

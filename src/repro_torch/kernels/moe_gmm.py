@@ -63,9 +63,10 @@ def choose_kernel(dtype: torch.dtype, c: int, d: int, f: int, aligned: bool) -> 
     in every run: 0.349-0.366 against 0.419-0.442 ms gate/up and 0.332-0.400
     against 0.380-0.425 down at C = 40, 0.89-0.93 against 2.66-2.77 and
     0.82-0.83 against 2.71-2.79 at C = 640.  At C = 16, the 16-slot decode
-    step, it was ahead too, by 5-9% gate/up and 2-3% down; the step streams
-    the expert weights either way (a 128-row wgmma tile does 8x its
-    operations).  The decode step keeps the mma kernel, whose time the step
+    step, it was ahead too in those runs, by 5-9% gate/up and 2-3% down, but
+    level in a fourth (0.370 against 0.367 ms gate/up): the step streams the
+    expert weights either way, and a 128-row wgmma tile does 8x its
+    operations.  The decode step keeps the mma kernel, whose time the step
     was measured with, until an A/B of the step moves it (ROADMAP queue 2b),
     so the line sits between the decode step's C and the smallest bucket's.
     """
