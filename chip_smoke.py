@@ -438,8 +438,9 @@ def check_nest_kernel(torch, results: dict) -> None:
     # K3 at every LARGE reduction nest of the main path: the launch's split
     # against the plain version, twice (bit-identical), then timed beside the
     # unsplit form, the bound and torch.addmv where it computes the same
-    # function; device times from the profiler (the kernels are microseconds
-    # long, so a timed single call measures the host's launch)
+    # function: CUDA events around one call (cuda_ms, every kernel's `ms`),
+    # and the device time alone under the profiler (device_ms; the kernels
+    # are microseconds long, so a timed call is mostly the host's launch)
     timings = {}
     for name, comps in K3_SPLIT_NESTS.items():
         prog = BENCHMARKS[name].variants["a"](LARGE[name])
@@ -465,23 +466,26 @@ def check_nest_kernel(torch, results: dict) -> None:
             if not (err <= KERNEL_MAX_REL and same):
                 raise AssertionError(f"K3 {label}: max rel err {err:.3e}, bit-identical {same}")
             work = _copy(base)
+            split_call = lambda: nkm.run_nest(nk, work)  # noqa: E731
+            unsplit_call = lambda: nkm.nest_launch(nk, work, splits=1)  # noqa: E731
             t = dict(splits=splits, programs=programs * splits, max_rel_err=err,
-                     ms=device_ms(torch, lambda: nkm.run_nest(nk, work)),
-                     unsplit_ms=device_ms(torch, lambda: nkm.nest_launch(nk, work, splits=1)),
-                     event_ms=cuda_ms(lambda: nkm.run_nest(nk, work)),
+                     ms=cuda_ms(split_call), device_ms=device_ms(torch, split_call),
+                     unsplit_ms=cuda_ms(unsplit_call),
+                     unsplit_device_ms=device_ms(torch, unsplit_call),
                      plain_ms=cuda_ms(lambda: nkm.nest_plain(nk, work)))
             t_ops, t_bytes = _nest_bound(nk, base)
             t.update(bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
-            t["library_ms"], t["library_event_ms"] = _addmv_library_ms(torch, nk, base, want)
+            t["library_ms"], t["library_device_ms"] = _addmv_library_ms(torch, nk, base, want)
             timings[label] = t
-            lib = ("torch.addmv none" if t["library_event_ms"] is None else
-                   f"torch.addmv {fmt_ms(t['library_ms'])} (call {t['library_event_ms']:.4f})")
+            lib = ("torch.addmv none" if t["library_ms"] is None else
+                   f"torch.addmv {t['library_ms']:.4f} (device {fmt_ms(t['library_device_ms'])})")
             log(f"  K3 {label} {[a.trip for a in nk.plan.axes]}: {programs} parallel tiles x "
-                f"{splits} splits = {programs * splits} programs; device ms: split {fmt_ms(t['ms'])}, "
-                f"unsplit {fmt_ms(t['unsplit_ms'])}, {lib}, bound {t['bound_ms']:.4f} ({t['bound_by']}); "
-                f"a timed call {t['event_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; max rel err "
-                f"{err:.3e}, bit-identical over two runs")
+                f"{splits} splits = {programs * splits} programs; ms a call (device ms): split "
+                f"{t['ms']:.4f} ({fmt_ms(t['device_ms'])}), unsplit {t['unsplit_ms']:.4f} "
+                f"({fmt_ms(t['unsplit_device_ms'])}), {lib}, bound {t['bound_ms']:.4f} "
+                f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; max rel err {err:.3e}, "
+                "bit-identical over two runs")
     for name, comps in K3_FULL_NESTS.items():
         prog = BENCHMARKS[name].variants["a"](LARGE[name])
         for _, nk in _main_nests(nkm, prog, "reduce", comps):
@@ -497,13 +501,14 @@ def check_nest_kernel(torch, results: dict) -> None:
         replaces="src/repro/kernels/nest_kernel.py:244 (_emit_reduce)",
         max_abs_err=worst["pallas_reduce"], ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"],
-        shape=f"atax tmp (t1) [1900, 2100], {main['splits']} splits, device ms (profiler)",
-        event_ms=main["event_ms"], unsplit_ms=main["unsplit_ms"], splits=main["splits"],
-        programs=main["programs"], other_shapes=timings)
+        shape=f"atax tmp (t1) [1900, 2100], {main['splits']} splits",
+        device_ms=main["device_ms"], unsplit_ms=main["unsplit_ms"],
+        unsplit_device_ms=main["unsplit_device_ms"], library_device_ms=main["library_device_ms"],
+        splits=main["splits"], programs=main["programs"], other_shapes=timings)
 
 
 def _addmv_library_ms(torch, nk, base, want):
-    """``torch.addmv``'s (device ms, timed-call ms) when it reproduces the
+    """``torch.addmv``'s (ms a call, device ms) when it reproduces the
     reduction ``y[i] += c * A[i,j] * x[j]`` (either orientation of A);
     (None, None) when it does not."""
     comp = nk.plan.comps[0]
@@ -521,7 +526,7 @@ def _addmv_library_ms(torch, nk, base, want):
             out = torch.addmv(y, mat, x, alpha=scale)
             if max_rel(out, want[comp.write.array]) <= KERNEL_MAX_REL:
                 call = lambda: torch.addmv(y, mat, x, alpha=scale)  # noqa: E731
-                return device_ms(torch, call), cuda_ms(call)
+                return cuda_ms(call), device_ms(torch, call)
     return None, None
 
 
@@ -955,7 +960,8 @@ def check_grouped_matmul(torch, results: dict) -> None:
     and both bf16 kernels through ``_launch`` at every ragged shape each one
     takes; then both bf16 kernels over the C sweep at Mixtral's widths, held
     and timed beside ``torch.bmm`` and the bound, and the plain version's
-    time at the main path's shapes."""
+    time at the main path's shapes, where the public ``grouped_matmul`` is
+    held and timed with the kernel it took."""
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import ref
 
@@ -1011,14 +1017,14 @@ def check_grouped_matmul(torch, results: dict) -> None:
                        library_ms=cuda_ms(lambda: torch.bmm(xb, wb)),
                        bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       kernel=km.choose_kernel(xb.dtype, c, d, f, True),
+                       chosen=km.choose_kernel(xb.dtype, c, d, f, True),
                        row_rel_l2=errs, flops=flops)
             sweep[(width, c)] = row
             log(f"  K6 sweep {width} (8,{c},{d}) @ (8,{d},{f}) bf16: wgmma {ms['wgmma']:.4f} ms "
                 f"({flops / ms['wgmma'] / 1e9:.1f} TFLOP/s), mma {ms['mma']:.4f} ms "
                 f"({flops / ms['mma'] / 1e9:.1f} TFLOP/s), torch.bmm {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the wrapper takes "
-                f"{row['kernel']}; row relative L2 wgmma {errs['wgmma']:.3e}, mma {errs['mma']:.3e}")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); choose_kernel picks "
+                f"{row['chosen']}; row relative L2 wgmma {errs['wgmma']:.3e}, mma {errs['mma']:.3e}")
             del xb, wb
     faster = [c for c in GMM_SWEEP_C
               if all(sweep[(wd, c2)]["wgmma_ms"] <= sweep[(wd, c2)]["mma_ms"]
@@ -1028,22 +1034,37 @@ def check_grouped_matmul(torch, results: dict) -> None:
         f"C = {km.WGMMA_MIN_C}; largest bf16 row relative L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst_row.items()) + f" (limit {BF16_GMM_REL_L2:g})")
 
-    # the main path's shapes: the wrapper's kernel, with the plain version's time
+    # the main path's shapes through the public wrapper: held, the kernel it
+    # took read from PATHS, that call timed beside the plain version
     timings = {}
     for label, (e, c, d, f) in GMM_SHAPES.items():
         row = sweep[(label.split()[-1], c)]
         x, w = inputs(e, c, d, f)
         xb, wb = x.bfloat16(), w.bfloat16()
         del x, w
+        want = ref.grouped_matmul(xb.float(), wb.float())
+        before = dict(km.PATHS)
+        got = km.grouped_matmul(xb, wb)
+        torch.cuda.synchronize()
+        taken = [k for k in km.PATHS if km.PATHS[k] != before[k]]
+        if len(taken) != 1 or km.PATHS[taken[0]] != before[taken[0]] + 1:
+            raise AssertionError(f"K6 {label}: grouped_matmul launched {taken}, want one kernel")
+        kernel = taken[0]
+        worst = max(worst, float((got.float() - want).abs().max()))
+        err = float(rel_l2(torch, got, want).max())
+        del got, want
+        if not err <= BF16_GMM_REL_L2:
+            raise AssertionError(f"K6 {label} ({kernel}): bf16 row relative L2 {err:.3e} > "
+                                 f"{BF16_GMM_REL_L2}")
+        ms = cuda_ms(lambda: km.grouped_matmul(xb, wb))
         plain_ms = cuda_ms(lambda: ref.grouped_matmul(xb, wb), repeats=3)
         del xb, wb
-        chosen = row["kernel"]
-        timings[label] = dict(kernel=chosen, ms=row[f"{chosen}_ms"], wgmma_ms=row["wgmma_ms"],
+        timings[label] = dict(kernel=kernel, ms=ms, wgmma_ms=row["wgmma_ms"],
                               mma_ms=row["mma_ms"], plain_ms=plain_ms,
                               library_ms=row["library_ms"], bound_ms=row["bound_ms"],
-                              bound_by=row["bound_by"], row_rel_l2=row["row_rel_l2"])
-        log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: the wrapper takes {chosen}, "
-            f"{row[f'{chosen}_ms']:.4f} ms; plain {plain_ms:.4f} ms, torch.bmm "
+                              bound_by=row["bound_by"], row_rel_l2=err)
+        log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: grouped_matmul took {kernel}, "
+            f"{ms:.4f} ms, row relative L2 {err:.3e}; plain {plain_ms:.4f} ms, torch.bmm "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     main = timings.pop("prefill 2048 gate/up")
     results["grouped_matmul"] = dict(
@@ -1643,12 +1664,11 @@ class PrefillPaths:
 
 class GmmPaths:
     """While installed, every K6 launch's C and the kernel it took (the
-    ``PATHS`` entry that moved), beside ``choose_kernel``'s pick for its
-    dtype, C, D, F and alignment."""
+    ``PATHS`` entry that moved)."""
 
     def __init__(self, km):
         self.km = km
-        self.launches: list[tuple[int, str, str]] = []  # (C, taken, chosen)
+        self.launches: list[tuple[int, str]] = []  # (C, taken)
 
     def launch(self, kernel, x, w):
         before = dict(self.km.PATHS)
@@ -1657,9 +1677,7 @@ class GmmPaths:
         finally:
             taken = [k for k in before if self.km.PATHS[k] != before[k]]
             if taken:
-                aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-                self.launches.append((x.shape[1], taken[0], self.km.choose_kernel(
-                    x.dtype, x.shape[1], x.shape[2], w.shape[2], aligned)))
+                self.launches.append((x.shape[1], taken[0]))
 
     def __enter__(self):
         self.real, self.km._launch = self.km._launch, self.launch
@@ -1670,30 +1688,26 @@ class GmmPaths:
 
     def by_c(self) -> dict:
         out: dict = {}
-        for c, taken, _ in self.launches:
+        for c, taken in self.launches:
             out.setdefault(c, {}).setdefault(taken, 0)
             out[c][taken] += 1
         return dict(sorted(out.items()))
 
 
-def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int) -> dict:
-    """Fail unless every K6 launch took the kernel ``choose_kernel`` names
-    for it, the decode step (C = ``decode_c``) the mma kernel and every
-    prefill bucket of 256 tokens or more (C >= 80) the wgmma kernel;
-    returns the launches by C and kernel."""
+def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int, min_c: int) -> dict:
+    """Fail unless the decode step (C = ``decode_c``) launched only the mma
+    kernel, every launch at C >= ``min_c`` (the buckets) only the wgmma
+    kernel, and buckets of 256 tokens or more (C >= 80) ran; returns the
+    launches by C and kernel."""
     by_c = paths.by_c()
     log(f"  K6 launches by C and kernel: {by_c}")
-    wrong = [(c, t, k) for c, t, k in paths.launches if t != k]
-    if wrong:
-        raise AssertionError(f"{phase}: K6 launches that did not take choose_kernel's pick: "
-                             f"{wrong[:5]} ({len(wrong)} in all)")
     if not by_c.get(decode_c, {}).get("mma") or set(by_c.get(decode_c, {})) != {"mma"}:
         raise AssertionError(f"{phase}: the decode step (C = {decode_c}) should launch only the "
                              f"mma K6 kernel: {by_c.get(decode_c)}")
-    big = {c: n for c, n in by_c.items() if c >= 80}
-    if not big or any(set(n) != {"wgmma"} for n in big.values()):
-        raise AssertionError(f"{phase}: the prefill buckets (C >= 80) should launch only the "
-                             f"wgmma K6 kernel: {big}")
+    big = {c: n for c, n in by_c.items() if c >= min_c}
+    if not any(c >= 80 for c in big) or any(set(n) != {"wgmma"} for n in big.values()):
+        raise AssertionError(f"{phase}: the prefill buckets (C >= {min_c}, some >= 80) should "
+                             f"launch only the wgmma K6 kernel: {big}")
     return {str(c): n for c, n in by_c.items()}
 
 
@@ -1851,7 +1865,7 @@ def main() -> int:
                             n_requests=MIXTRAL_REQUESTS, watched=MIXTRAL_WATCHED, seed=SEED + 9)
     torch.cuda.synchronize()
     moe_launches = model_counts()
-    k6_paths = check_k6_paths("phase 9", gmm_paths, MIXTRAL_SLOTS)
+    k6_paths = check_k6_paths("phase 9", gmm_paths, MIXTRAL_SLOTS, km.WGMMA_MIN_C)
     k5_paths["MoE serving prefill"] = prefill_paths.counts
     k5_paths["MoE serving decode"] = check_k5_paths("phase 9", moe_launches["k5"],
                                                     prefill_paths.counts)

@@ -58,13 +58,13 @@ def choose_kernel(dtype: torch.dtype, c: int, d: int, f: int, aligned: bool) -> 
 
     The threshold comes from chip_smoke.py's sweep of both kernels over C in
     {16, 40, 80, 160, 320, 640} at Mixtral 8x7B's gate/up and down widths,
-    three full runs on an H100 80GB HBM3 at 700 W (PERF.md section 6).  From
+    five full runs on an H100 80GB HBM3 at 700 W (PERF.md section 6).  From
     C = 40, the 128-token bucket, the wgmma kernel was faster at both widths
-    in every run: 0.349-0.366 against 0.419-0.442 ms gate/up and 0.332-0.400
-    against 0.380-0.425 down at C = 40, 0.89-0.93 against 2.66-2.77 and
-    0.82-0.83 against 2.71-2.79 at C = 640.  At C = 16, the 16-slot decode
-    step, it was ahead too in those runs, by 5-9% gate/up and 2-3% down, but
-    level in a fourth (0.370 against 0.367 ms gate/up): the step streams the
+    in every run: 0.340-0.369 against 0.419-0.442 ms gate/up and 0.332-0.400
+    against 0.380-0.428 down at C = 40, 0.893-0.952 against 2.656-2.770 and
+    0.816-0.879 against 2.511-2.788 at C = 640.  At C = 16, the 16-slot
+    decode step, it was ahead in three runs (by 5-9% gate/up, 2-3% down) and
+    mixed in two (-1% and 5% gate/up, 2% and -6% down): the step streams the
     expert weights either way, and a 128-row wgmma tile does 8x its
     operations.  The decode step keeps the mma kernel, whose time the step
     was measured with, until an A/B of the step moves it (ROADMAP queue 2b),

@@ -24,11 +24,14 @@ source, one module per distinct source text:
   the neutral element, and the result is combined with the old output.
   When the parallel tiles alone are too few programs for the card
   (``reduce_splits``: fewer than two per SM, as at every matrix-vector nest
-  of PolyBench LARGE, 19-33 programs), the reduction is split: a second grid
-  axis takes contiguous ranges of the reduction tiles, each program writes
-  its fp32 partial to a workspace the wrapper allocates, and a second
-  kernel combines the partials in split order with the nest's op, then once
-  with the old output.  No atomics, so results are deterministic.
+  of PolyBench LARGE, 19-33 programs), the reduction is split, still in one
+  launch: a second grid axis takes contiguous ranges of the reduction tiles,
+  each program writes its fp32 partial to a workspace the wrapper
+  allocates and counts itself in on its parallel tile's arrival counter,
+  and the last of a tile's programs to arrive combines the partials in
+  split order with the nest's op, then once with the old output, and
+  resets the counter.  The counter is the only atomic; no data is combined
+  by atomics, so results are bit-identical from run to run.
 
 Extents, loop bounds and strides are runtime arguments; only the block sizes,
 the access structure and the expression are baked into the source, so one
@@ -47,9 +50,8 @@ per parallel tile.
 ``run_nest`` launches the kernel for CUDA tensors and takes ``nest_plain`` —
 the same plan evaluated over the whole extent in torch, with the same masks,
 neutral elements and final combine — for CPU tensors only.  ``EMITTED``
-counts nest runs on the card (one per run, split or not), ``SPLIT`` the
-runs that took the split form (two launches) and ``PLAIN`` the
-plain-version runs.
+counts nest runs on the card (one launch per run, split or not), ``SPLIT``
+the runs that took the split form and ``PLAIN`` the plain-version runs.
 """
 from __future__ import annotations
 
@@ -111,7 +113,7 @@ class NestKernel:
 
     @functools.cached_property
     def split_source(self) -> str:
-        """The split form of a reduction: ``nest_partial`` and ``nest_combine``."""
+        """The split form of a reduction: ``nest_split``."""
         return triton_source(self, split=True)
 
 
@@ -143,6 +145,19 @@ def split_tiles(plan: TilePlan, splits: int) -> int:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (device, stream) -> the split form's arrival counters, one per parallel
+# tile; zero between launches (the last program to arrive resets its own)
+_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return cnt
 
 
 def plan_nest(program: Program, nest: Node, schedule) -> NestKernel:
@@ -216,10 +231,11 @@ def run_nest(nk: NestKernel, env: dict[str, torch.Tensor]) -> None:
 # the kernel
 # ---------------------------------------------------------------------------
 def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor], splits: int | None = None) -> None:
-    """Launch the generated Triton kernel on ``env``'s CUDA tensors: one
-    launch, or for a split reduction the partials into a workspace and their
-    combine.  ``splits`` is ``reduce_splits``' count unless given (the card
-    tests and ``chip_smoke.py`` name one to hold and time each form)."""
+    """Launch the generated Triton kernel on ``env``'s CUDA tensors, once:
+    ``nest_kernel``, or for a split reduction ``nest_split`` over a
+    workspace of partials.  ``splits`` is ``reduce_splits``' count unless
+    given (the card tests and ``chip_smoke.py`` name one to hold and time
+    each form)."""
     import_triton()
     args: list[Any] = []
     dev = None
@@ -251,10 +267,9 @@ def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor], splits: int | None
             mod = generated_module(nk.split_source, "nest_split")
             ws = torch.empty((splits, programs, nk.par_block_elems), dtype=torch.float32,
                              device=dev)
-            mod.nest_partial[(programs, splits)](
-                *args, ws, split_tiles(nk.plan, splits), num_warps=nk.num_warps,
-                num_stages=SPLIT_STAGES)
-            mod.nest_combine[(programs,)](*args, ws, splits, num_warps=nk.num_warps)
+            mod.nest_split[(programs, splits)](
+                *args, ws, _counters(dev, programs), split_tiles(nk.plan, splits),
+                num_warps=nk.num_warps, num_stages=SPLIT_STAGES)
             SPLIT[nk.kind] += 1
     EMITTED[nk.kind] += 1
 
@@ -312,10 +327,11 @@ def _helpers(nk: NestKernel) -> list[str]:
 
 def triton_source(nk: NestKernel, split: bool = False) -> str:
     """The Triton module text for a planned nest (no triton import needed):
-    ``nest_kernel``, or with ``split`` (reductions only) ``nest_partial``,
+    ``nest_kernel``, or with ``split`` (reductions only) ``nest_split``,
     whose second grid axis takes ranges of ``per`` reduction tiles and
-    writes fp32 partials to ``ws``, and ``nest_combine``, which combines the
-    ``splits`` partials in order and then with the old output."""
+    writes fp32 partials to ``ws``; the last program of a parallel tile to
+    arrive (its count in ``cnt``) combines them in split order and then
+    with the old output."""
     plan = nk.plan
     if split and plan.kind != "reduce":
         raise ValueError("only a reduction nest has a split form")
@@ -446,40 +462,46 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
         loop.append("acc = " + _COMBINE_SRC[op].format(a="acc", b="z0"))
         loop = ["    " + ln for ln in loop]
         wptr, wmask = access_src(comp.write, n_par)
-        write = [f"w = {wptr}", f"old = tl.load(w, mask={wmask}, other=0.0)",
-                 "tl.store(w, " + _COMBINE_SRC[op].format(a="old", b="acc") + f", mask={wmask})"]
+
+        def write(v: str) -> list[str]:
+            return [f"w = {wptr}", f"old = tl.load(w, mask={wmask}, other=0.0)",
+                    "tl.store(w, " + _COMBINE_SRC[op].format(a="old", b=v) + f", mask={wmask})"]
+
         tiles = f"nt{rk} = tl.cdiv(hi{rk} - lo{rk}, {tile_r})"
         if not split:
-            body += [init, tiles, f"for kt in range(0, nt{rk}):"] + loop + write
+            body += [init, tiles, f"for kt in range(0, nt{rk}):"] + loop + write("acc")
         else:
             # the flat offset of each lane of the output block in one partial
             strides = [math.prod(axes[j].block for j in range(k + 1, n_par)) for k in range(n_par)]
             off = "off = " + " + ".join(f"r{k}{expand(k, n_par)} * {strides[k]}"
                                         for k in range(n_par))
             size = nk.par_block_elems
-            partial = (["prog = tl.program_id(0)", "pid = prog"] + decomp + inner
-                       + [init, tiles, "k0 = tl.program_id(1) * per",
-                          f"for kt in range(k0, tl.minimum(k0 + per, nt{rk})):"] + loop
-                       + [off, f"part = ws + (tl.program_id(1) * tl.num_programs(0) + prog) * {size}",
-                          "tl.store(part + off, acc)"])
-            combine = (["prog = tl.program_id(0)", "pid = prog"] + decomp
-                       + [off, f"acc = tl.load(ws + prog * {size} + off)",
-                          "for s in range(1, splits):",
-                          f"    z = tl.load(ws + (s * tl.num_programs(0) + prog) * {size} + off)",
-                          "    acc = " + _COMBINE_SRC[op].format(a="acc", b="z")]
-                       + write)
+            splits = "tl.num_programs(1)"
+            # every thread's partial is stored before the counter's release;
+            # the last to arrive reads the partials past L1 (".cg")
+            body = (["prog = tl.program_id(0)", "pid = prog"] + decomp + inner
+                    + [init, tiles, "k0 = tl.program_id(1) * per",
+                       f"for kt in range(k0, tl.minimum(k0 + per, nt{rk})):"] + loop
+                    + [off, f"part = ws + (tl.program_id(1) * tl.num_programs(0) + prog) * {size}",
+                       "tl.store(part + off, acc)",
+                       "tl.debug_barrier()",
+                       'arrived = tl.atomic_add(cnt + prog, 1, sem="acq_rel")',
+                       f"if arrived == {splits} - 1:"]
+                    + ["    " + ln for ln in
+                       [f'tot = tl.load(ws + prog * {size} + off, cache_modifier=".cg")',
+                        f"for s in range(1, {splits}):",
+                        f"    z = tl.load(ws + (s * tl.num_programs(0) + prog) * {size} + off, "
+                        'cache_modifier=".cg")',
+                        "    tot = " + _COMBINE_SRC[op].format(a="tot", b="z")]
+                       + write("tot") + ["tl.atomic_xchg(cnt + prog, 0)"]])
 
     src = ["import triton", "import triton.language as tl", ""]
     src += ["", "@triton.jit", "def _mul(a, b):", "    return a * b", ""]
     for h in _helpers(nk):
         src += ["", h, ""]
-    if not split:
-        src += ["", "@triton.jit", f"def nest_kernel({', '.join(params)}):"]
-        src += ["    " + ln for ln in body]
-    else:
-        for name, extra, lines in (("nest_partial", "per", partial), ("nest_combine", "splits", combine)):
-            src += ["", "@triton.jit", f"def {name}({', '.join(params + ['ws', extra])}):"]
-            src += ["    " + ln for ln in lines] + [""]
+    name, extra = ("nest_split", ["ws", "cnt", "per"]) if split else ("nest_kernel", [])
+    src += ["", "@triton.jit", f"def {name}({', '.join(params + extra)}):"]
+    src += ["    " + ln for ln in body]
     return "\n".join(src) + "\n"
 
 

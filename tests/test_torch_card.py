@@ -245,7 +245,8 @@ def test_nest_kernel_on_card(card, label, build, knobs):
 def test_nest_kernel_split_form_on_card(card, op, guarded):
     """K3's split form against the plain version at every split count from
     1 to one range per reduction tile (the launch's own count among them),
-    each bit-identical over two runs, the split runs counted."""
+    each bit-identical over two runs, the split runs counted and the
+    arrival counters back at zero after every split launch."""
     build = guarded_reduce_op if guarded else reduce_op
     prog = build(pir, op, 40, 96)
     inp = random_inputs(prog, seed=9)
@@ -266,6 +267,8 @@ def test_nest_kernel_split_form_on_card(card, op, guarded):
             torch.cuda.synchronize()
             assert p_nest.SPLIT["pallas_reduce"] == before[0] + (splits > 1)
             assert p_nest.EMITTED["pallas_reduce"] == before[1] + 1
+            if splits > 1:
+                assert not p_nest._counters(env["y"].device, 5).any()
             runs.append(env)
         assert torch.equal(runs[0]["y"], runs[1]["y"]), splits
         assert max_rel(runs[0]["y"].cpu().numpy(), want["y"].cpu().numpy()) < MAX_REL, splits

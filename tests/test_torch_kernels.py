@@ -5,6 +5,7 @@ On the CPU every wrapper takes its plain version; ``test_torch_card.py``
 runs the kernels themselves against those plain versions on a card.
 """
 import ast
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -183,7 +184,7 @@ def _eligible_nests():
 
 def test_generated_triton_source_parses_for_every_eligible_nest():
     """Every nest's kernel source, and every reduction's split form
-    (``nest_partial`` writing partials, ``nest_combine`` combining them)."""
+    (``nest_split``: partials, and their combine by the last to arrive)."""
     kernels = _eligible_nests()
     kinds = {nk.kind for nk in kernels}
     assert kinds == {"pallas_nest", "pallas_reduce"} and len(kernels) > 60
@@ -191,7 +192,7 @@ def test_generated_triton_source_parses_for_every_eligible_nest():
     for nk in kernels:
         sources = {"source": ("nest_kernel",)}
         if nk.kind == "pallas_reduce":
-            sources["split_source"] = ("nest_partial", "nest_combine")
+            sources["split_source"] = ("nest_split",)
         else:
             with pytest.raises(ValueError):
                 nk.split_source
@@ -206,9 +207,9 @@ def test_generated_triton_source_parses_for_every_eligible_nest():
             splits += 1
             fns = {f.name: f for f in ast.parse(nk.split_source).body
                    if isinstance(f, ast.FunctionDef)}
-            assert [a.arg for a in fns["nest_partial"].args.args][-2:] == ["ws", "per"]
-            assert [a.arg for a in fns["nest_combine"].args.args][-2:] == ["ws", "splits"]
-            assert "atomic" not in nk.split_source  # partials combined in a fixed order
+            assert [a.arg for a in fns["nest_split"].args.args][-3:] == ["ws", "cnt", "per"]
+            # the arrival counter is the only atomic: partials combine in a fixed order
+            assert re.findall(r"atomic_\w+\(([^,]*),", nk.split_source) == ["cnt + prog"] * 2
     assert calls >= 3  # CLOUDSC thermodynamics and correlation's finish_std, split or not
     assert splits > 20
 
