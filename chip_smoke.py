@@ -13,7 +13,8 @@ Phases, in order (any failure exits nonzero):
    ``nvcc`` per source, all started together, with ptxas's register and
    spill lines;
 3. kernels against their plain versions on the card: K1 at the kernel-test
-   shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16; the Triton nest
+   shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16, timed in fp32 with
+   its device time; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
    guarded reduction with unroll 1/2/4 and each of + * max min, K3 in its
    split form too; K3 at every PolyBench LARGE reduction nest of the main
@@ -21,7 +22,9 @@ Phases, in order (any failure exits nonzero):
    two programs per SM, within 2e-4 of the plain version, bit-identical over
    two runs), timed on the device beside the unsplit form, the bound and
    ``torch.addmv``, and the 3-D products' split count (1); K4 in fp32
-   and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288};
+   and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288},
+   timed (one call and device time) at Danube's and Mixtral's decode steps
+   and 2048-token buckets beside ``F.rms_norm``;
    K5's two kernels (the tensor-core kernel in bf16, the SIMT kernel in
    fp32 and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
    H2O-Danube3-4B's prefill (2048- and 256-token buckets against the
@@ -45,6 +48,9 @@ Phases, in order (any failure exits nonzero):
    137 levels x 65,536 columns, checked the same way;
 6. counts: each kernel's launches over phases 4-5 (all must be > 0), and the
    kernel recipes the planner or the contraction classifier sent to torch;
+   then K1 (3xTF32) at every fp32 shape phase 4's LARGE programs handed it,
+   within 2e-4 of the plain version, timed (one call and device time) beside
+   full-fp32 ``torch.matmul`` and its 3xTF32 and fp32 bounds;
 7. main path, serving: H2O-Danube3-4B at its published widths, all 24
    layers, bf16, seeded random weights, through ``ServingEngine`` (8 slots,
    4096 positions, 32 new tokens): 16 requests with prompts of 128-2048
@@ -104,8 +110,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM3 bandwidth.
+# TF32 and bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -196,19 +203,106 @@ def check_gemm(torch, results: dict) -> None:
     m, n, k = 1000, 1100, 1200
     x = torch.randn(m, k, generator=g, device="cuda")
     y = torch.randn(k, n, generator=g, device="cuda")
-    ms = cuda_ms(lambda: kg.gemm(x, y))
+    row = time_gemm(torch, x, y)
     plain_ms = cuda_ms(lambda: kg.gemm_plain(x, y))
-    library_ms = cuda_ms(lambda: torch.matmul(x, y))
-    flops = 2.0 * m * n * k
-    nbytes = 4.0 * (m * k + k * n + m * n)
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"  K1 gemm fp32 {m}x{k} @ {k}x{n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.matmul {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms")
+    log(f"  K1 gemm fp32 {m}x{k} @ {k}x{n}: kernel {row['ms']:.4f} ms (device "
+        f"{fmt_ms(row['device_ms'])}, back to back {row['stream_ms']:.4f}, {row['splits']} K "
+        f"ranges), plain {plain_ms:.4f} ms, "
+        f"torch.matmul {row['library_ms']:.4f} ms (device {fmt_ms(row['library_device_ms'])}), "
+        f"bound {row['bound_ms']:.4f} ms (3xTF32; fp32 SIMT {row['fp32_simt_bound_ms']:.4f})"
+        + unsplit_note(row))
     results["gemm"] = dict(
         name="gemm", route="cuda", source="src/repro_torch/csrc/gemm.cu",
-        replaces="src/repro/kernels/gemm.py:65", max_abs_err=worst, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms)
+        replaces="src/repro/kernels/gemm.py:65", max_abs_err=worst, plain_ms=plain_ms, **row)
+
+
+def time_gemm(torch, x, y) -> dict:
+    """K1 on fp32 x @ y: one call under CUDA events (``ms``), its device
+    time (``device_ms``) and its time a call back to back (``stream_ms``:
+    the device's, as K1 takes 0.03-0.11 ms on the device and about 0.02
+    ms of host a call), each beside ``torch.matmul``'s (full fp32); where
+    ``gemm_splits`` splits K, the same product unsplit (``unsplit_*``); its
+    error against the plain version (held to 2e-4), the K ranges it took,
+    and the bounds: three TF32 passes at 495 TFLOP/s (``bound_ms``, the
+    kernel's operations) and one fp32 pass at 67 TFLOP/s."""
+    from repro_torch.kernels import gemm as kg
+
+    (m, k), n = x.shape, y.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = max_rel(kg.gemm(x, y), kg.gemm_plain(x, y))
+    if not err <= KERNEL_MAX_REL:
+        raise AssertionError(f"K1 fp32 {m}x{n}x{k}: max rel err {err} > {KERNEL_MAX_REL}")
+    flops = 2.0 * m * n * k
+    t_ops = 3 * flops / PEAK_TF32 * 1e3
+    t_bytes = 4.0 * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
+    call, lib = (lambda: kg.gemm(x, y)), (lambda: torch.matmul(x, y))
+    splits = kg.gemm_splits(1, m, n, k, sms)
+    unsplit = dict(unsplit_ms=None, unsplit_device_ms=None, unsplit_stream_ms=None)
+    if splits > 1:
+        out = torch.empty(m, n, device="cuda")
+        one = lambda: kg.launch_f32(x, y, out, 1, m, n, k, splits=1)  # noqa: E731
+        one()
+        err1 = max_rel(out, kg.gemm_plain(x, y))
+        if not err1 <= KERNEL_MAX_REL:
+            raise AssertionError(f"K1 fp32 {m}x{n}x{k} unsplit: max rel err {err1}")
+        unsplit = dict(unsplit_ms=cuda_ms(one), unsplit_device_ms=device_ms(torch, one),
+                       unsplit_stream_ms=stream_ms(torch, one))
+    return dict(shape=f"{m}x{k} @ {k}x{n} fp32", max_rel_err=err, ms=cuda_ms(call),
+                device_ms=device_ms(torch, call), stream_ms=stream_ms(torch, call),
+                library_ms=cuda_ms(lib), library_device_ms=device_ms(torch, lib, kernels=None),
+                library_stream_ms=stream_ms(torch, lib), bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tf32_bound_ms=t_ops, fp32_simt_bound_ms=flops / PEAK_FP32 * 1e3,
+                splits=splits, **unsplit)
+
+
+def unsplit_note(row: dict) -> str:
+    """The log's words for K1's unsplit time, where the product splits."""
+    if row["unsplit_ms"] is None:
+        return ""
+    return (f"; unsplit {row['unsplit_ms']:.4f} ms (device {fmt_ms(row['unsplit_device_ms'])}, "
+            f"back to back {row['unsplit_stream_ms']:.4f})")
+
+
+def check_gemm_main_shapes(torch, shapes: dict) -> list:
+    """K1 at every fp32 shape that phase 4's LARGE programs handed it, each
+    beside ``torch.matmul`` and the bounds (``time_gemm``)."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for (m, n, k), calls in sorted(shapes.items()):
+        x = torch.randn(m, k, generator=g, device="cuda")
+        y = torch.randn(k, n, generator=g, device="cuda")
+        row = dict(time_gemm(torch, x, y), calls=calls)
+        log(f"  K1 at {row['shape']} ({calls} calls in phase 4): {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}, back to back {row['stream_ms']:.4f}, {row['splits']} "
+            f"K ranges, max rel err {row['max_rel_err']:.2e}); torch.matmul "
+            f"{row['library_ms']:.4f} ms (device {fmt_ms(row['library_device_ms'])}, back to back "
+            f"{row['library_stream_ms']:.4f}); bound {row['bound_ms']:.4f} ms, fp32 SIMT "
+            f"{row['fp32_simt_bound_ms']:.4f}" + unsplit_note(row))
+        rows.append(row)
+    return rows
+
+
+class GemmShapes:
+    """While installed, the (M, N, K) of every fp32 product ``einsum2``
+    hands to K1, with its count of calls."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.shapes: dict[tuple[int, int, int], int] = {}
+
+    def gemm(self, x, y):
+        if x.dtype == y.dtype and str(x.dtype) == "torch.float32":
+            key = (x.shape[0], y.shape[1], x.shape[1])
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+        return self.real(x, y)
+
+    def __enter__(self):
+        self.real, self.ops.gemm = self.ops.gemm, self.gemm
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.gemm = self.real
 
 
 def _nest_programs(ir):
@@ -307,25 +401,51 @@ K3_FULL_NESTS = {"syrk": ("mac",), "syr2k": ("mac1", "mac2"), "correlation": ("c
                  "covariance": ("cc",)}
 
 
-def device_ms(torch, fn, n: int = 20, tries: int = 3) -> float | None:
+def device_ms(torch, fn, kernels: int | None = 1, n: int = 20,
+              tries: int = 3) -> float | None:
     """Device milliseconds per call of ``fn``: the kernels' own time summed
     over ``n`` calls under ``torch.profiler``, divided by ``n`` (host gaps
-    and launch latency excluded, unlike ``cuda_ms``).  A profile that
-    recorded no device time (seen once on an H100 for a split K3 nest) is
-    taken again, up to ``tries`` times; None if none recorded any."""
+    and launch latency excluded, unlike ``cuda_ms``).  Only a profile that
+    kept every kernel counts: ``kernels`` a call, or, where that count is not
+    known beforehand (``None``, a library call), a multiple of ``n``.  On an
+    H100 the profiler loses a kernel of most windows in some processes, more
+    after phases 4-5, and once recorded no device time for a split K3 nest;
+    such a profile is taken again, up to ``tries`` times, and the time is
+    None (not measured) if none was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    kept = 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        ms = sum(device_groups(torch, prof, n)[0].values())
-        if ms > 0:
-            return ms
+        per_call, _, per_call_kernels = device_groups(torch, prof, n)
+        kept = round(per_call_kernels * n)
+        whole = kept == kernels * n if kernels is not None else kept > 0 and kept % n == 0
+        if whole and sum(per_call.values()) > 0:
+            return sum(per_call.values())
+    want = f"{kernels * n}" if kernels is not None else f"a multiple of {n}"
+    log(f"    (device time not measured: none of {tries} profiles of {n} calls was whole; the "
+        f"last kept {kept} kernels, want {want}, and a device time)")
     return None
+
+
+def stream_ms(torch, fn, n: int = 100) -> float:
+    """Milliseconds per call of ``fn`` over ``n`` back-to-back calls between
+    two CUDA events: the device's time per call wherever it exceeds the
+    host's (the launches queue up), else the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -526,7 +646,7 @@ def _addmv_library_ms(torch, nk, base, want):
             out = torch.addmv(y, mat, x, alpha=scale)
             if max_rel(out, want[comp.write.array]) <= KERNEL_MAX_REL:
                 call = lambda: torch.addmv(y, mat, x, alpha=scale)  # noqa: E731
-                return cuda_ms(call), device_ms(torch, call)
+                return cuda_ms(call), device_ms(torch, call, kernels=None)
     return None, None
 
 
@@ -613,7 +733,8 @@ def check_oracle(torch, cuda_daisy, program, inputs, outputs, label) -> None:
     log(f"  {label} small: matches execute_numpy")
 
 
-def main_path(torch) -> None:
+def main_path(torch) -> dict:
+    """Phases 4-5; returns the fp32 shapes K1 took in the LARGE programs."""
     import numpy as np
 
     from repro_torch.cloudsc import (erosion_program, mini_cloudsc_program, physical_inputs,
@@ -621,6 +742,7 @@ def main_path(torch) -> None:
                                      scheme_inputs)
     from repro_torch.core import Daisy, TuningDatabase
     from repro_torch.core.scheduler import random_inputs
+    from repro_torch.kernels import ops
     from repro_torch.polybench import BENCHMARKS, NAMES
 
     db = TuningDatabase(radius=-1.0)  # exact recipes only: no transfer
@@ -644,12 +766,13 @@ def main_path(torch) -> None:
             prog = b.make(var, BENCH_SIZE)
             run_program(torch, cuda_daisy, torch_daisy, prog, random_inputs(prog, seed=3),
                         [b.output], f"{name}/{var} {BENCH_SIZE}")
-    for name in NAMES:
-        b = BENCHMARKS[name]
-        for var in ("a", "b"):
-            prog = b.variants[var](LARGE[name])
-            run_program(torch, cuda_daisy, torch_daisy, prog, random_inputs(prog, seed=3),
-                        [b.output], f"{name}/{var} LARGE {LARGE[name]}")
+    with GemmShapes(ops) as gemm_shapes:
+        for name in NAMES:
+            b = BENCHMARKS[name]
+            for var in ("a", "b"):
+                prog = b.variants[var](LARGE[name])
+                run_program(torch, cuda_daisy, torch_daisy, prog, random_inputs(prog, seed=3),
+                            [b.output], f"{name}/{var} LARGE {LARGE[name]}")
 
     log(f"phase 5: main path, CLOUDSC at klev={KLEV}, nproma={NPROMA}")
     f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}  # noqa: E731
@@ -660,12 +783,16 @@ def main_path(torch) -> None:
                  "cloudsc mini scheme")
     run_program(torch, cuda_daisy, torch_daisy, saturation_chain_program(NPROMA, KLEV),
                  f32(saturation_chain_inputs(NPROMA, KLEV)), ["TEND"], "cloudsc saturation chain")
+    return gemm_shapes.shapes
 
 
 # ---------------------------------------------------------------------------
 # phase 3, model stack: K4 and K5 against their plain versions
 # ---------------------------------------------------------------------------
 RMS_TOL = 1e-5                      # tests/test_kernels.py (fp32)
+# K4's timed shapes: Danube's decode step (8 slots) and prefill bucket, Mixtral's
+# decode step (16 slots) and prefill bucket
+K4_SHAPES = [(8, 3840), (2048, 3840), (16, 4096), (2048, 4096)]
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # tests/test_kernels.py (fp32)
 # bf16 attention, held per q row by the relative L2 error of the output, a
 # measure scaled to the output (a row that sees 4096 keys has outputs of about
@@ -720,26 +847,33 @@ def check_rmsnorm(torch, results: dict) -> None:
             f"{{128, 3840, 4096, 12288}}: "
             f"ok ({'rtol/atol 1e-5' if dtype == torch.float32 else 'within one bf16 ulp'})")
 
-    # time at the main path's shape: a 2048-token prefill bucket of Danube, bf16
-    rows, d = 2048, 3840
-    x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
-    gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).bfloat16()
-    ms = cuda_ms(lambda: kr.rmsnorm(x, gamma, eps=1e-6))
-    plain_ms = cuda_ms(lambda: ref.rmsnorm(x, gamma, eps=1e-6))
-    library_ms = (cuda_ms(lambda: F.rms_norm(x, (d,), gamma, 1e-6))
-                  if hasattr(F, "rms_norm") else None)
-    nbytes = 2.0 * (2 * rows * d + d)
-    flops = 4.0 * rows * d  # square, sum, scale, gamma
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"  K4 rmsnorm bf16 {rows}x{d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.rms_norm {library_ms if library_ms is None else f'{library_ms:.4f} ms'}, "
-        f"bound {max(t_ops, t_bytes):.4f} ms")
+    # time at the main path's shapes: Danube's and Mixtral's decode steps and
+    # 2048-token prefill buckets, bf16; the row's own numbers are Danube's bucket
+    shapes = []
+    for rows, d in K4_SHAPES:
+        x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+        gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).bfloat16()
+        call = lambda: kr.rmsnorm(x, gamma, eps=1e-6)  # noqa: E731
+        lib = (lambda: F.rms_norm(x, (d,), gamma, 1e-6)) if hasattr(F, "rms_norm") else None
+        nbytes = 2.0 * (2 * rows * d + d)
+        flops = 4.0 * rows * d  # square, sum, scale, gamma
+        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = dict(shape=f"{rows}x{d} bf16", ms=cuda_ms(call), device_ms=device_ms(torch, call),
+                   plain_ms=cuda_ms(lambda: ref.rmsnorm(x, gamma, eps=1e-6)),
+                   library_ms=cuda_ms(lib) if lib else None,
+                   library_device_ms=device_ms(torch, lib, kernels=None) if lib else None,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"  K4 rmsnorm {row['shape']}: kernel {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.4f} ms, F.rms_norm "
+            f"{fmt_ms(row['library_ms'])} (device {fmt_ms(row['library_device_ms'])}), "
+            f"bound {row['bound_ms']:.4f} ms")
+        shapes.append(row)
+    main = shapes[K4_SHAPES.index((2048, 3840))]
     results["rmsnorm"] = dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:41", max_abs_err=worst, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms,
-        shape=f"{rows}x{d} bf16")
+        replaces="src/repro/kernels/rmsnorm.py:41", max_abs_err=worst, **main,
+        other_shapes=[r for r in shapes if r is not main])
 
 
 def _attn_bound(torch, q, k, q_offset, causal, window):
@@ -1502,7 +1636,7 @@ def check_moe_layer(torch, cfg, params) -> dict:
 KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
                  "K5 flash_attention": ("flash_kernel", "flash_mma_kernel"),
-                 "K4 rmsnorm": ("rmsnorm_kernel",),
+                 "K4 rmsnorm": ("rmsnorm",),
                  "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
 
 
@@ -1782,7 +1916,7 @@ def main() -> int:
         nkm.EMITTED[k] = 0
     nkm.SPLIT["pallas_reduce"] = 0
     codegen.ROUTED.clear()
-    main_path(torch)
+    gemm_shapes = main_path(torch)
     torch.cuda.synchronize()
     launches = {"gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
@@ -1800,6 +1934,9 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     if split_runs <= 0:
         raise AssertionError("no K3 run on the main path took the split form")
+    if not gemm_shapes:
+        raise AssertionError("phase 4's LARGE programs handed K1 no fp32 product")
+    results["gemm"]["main_path_shapes"] = check_gemm_main_shapes(torch, gemm_shapes)
 
     # the model stack's paths: the counts start at 0 before each, read right after
     def model_counts():

@@ -45,8 +45,8 @@
 // is not a multiple of 8 (or a pointer is not 16-byte aligned) the slices are
 // loaded element by element instead.  No padded copy is made.
 //
-// float32 does not come here: kernels/moe_gmm.py launches K1's tiling in
-// gemm.cu with the expert as its batch (grid z) axis.
+// float32 does not come here: kernels/moe_gmm.py launches K1's 3xTF32 kernel
+// in gemm.cu with the expert as its batch (grid z) axis.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(), or WGMMA_MAP_ERROR plus the

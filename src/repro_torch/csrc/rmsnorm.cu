@@ -6,13 +6,33 @@
 // the output in x's type.
 //
 // Bound: memory.  Each row is read and written once, so the least time is
-// 2 * bytes(x) over 3.35 TB/s (2048 x 3840 bf16 at a Danube prefill: 31.5 MB,
-// 9.4 us).  The TPU kernel kept a whole (256, D) row block in VMEM; here one
-// warp owns one row and a block holds ROWS warps.  Pass 1 sums x^2 with
-// 16-byte loads where the row allows them (D a multiple of 4 fp32 / 8 bf16
-// values) and reduces across the warp with shuffles; pass 2 reads the row
-// again (from L1/L2: a row is at most 48 KB) and writes x * r * gamma.  The
-// warp's sum order is fixed, so results are deterministic.
+// 2 * bytes(x) over 3.35 TB/s (2048 x 3840 bf16 at a Danube prefill bucket:
+// 31.5 MB, 9.4 us).  A decode step's 8-16 rows move 0.1-0.3 MB: there the time
+// is the latency of one row's loads, not bandwidth.
+//
+// rmsnorm_kernel (the model widths): a block owns a row at a time, so a
+// decode step's rows land on as many SMs.  The row is cut into 16-byte
+// chunks (8 bf16 or 4 fp32 values); thread i holds chunks i, i + T, i + 2T
+// and i + 3T of the row and of gamma in registers (T threads, a multiple of
+// 32, the fewest that cover the row with 4 chunks each: 128 for D = 3840 or
+// 4096 in bf16, 256 for 4096 fp32), loaded with 16-byte loads.  Each thread
+// sums its squares in chunk order, the warp by a shuffle tree, and warp 0
+// adds the warps' sums in warp order, so the row's sum has one fixed order
+// and every thread scales by the same r.  The row is read from device
+// memory once and written once.  The grid is capped at 8 blocks an SM
+// (BLOCKS_PER_SM); a block walks rows blockIdx.x, + gridDim.x, ..., keeps
+// gamma in registers across them and has the next row's loads in flight
+// while it reduces and writes this one.  It takes D a multiple of 8 (bf16)
+// or 4 (fp32), at most 4 * 512 chunks (16,384 bf16 / 8,192 fp32 values), and
+// 16-byte aligned x, gamma and out.
+//
+// rmsnorm_loop_kernel (everything else: D not a multiple of the chunk, an
+// unaligned pointer, wider rows such as 12,288 fp32): one block of up to 256
+// threads per row loops over the row element by element twice, summing then
+// scaling (the second read comes from L1/L2), with the same fixed reduction.
+//
+// launch() picks the kernel and the block size before launch from D, the
+// dtype and the pointers' alignment.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
@@ -25,7 +45,10 @@
 
 namespace {
 
-constexpr int ROWS = 8;  // warps (rows) per block
+constexpr int CHUNKS = 4;          // 16-byte chunks of the row a thread holds
+constexpr int MAX_THREADS = 512;   // threads of one row's block (128 registers each)
+constexpr int BLOCKS_PER_SM = 8;   // grid cap, in blocks per SM
+constexpr int LOOP_THREADS = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -41,74 +64,127 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 // 16 bytes of T
 template <typename T>
-struct Vec {
+struct __align__(16) Vec {
   static constexpr int N = 16 / sizeof(T);
   T v[N];
 };
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(ROWS * 32)
+// The block's sum of v in a fixed order (each warp by a shuffle tree, then
+// warp 0 over the warps' sums in warp order); every thread gets the same value.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float part[MAX_THREADS / 32];
+  __shared__ float total;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x / 32;
+    float s = lane < warps ? part[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) total = s;
+  }
+  __syncthreads();
+  return total;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_row(Vec<T> (&r)[CHUNKS], const Vec<T>* v, int chunks) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < chunks) r[i] = v[c];
+  }
+}
+
+// rows blockIdx.x, blockIdx.x + gridDim.x, ...: gamma is loaded once, and the
+// next row's loads are in flight while this row is reduced and written.
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
                int rows, int d, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
-  if (row >= rows) return;
-  const T* xr = x + static_cast<size_t>(row) * d;
-  T* outr = out + static_cast<size_t>(row) * d;
   constexpr int N = Vec<T>::N;
-
-  float ss = 0.f;
-  if (VEC) {
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(xr);
-    for (int c = lane; c < d / N; c += 32) {
-      const Vec<T> chunk = xv[c];
+  const int chunks = d / N;
+  Vec<T> xr[CHUNKS], xn[CHUNKS], gr[CHUNKS];
+  load_row(gr, reinterpret_cast<const Vec<T>*>(gamma), chunks);
+  size_t row = blockIdx.x;
+  load_row(xr, reinterpret_cast<const Vec<T>*>(x + row * d), chunks);
+  for (; row < static_cast<size_t>(rows); row += gridDim.x) {
+    float ss = 0.f;
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        const float f = to_f32(chunk.v[e]);
-        ss = fmaf(f, f, ss);
+    for (int i = 0; i < CHUNKS; ++i) {
+      if (threadIdx.x + i * blockDim.x < chunks) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float f = to_f32(xr[i].v[e]);
+          ss = fmaf(f, f, ss);
+        }
       }
     }
-  } else {
-    for (int c = lane; c < d; c += 32) {
-      const float f = to_f32(xr[c]);
-      ss = fmaf(f, f, ss);
+    const size_t next = row + gridDim.x;
+    if (next < static_cast<size_t>(rows))
+      load_row(xn, reinterpret_cast<const Vec<T>*>(x + next * d), chunks);
+    const float r = rsqrtf(block_sum(ss) / static_cast<float>(d) + eps);
+    Vec<T>* ov = reinterpret_cast<Vec<T>*>(out + row * d);
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < chunks) {
+        Vec<T> res;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          res.v[e] = from_f32<T>(to_f32(xr[i].v[e]) * r * to_f32(gr[i].v[e]));
+        ov[c] = res;
+      }
+      xr[i] = xn[i];
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+}
 
-  if (VEC) {
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(xr);
-    Vec<T>* ov = reinterpret_cast<Vec<T>*>(outr);
-    for (int c = lane; c < d / N; c += 32) {
-      const Vec<T> chunk = xv[c];
-      Vec<T> res;
-#pragma unroll
-      for (int e = 0; e < N; ++e)
-        res.v[e] = from_f32<T>(to_f32(chunk.v[e]) * r * to_f32(gamma[c * N + e]));
-      ov[c] = res;
-    }
-  } else {
-    for (int c = lane; c < d; c += 32)
-      outr[c] = from_f32<T>(to_f32(xr[c]) * r * to_f32(gamma[c]));
+template <typename T>
+__global__ void __launch_bounds__(LOOP_THREADS)
+rmsnorm_loop_kernel(const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ out,
+                    int d, float eps) {
+  const size_t row = blockIdx.x;
+  const T* xr = x + row * d;
+  T* outr = out + row * d;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    const float f = to_f32(xr[c]);
+    ss = fmaf(f, f, ss);
   }
+  const float r = rsqrtf(block_sum(ss) / static_cast<float>(d) + eps);
+  for (int c = threadIdx.x; c < d; c += blockDim.x)
+    outr[c] = from_f32<T>(to_f32(xr[c]) * r * to_f32(gamma[c]));
 }
 
 template <typename T>
 int launch(const void* x, const void* gamma, void* out, int rows, int d, float eps,
            void* stream) {
-  const dim3 grid((rows + ROWS - 1) / ROWS);
+  constexpr int N = Vec<T>::N;
   const auto* xp = static_cast<const T*>(x);
   const auto* gp = static_cast<const T*>(gamma);
   auto* op = static_cast<T*>(out);
-  const bool vec = d % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    rmsnorm_kernel<T, true><<<grid, ROWS * 32, 0, s>>>(xp, gp, op, rows, d, eps);
-  else
-    rmsnorm_kernel<T, false><<<grid, ROWS * 32, 0, s>>>(xp, gp, op, rows, d, eps);
+  const int chunks = d / N;
+  const bool vec = d % N == 0 && chunks <= CHUNKS * MAX_THREADS &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gamma) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    const int per = (chunks + CHUNKS - 1) / CHUNKS;       // threads that cover the row
+    const int threads = per < 32 ? 32 : (per + 31) / 32 * 32;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int cap = sms * BLOCKS_PER_SM;
+    rmsnorm_kernel<T><<<rows < cap ? rows : cap, threads, 0, s>>>(xp, gp, op, rows, d, eps);
+  } else {
+    const int threads = d >= LOOP_THREADS ? LOOP_THREADS : (d + 31) / 32 * 32;
+    rmsnorm_loop_kernel<T><<<rows, threads, 0, s>>>(xp, gp, op, d, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

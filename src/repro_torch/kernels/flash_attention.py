@@ -35,6 +35,7 @@ import torch
 
 from . import ref
 from .build import cuda_library
+from .runtime import on_device, raw_stream, sm_count
 
 LAUNCHES = {"flash_attention": 0}
 PATHS = {"mma": 0, "simt": 0}
@@ -161,12 +162,9 @@ def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0
         # few blocks (decode: one per slot and KV head) get 16 warps each to
         # split the KV walk; many blocks get 4
         blocks = -(-(bhq // bhkv) * sq // ROWS_PER_BLOCK) * bhkv
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        args.append(16 if blocks < 2 * sms else 4)
-    fn = _entry(kernel, q.dtype)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args, stream)
+        args.append(16 if blocks < 2 * sm_count(q.device) else 4)
+    with on_device(q.device):
+        err = _entry(kernel, q.dtype)(*args, raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed with CUDA error {err}")
     LAUNCHES["flash_attention"] += 1

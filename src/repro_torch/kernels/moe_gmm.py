@@ -11,8 +11,8 @@ accumulator over D, the output in x's type.  Three kernels compute it:
   m16n8k16 fragments with a ``cp.async`` ring, tiles as tall as C needs: the
   decode step, bound by the weights' bytes, and any bf16 shape the first does
   not take;
-* ``"gemm"`` — float32 on K1's SIMT kernel (``csrc/gemm.cu``) with the
-  expert as its batch axis.
+* ``"gemm"`` — float32 on K1's 3xTF32 tensor-core kernel (``csrc/gemm.cu``,
+  ``gemm.launch_f32``) with the expert as its batch axis.
 
 ``choose_kernel`` picks one from the dtype, C, D, F and the pointers'
 alignment alone, before any launch.  Ragged C, D and F are masked inside the
@@ -30,8 +30,9 @@ import functools
 
 import torch
 
-from . import ref
+from . import gemm, ref
 from .build import cuda_library
+from .runtime import on_device, raw_stream
 
 LAUNCHES = {"grouped_matmul": 0}
 PATHS = {"wgmma": 0, "mma": 0, "gemm": 0}
@@ -39,8 +40,7 @@ PLAIN = {"grouped_matmul": 0}
 
 # kernel -> (library, entry point, int arguments)
 _ENTRIES = {"wgmma": ("moe_gmm", "repro_moe_gmm_wgmma_bf16", 4),  # e, c, d, f
-            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5),           # e, c, d, f, vec
-            "gemm": ("gemm", "repro_gemm_batched_f32", 4)}         # batch, m, n, k
+            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5)}           # e, c, d, f, vec
 _DTYPES = {"wgmma": torch.bfloat16, "mma": torch.bfloat16, "gemm": torch.float32}
 
 # The wgmma kernel takes C from here up (see choose_kernel).
@@ -134,18 +134,16 @@ def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if kernel == "wgmma":
-        ints = (e, c, d, f)
-    elif kernel == "mma":
-        ints = (e, c, d, f, int(d % 8 == 0 and f % 8 == 0 and aligned))
-    else:
-        ints = (e, c, f, d)
-    fn = _entry(kernel)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"grouped_matmul {kernel} kernel launch failed with error {err}")
+    with on_device(x.device):
+        if kernel == "gemm":  # raises on a launch error
+            gemm.launch_f32(x, w, out, e, c, f, d)
+        else:
+            ints = (e, c, d, f) if kernel == "wgmma" else (
+                e, c, d, f, int(d % 8 == 0 and f % 8 == 0 and aligned))
+            err = _entry(kernel)(x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints,
+                                 raw_stream(x.device))
+            if err != 0:
+                raise RuntimeError(f"grouped_matmul {kernel} kernel launch failed with error {err}")
     LAUNCHES["grouped_matmul"] += 1
     PATHS[kernel] += 1
     return out

@@ -66,6 +66,8 @@ from ..core.codegen import _ACC_INIT, _combine, _reduce
 from ..core.ir import Access, BinOp, Call, Const, Expr, Neg, Node, Program, Read
 from ..core.tiling import TilePlan, TilingError, next_pow2, plan_nest_tiling
 from .build import generated_module, import_triton
+from .runtime import arrival_counters as _counters  # one per parallel tile of a split
+from .runtime import sm_count
 
 EMITTED = {"pallas_nest": 0, "pallas_reduce": 0}
 SPLIT = {"pallas_reduce": 0}
@@ -142,24 +144,6 @@ def split_tiles(plan: TilePlan, splits: int) -> int:
 
 
 @functools.cache
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# (device, stream) -> the split form's arrival counters, one per parallel
-# tile; zero between launches (the last program to arrive resets its own)
-_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _counters(dev: torch.device, n: int) -> torch.Tensor:
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    cnt = _COUNTERS.get(key)
-    if cnt is None or cnt.numel() < n:
-        cnt = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return cnt
-
-
 def plan_nest(program: Program, nest: Node, schedule) -> NestKernel:
     """Plan one canonical nest for the nest kernel; raises ``TilingError``
     (an ``Unsupported``) when it is outside the tiled class — including any

@@ -1,9 +1,11 @@
 """K4: the CUDA RMSNorm of the model stack.
 
 Port of ``repro/kernels/rmsnorm.py::rmsnorm`` (the Pallas TPU kernel).  The
-kernel is ``repro_torch/csrc/rmsnorm.cu``: one warp per row, fp32 math, gamma
-(in ``x``'s type) applied in fp32, the output in ``x``'s type (float32 or
-bfloat16).
+kernel is ``repro_torch/csrc/rmsnorm.cu``: one block per row, the row and
+gamma held in registers from 16-byte loads at the model widths (read once),
+a fixed-order block reduction, fp32 math, gamma (in ``x``'s type) applied in
+fp32, the output in ``x``'s type (float32 or bfloat16); other widths and
+unaligned tensors take a looping kernel.
 
 ``rmsnorm`` launches the kernel for CUDA tensors and takes
 ``kernels.ref.rmsnorm`` for CPU tensors only.  ``LAUNCHES`` counts kernel
@@ -18,6 +20,7 @@ import torch
 
 from . import ref
 from .build import cuda_library
+from .runtime import on_device, raw_stream
 
 LAUNCHES = {"rmsnorm": 0}
 PLAIN = {"rmsnorm": 0}
@@ -56,10 +59,9 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6) -> torch
     rows = x.numel() // d if d else 0
     if rows == 0 or d == 0:
         return out
-    fn = _entry(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d, float(eps), stream)
+    with on_device(x.device):
+        err = _entry(x.dtype)(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d,
+                              float(eps), raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed with CUDA error {err}")
     LAUNCHES["rmsnorm"] += 1

@@ -4,14 +4,18 @@ model stack's main path on the card against the fp32 plain forward.
 Needs an NVIDIA card and imports nothing of jax, so it runs on a machine
 with the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_card.py``.  Without a card every test skips (decided in a
-fixture).  The nest-kernel cases are tests/test_tiling.py's edge cases,
-built from the port's IR, plus K3's split form at every split count of a
-reduction with each op, with and without a guard; ``test_torch_kernels.py``
-runs the same cases through the plain versions against the reference on
-the CPU.  The K4/K5
-cases are tests/test_kernels.py's sweeps plus the head sizes the configs
-use, K5 through each of its two kernels (``_launch``: the tensor-core kernel
-in bf16, the SIMT kernel in fp32 and bf16); ``test_torch_model_kernels.py``
+fixture).  K1 runs at ragged M, N and K (K = 1, 7, 9, 200), with K split
+into ranges (bit-identical run to run), with an inf or a NaN operand, and batched
+through K6's float32 path; ``test_torch_kernels.py`` holds its 3xTF32
+arithmetic against fp64 in an emulation on the CPU.  The nest-kernel cases
+are tests/test_tiling.py's edge cases, built from the port's IR, plus K3's
+split form at every split count of a reduction with each op, with and
+without a guard; ``test_torch_kernels.py`` runs the same cases through the
+plain versions against the reference on the CPU.  The K4/K5 cases are
+tests/test_kernels.py's sweeps plus the head sizes the configs use (K4 also
+at the decode rows, past its registers and off 16-byte alignment), K5
+through each of its two kernels (``_launch``: the tensor-core kernel in
+bf16, the SIMT kernel in fp32 and bf16); ``test_torch_model_kernels.py``
 holds the plain versions against the reference on the CPU.  K6 runs at
 ragged shapes and at each of its tile heights (C up to 32, up to 64, above),
 with and without 16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync)
@@ -134,7 +138,10 @@ CASES = (
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(16, 16, 16), (100, 52, 36), (33, 17, 9), (1000, 1100, 1200)])
+@pytest.mark.parametrize("m,n,k", [
+    (16, 16, 16), (100, 52, 36), (33, 17, 9), (1000, 1100, 1200),
+    (37, 70, 1), (129, 65, 7), (130, 200, 9), (8, 8, 200), (131, 67, 200),  # ragged M/N; K % 8
+    (800, 1200, 900), (1000, 1101, 1203)])  # K split in 4 (16-byte and 4-byte copies)
 def test_gemm_kernel_on_card(card, m, n, k):
     x = torch.randn(m, k, device=card)
     y = torch.randn(k, n, device=card)
@@ -143,6 +150,79 @@ def test_gemm_kernel_on_card(card, m, n, k):
     torch.cuda.synchronize()
     assert p_gemm.LAUNCHES["gemm"] == before + 1
     assert max_rel(got.cpu().numpy(), p_gemm.gemm_plain(x, y).cpu().numpy()) < MAX_REL
+
+
+@pytest.mark.cuda
+def test_gemm_split_is_bit_identical_run_to_run_on_card(card):
+    """The LARGE gemm splits K in 4 on an H100; whichever block of a tile
+    arrives last, the partials are added in range order."""
+    m, n, k = 1000, 1100, 1200
+    props = torch.cuda.get_device_properties(card)
+    assert p_gemm.gemm_splits(1, m, n, k, props.multi_processor_count) > 1
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(m, k, generator=g, device=card)
+    y = torch.randn(k, n, generator=g, device=card)
+    first = p_gemm.gemm(x, y)
+    for _ in range(3):
+        assert torch.equal(p_gemm.gemm(x, y), first)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(64, 48, 40), (1000, 1100, 1200)])
+def test_gemm_keeps_inf_on_card(card, m, n, k):
+    """An inf operand gives inf, not NaN (its small part is 0); the rest of
+    the product is unchanged."""
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.rand(m, k, generator=g, device=card) + 0.5
+    y = torch.rand(k, n, generator=g, device=card) + 0.5
+    x[3, 5] = float("inf")
+    got = p_gemm.gemm(x, y)
+    torch.cuda.synchronize()
+    assert bool(torch.isposinf(got[3]).all())
+    rest = torch.ones(m, dtype=torch.bool, device=card)
+    rest[3] = False
+    assert bool(torch.isfinite(got[rest]).all())
+    assert max_rel(got[rest].cpu().numpy(), p_gemm.gemm_plain(x, y)[rest].cpu().numpy()) < MAX_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(64, 48, 40), (1000, 1100, 1200)])
+def test_gemm_keeps_nan_on_card(card, m, n, k):
+    """A NaN operand gives its row NaN, for a NaN made on the card
+    (``log(-1)``), its negative and one whose payload lies only in the bits
+    TF32 drops; the rest of the product is unchanged."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.rand(m, k, generator=g, device=card) + 0.5
+    y = torch.randn(k, n, generator=g, device=card)
+    x[3, 5] = torch.log(-torch.ones((), device=card))
+    x[7, 0] = -x[3, 5]
+    x.view(torch.int32)[11, k - 1] = 0x7F800001
+    nan_rows = [3, 7, 11]
+    assert bool(torch.isnan(x[nan_rows]).any(dim=1).all())
+    got = p_gemm.gemm(x, y)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[nan_rows]).all())
+    rest = torch.ones(m, dtype=torch.bool, device=card)
+    rest[nan_rows] = False
+    assert bool(torch.isfinite(got[rest]).all())
+    assert max_rel(got[rest].cpu().numpy(), p_gemm.gemm_plain(x, y)[rest].cpu().numpy()) < MAX_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(3, 130, 1200, 200), (2, 45, 9, 70), (8, 640, 512, 256)])
+def test_gemm_batched_through_grouped_matmul_on_card(card, e, c, d, f):
+    """``repro_gemm_batched_f32`` (grid z over experts, K split where the
+    tiles are few) through K6's float32 path."""
+    g = torch.Generator(device=card).manual_seed(e * c * f)
+    x = torch.randn(e, c, d, generator=g, device=card)
+    w = torch.randn(e, d, f, generator=g, device=card)
+    before = p_gmm.PATHS["gemm"]
+    got = p_gmm._launch("gemm", x, w)
+    torch.cuda.synchronize()
+    assert p_gmm.PATHS["gemm"] == before + 1
+    assert max_rel(got.cpu().numpy(), p_ref.grouped_matmul(x, w).cpu().numpy()) < MAX_REL
+    assert torch.equal(p_gmm._launch("gemm", x, w), got)
 
 
 @pytest.mark.cuda
@@ -278,12 +358,15 @@ def test_nest_kernel_split_form_on_card(card, op, guarded):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(8, 64), (100, 96), (5, 32), (1, 3840), (2048, 3840),
-                                    (8, 12288), (7, 30)])
-def test_rmsnorm_kernel_on_card(card, rows, d, dtype):
+@pytest.mark.parametrize("rows,d,offset", [
+    (8, 64, 0), (100, 96, 0), (5, 32, 0), (1, 3840, 0), (2048, 3840, 0), (8, 12288, 0),
+    (7, 30, 0), (8, 3840, 0), (16, 4096, 0), (4, 12288, 0), (3, 40000, 0),  # past the registers
+    (8, 3840, 1), (16, 96, 3)])  # rows that start off 16-byte alignment
+def test_rmsnorm_kernel_on_card(card, rows, d, offset, dtype):
     g = torch.Generator(device=card).manual_seed(rows * d)
-    x = torch.randn(rows, d, generator=g, device=card).to(dtype)
+    x = torch.randn(rows * d + offset, generator=g, device=card).to(dtype)[offset:].view(rows, d)
     gamma = (1 + 0.5 * torch.randn(d, generator=g, device=card)).to(dtype)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
     before = p_rms.LAUNCHES["rmsnorm"]
     got = p_rms.rmsnorm(x, gamma, eps=1e-6)
     torch.cuda.synchronize()
@@ -293,6 +376,7 @@ def test_rmsnorm_kernel_on_card(card, rows, d, dtype):
         torch.testing.assert_close(got, want, rtol=RMS_TOL, atol=RMS_TOL)
     else:  # both round one fp32 result to bf16: at most one ulp apart
         assert bool(((got.float() - want.float()).abs() <= bf16_ulp(want)).all())
+    assert torch.equal(p_rms.rmsnorm(x, gamma, eps=1e-6), got)  # a fixed summation order
 
 
 def _bf16_row_err(got, want) -> float:

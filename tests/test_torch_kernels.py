@@ -2,7 +2,10 @@
 the reference's Pallas kernels in interpret mode.
 
 On the CPU every wrapper takes its plain version; ``test_torch_card.py``
-runs the kernels themselves against those plain versions on a card.
+runs the kernels themselves against those plain versions on a card.  K1's
+float32 arithmetic (three TF32 passes over a big/small split) is emulated
+here in torch and held against the fp64 product, and its choice of K
+splits against the main path's shapes.
 """
 import ast
 import re
@@ -67,6 +70,133 @@ def test_gemm_bf16_matches_reference():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(r_ref.matmul(xb, yb), np.float32),
                                rtol=5e-2, atol=5e-1)
+
+
+# K1's float32 kernel on the tensor cores: error-compensated TF32 ("3xTF32"),
+# emulated here in torch.  cvt.rna.tf32.f32 keeps 10 mantissa bits, rounding
+# the magnitude to nearest, ties away from zero: add half a unit of the 13 bits
+# it drops to the int32 pattern and clear them (``round_bits``; right for every
+# value but NaN, whose payload the addition can carry into the exponent or the
+# sign).  Products of TF32 values are exact in fp32, so an fp32 matmul of the
+# split operands stands for the tensor cores' passes (up to the order of the
+# fp32 sums).
+TF32_NAN = 0x7FFFE000  # csrc/gemm.cu: a NaN's big
+
+
+def round_bits(a: torch.Tensor) -> torch.Tensor:
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    nan = torch.tensor(TF32_NAN, dtype=torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(a), nan, round_bits(a))
+
+
+def split_tf32(a: torch.Tensor):
+    """(big, small, cross) as csrc/gemm.cu's split_tf32 makes them."""
+    big = tf32(a)
+    d = a - big
+    finite = d.abs() <= torch.finfo(torch.float32).max
+    return big, tf32(torch.where(finite, d, 0.0)), torch.where(finite, big, 0.0)
+
+
+def three_tf32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    (xb, xs, xc), (yb, ys, yc) = split_tf32(x), split_tf32(y)
+    return xs @ yc + xc @ ys + xb @ yb
+
+
+def polybench_like(m, n):
+    i, j = np.meshgrid(np.arange(m), np.arange(n), indexing="ij")
+    return ((i * j % n) / n).astype(np.float32)
+
+
+# chip_smoke.py's check_gemm fp32 shapes and the main path's (PolyBench LARGE
+# gemm, 2mm, 3mm, doitgen)
+THREE_TF32_SHAPES = [(16, 16, 16), (100, 52, 36), (128, 256, 64), (33, 17, 9), (8, 8, 200),
+                     (1000, 1100, 1200), (800, 900, 1100), (800, 1200, 900), (800, 900, 1000),
+                     (900, 1100, 1200), (800, 1100, 900), (21000, 160, 160)]
+
+
+@pytest.mark.parametrize("data", ["randn", "polybench"])
+@pytest.mark.parametrize("m,n,k", THREE_TF32_SHAPES)
+def test_three_tf32_passes_meet_the_fp32_limit(m, n, k, data):
+    rng = np.random.default_rng(m * n + k)
+    if data == "randn":
+        x, y = rng.standard_normal((m, k)), rng.standard_normal((k, n))
+    else:
+        x, y = polybench_like(m, k), polybench_like(k, n)
+    x, y = torch.from_numpy(x.astype(np.float32)), torch.from_numpy(y.astype(np.float32))
+    want = x.double() @ y.double()
+    assert max_rel(three_tf32(x, y).numpy(), want.numpy()) <= MAX_REL / 100
+
+
+def test_one_tf32_pass_misses_the_fp32_limit():
+    """The limit tells one pass from three: big.big alone exceeds 2e-4 at
+    the LARGE gemm on randn inputs."""
+    rng = np.random.default_rng(1000 * 1100 + 1200)
+    x = torch.from_numpy(rng.standard_normal((1000, 1200)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((1200, 1100)).astype(np.float32))
+    want = (x.double() @ y.double()).numpy()
+    assert max_rel((tf32(x) @ tf32(y)).numpy(), want) > MAX_REL
+    assert max_rel(three_tf32(x, y).numpy(), want) <= MAX_REL / 100
+
+
+def test_three_tf32_passes_keep_an_inf():
+    """An inf in x gives the fp32 product's inf, not NaN, also against y
+    values that are exact in TF32 (small part 0): the inf's cross is 0."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, (40, 24)).astype(np.float32))
+    y = torch.from_numpy((rng.integers(1, 9, (24, 30)) / 4).astype(np.float32))
+    x[3, 5], x[7, 0] = float("inf"), -float("inf")
+    want = x @ y
+    got = three_tf32(x, y)
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert bool(torch.isposinf(got[3]).all()) and not bool(torch.isnan(got).any())
+    finite = torch.isfinite(want)
+    assert max_rel(got[finite].numpy(), want[finite].numpy()) < MAX_REL
+    xb, xs, _ = split_tf32(x)  # with big in the cross terms, inf * 0 makes NaN
+    yb, ys, _ = split_tf32(y)
+    assert bool(torch.isnan(xs @ yb + xb @ ys + xb @ yb).any())
+
+
+# NaN bit patterns: the one CUDA's arithmetic makes, its negative, and one
+# whose payload lies only in the 13 bits that TF32 drops
+NAN_BITS = [0x7FFFFFFF, -1, 0x7F800001]
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_three_tf32_passes_keep_a_nan(bits):
+    """A NaN in x gives its row NaN and leaves the rest of the product
+    within the limit, for every NaN pattern; rounding its bits as a finite
+    value's would lose it (0x7FFFFFFF becomes -0, -1 becomes +0, 0x7F800001
+    becomes inf)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, (40, 24)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((24, 30)).astype(np.float32))
+    x.view(torch.int32)[3, 5] = bits
+    assert bool(torch.isnan(x[3, 5]))
+    got = three_tf32(x, y)
+    assert bool(torch.isnan(got[3]).all())
+    rest = torch.ones(40, dtype=torch.bool)
+    rest[3] = False
+    assert bool(torch.isfinite(got[rest]).all())
+    want = x.double() @ y.double()
+    assert max_rel(got[rest].numpy(), want[rest].numpy()) <= MAX_REL / 100
+    assert not bool(torch.isnan(round_bits(x[3:4, 5:6])).any())
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (1000, 1100, 1200, 4), (800, 1200, 900, 4), (900, 1100, 1200, 4),  # 144 or 133 tiles
+    (800, 900, 1100, 1), (800, 900, 1000, 1), (800, 1100, 900, 1),    # 105-126 tiles
+    (21000, 160, 160, 1), (8, 8, 200, 1), (64, 64, 4096, 4), (33, 17, 9, 1), (10, 10, 0, 1)])
+def test_gemm_splits_at_the_main_path_shapes(m, n, k, want):
+    """K splits on a 132-SM H100: where 144 tiles would load 12 SMs with two
+    and the rest with one, 4 ranges; where the tiles fit the card once, or K
+    is short (doitgen's 160 is 5 slices), none."""
+    assert p_gemm.gemm_splits(1, m, n, k, 132) == want
+    if want > 1:
+        assert -(-k // p_gemm.SLICE_K) >= want * p_gemm.MIN_SLICES
 
 
 def test_einsum2_contraction_patterns():
