@@ -25,17 +25,21 @@ Phases, in order (any failure exits nonzero):
    and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288},
    timed (one call and device time) at Danube's and Mixtral's decode steps
    and 2048-token buckets beside ``F.rms_norm``;
-   K5's two kernels (the tensor-core kernel in bf16, the SIMT kernel in
-   fp32 and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
+   K5's kernels (the tensor-core kernel in bf16, the SIMT kernel in fp32
+   and bf16) over tests/test_kernels.py's sweep x D {32, 64, 120, 128},
    H2O-Danube3-4B's prefill (2048- and 256-token buckets against the
    engine's 4096-position cache) and 8192-token windowed forward and
-   Mixtral 8x7B's prefill, and the SIMT kernel at both models' decode steps
-   with per-slot offsets; both kernels' errors and times at q lengths 1-64
-   over a 4096-position cache; K6 in fp32 and
-   through both bf16 kernels (wgmma/TMA and mma.sync) at ragged shapes (E =
-   3) and over C in {16, 40, 80, 160, 320, 640} at Mixtral 8x7B's gate/up
-   and down widths, the capacities of its 16-slot decode step and its
-   128-2048-token buckets, each timed beside ``torch.bmm`` and the bound;
+   Mixtral 8x7B's prefill, and the split-KV decode kernel beside the SIMT
+   kernel at both models' decode steps with per-slot offsets (bit-identical
+   over repeated launches, timed as a CUDA graph beside SDPA) and at the
+   edges of its grid; the kernels'
+   errors and times at q lengths 1-64 over a 4096-position cache; K6 in
+   fp32 and through each bf16 kernel (wgmma/TMA, decode, mma.sync) at
+   ragged shapes (E = 3) and over C in {2, 16, 40, 80, 160, 320, 640} at
+   Mixtral 8x7B's gate/up and down widths, the capacities of its warm-up,
+   its 16-slot decode step and its 128-2048-token buckets, each timed beside
+   ``torch.bmm`` and the bound (below C = 32 also as a CUDA graph, the
+   decode kernel bit-identical over repeated launches);
    then each kernel's time at a main-path shape beside
    its plain version's, its bound and, where one torch call computes the
    same function, that call's time;
@@ -59,9 +63,10 @@ Phases, in order (any failure exits nonzero):
    requests' prefill and decode logits held against the fp32 plain forward
    (``models/plain.py``) within a relative L2 tolerance that fp8 weights,
    eps = 0 and gamma = 1 are each shown to exceed; a decode step's and a
-   2048-token prefill bucket's device time by kernel group; K4/K5 launches
-   (> 0), K5's prefill only on the tensor-core kernel, its decode only on
-   the SIMT kernel;
+   2048-token prefill bucket's device time by kernel group, and the decode
+   step's again with K5's decode kernel swapped for the SIMT kernel, in
+   turns; K4/K5 launches (> 0), K5's prefill only on the tensor-core kernel,
+   its decode only on the decode kernel;
 8. main path, forward: ``forward`` on one 8192-token sequence, so K5 runs
    with the 4096 window, held against the plain forward at 256 positions
    beyond 4096; K4/K5 launches (> 0), K5 only on the tensor-core kernel;
@@ -75,9 +80,12 @@ Phases, in order (any failure exits nonzero):
    a prefill bucket's breakdown; four requests' logits held against the fp32
    plain forward, which follows the engine's dispatch groups and its
    near-tie routing choices; the three mutants plus gates over all experts
-   each exceed the tolerance; K4/K5/K6 launches (> 0), K5 split as in phase
-   7, every K6 launch on ``choose_kernel``'s pick (the decode step's on the
-   mma kernel, the buckets of 256 tokens and up on the wgmma kernel), the
+   each exceed the tolerance; the decode step's device time with K5's and
+   K6's decode kernels swapped for the kernels they replaced (K6 at C < 32
+   on the wgmma and on the mma kernel), in turns; K4/K5/K6 launches (> 0),
+   K5 split as in phase 7, every K6 launch on ``choose_kernel``'s pick
+   (every launch below C = 32, the decode step's included, on the decode
+   kernel, the buckets of 256 tokens and up on the wgmma kernel), the
    prefill bucket's K6 time by kernel; then the MoE layer alone on every
    layer's weights and random inputs, a
    2048-token bucket and a 16-slot decode step, against the plain fp32
@@ -443,6 +451,31 @@ def stream_ms(torch, fn, n: int = 100) -> float:
     start.record()
     for _ in range(n):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(torch, fn, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph and replayed between two CUDA events, after a warm-up call
+    and a warm-up replay.  No host work runs between the kernels, so a call
+    of a kernel that takes less time than the host's launch is timed on the
+    card alone (``cuda_ms`` times the host's launch with it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
@@ -913,12 +946,13 @@ def check_flash(torch, results: dict) -> None:
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
     worst = 0.0
 
-    def compare(label, kernel, q, k, v, want_fn, **kw):
+    def compare(label, kernel, q, k, v, want_fn, chunk=None, **kw):
         """(max abs diff, largest per-row relative L2 error) of K5's
-        ``kernel`` against ``want_fn``; fp32 is held by allclose, bf16 by the
-        row error."""
+        ``kernel`` (the decode kernel at ``chunk`` keys a block, None: its
+        wrapper's pick) against ``want_fn``; fp32 is held by allclose, bf16
+        by the row error."""
         nonlocal worst
-        got = kf._launch(kernel, q, k, v, **kw)
+        got = kf._launch(kernel, q, k, v, **kw, **({"chunk": chunk} if chunk else {}))
         torch.cuda.synchronize()
         want = want_fn(q, k, v, **kw)
         diff = float((got.float() - want.float()).abs().max())
@@ -932,6 +966,51 @@ def check_flash(torch, results: dict) -> None:
             raise AssertionError(f"K5 {kernel} {label}: max abs diff {diff:.3e}, "
                                  f"row relative L2 {row_err:.3e}")
         return diff, row_err
+
+    decode_rows = {}  # the decode kernel at the main path's decode steps
+
+    def check_decode(label, q, k, v, kw, diff):
+        """The decode kernel at a decode step: bit-identical over three
+        launches, the arrival counters back at zero; device times of the
+        kernel and of the SIMT kernel."""
+        from repro_torch.kernels import runtime
+
+        runs = [kf._launch("decode", q, k, v, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(runs[0], r) for r in runs[1:]):
+            raise AssertionError(f"K5 decode {label}: not bit-identical over three launches")
+        if any(int(c.abs().sum()) for c in runtime._COUNTERS.values()):
+            raise AssertionError(f"K5 decode {label}: arrival counters left nonzero")
+        return dict(chunk=kf.decode_chunk(k.shape[1]), max_abs_err=diff,
+                    graph_ms=graph_ms(torch, lambda: kf._launch("decode", q, k, v, **kw)),
+                    simt_graph_ms=graph_ms(torch, lambda: kf._launch("simt", q, k, v, **kw)))
+
+    def check_decode_edges() -> float:
+        """The decode kernel at the edges its grid meets: a slot at offset 0
+        (one key), one past Skv - 1, one that sees no key, a window, GQA
+        groups 1, 6 and 16, Skv off the chunk and tile sizes; the largest
+        max abs diff."""
+        diff = 0.0
+        for slots, heads, kvh, d, skv, lens, window in [
+                (5, 8, 2, 120, 300, [1, 301, 0, 128, 129], None),
+                (4, 4, 4, 64, 200, [0, 1, 64, 65], 16), (2, 16, 1, 128, 1000, [500, 1000], None),
+                (3, 6, 1, 32, 130, [64, 65, 130], 100)]:
+            q = rnd(slots * heads, 1, d).bfloat16()
+            k, v = rnd(slots * kvh, skv, d).bfloat16(), rnd(slots * kvh, skv, d).bfloat16()
+            off = kf.expand_offsets(torch.tensor([n - 1 for n in lens], dtype=torch.int32,
+                                                 device="cuda"), q.shape[0], "cuda")
+            kw = dict(causal=True, window=window, q_offset=off)
+            for c in (64, 128, 512):
+                got_diff, _ = compare(f"decode edges {lens} chunk {c}", "decode", q, k, v,
+                                      ref.attention, chunk=c, **kw)
+                diff = max(diff, got_diff)
+            out = kf._launch("decode", q, k, v, **kw)
+            for i, n in enumerate(lens):
+                if n <= 0 and out[i * heads:(i + 1) * heads].any():
+                    raise AssertionError(f"K5 decode: a slot that sees no key gave {out[i * heads]}")
+        log("  K5 decode edges (offset 0, past Skv - 1, no key, a window, groups 1, 4, 6 and "
+            f"16, chunks 64, 128 and 512): ok, max abs diff {diff:.3e}")
+        return diff
 
     sweep_err = {"fp32 simt": 0.0, "bf16 simt": 0.0, "bf16 mma": 0.0}
     for d in HEAD_SIZES:
@@ -961,10 +1040,13 @@ def check_flash(torch, results: dict) -> None:
                     kernels=("mma", "simt"))
 
     def decode(slots, heads, kvh, d, lens):
-        return dict(kw=dict(causal=True, q_offset=torch.tensor(lens, dtype=torch.int32,
-                                                                device="cuda")),
+        # one offset per q row, as expand_offsets makes them from the slots'
+        # (so a timed call is the kernel alone)
+        slot_off = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        return dict(kw=dict(causal=True, q_offset=kf.expand_offsets(slot_off, slots * heads,
+                                                                     "cuda")),
                     q=(slots * heads, 1, d), kv=(slots * kvh, 4096, d), want=per_row,
-                    slots=slots, heads=heads, kernels=("simt",))
+                    slots=slots, heads=heads, slot_off=slot_off, kernels=("decode", "simt"))
 
     # the shapes the serving paths give K5: a prefill bucket (2048 and 256
     # tokens) against the engine's whole 4096-position cache at offset 0, the
@@ -975,6 +1057,8 @@ def check_flash(torch, results: dict) -> None:
         "Danube prefill 256": prefill(32, 8, 120, 256, skv=4096),
         "Danube forward": prefill(32, 8, 120, 8192, window=4096),
         "Danube decode": decode(8, 32, 8, 120, [1, 300, 1111, 2047, 2500, 3333, 4000, 4095]),
+        # the lengths phase 7's slots have: prompts of 128-2048 tokens, 32 new
+        "Danube decode 2k": decode(8, 32, 8, 120, [130, 500, 700, 1000, 1300, 1600, 1900, 2080]),
         "Mixtral prefill": prefill(32, 8, 128, 2048, skv=4096),
         "Mixtral decode": decode(16, 32, 8, 128, [1 + 4094 * i // 15 for i in range(16)]),
     }
@@ -985,21 +1069,23 @@ def check_flash(torch, results: dict) -> None:
         diff32, _ = compare(f"{label} fp32", "simt", q32, k32, v32, want_fn, **kw)
         q, k, v = q32.bfloat16(), k32.bfloat16(), v32.bfloat16()
         del q32, k32, v32
-        chosen = kf.choose_kernel(q.dtype, q.shape[1], q.shape[2], True)
+        group = q.shape[0] // k.shape[0]
+        chosen = kf.choose_kernel(q.dtype, q.shape[1], q.shape[2], True, group)
         errs, ms = {}, {}
         for kernel in case["kernels"]:
             errs[kernel] = compare(f"{label} bf16", kernel, q, k, v, want_fn, **kw)
             ms[kernel] = cuda_ms(lambda: kf._launch(kernel, q, k, v, **kw))
+        if "slots" in case:
+            decode_rows[label] = check_decode(label, q, k, v, kw, errs["decode"][0])
         plain_ms = cuda_ms(lambda: want_fn(q, k, v, **kw), repeats=3)
         # yardstick: SDPA over the same inputs with the KV heads repeated
-        group = q.shape[0] // k.shape[0]
         if "slots" in case:
             slots, heads, d = case["slots"], case["heads"], q.shape[2]
             qq = q.view(slots, heads, 1, d)
             kk = k.repeat_interleave(group, 0).view(slots, heads, 4096, d)
             vv = v.repeat_interleave(group, 0).view(slots, heads, 4096, d)
-            mask = (torch.arange(4096, device="cuda")[None, :] <= kw["q_offset"][:, None]).view(
-                slots, 1, 1, 4096)
+            mask = (torch.arange(4096, device="cuda")[None, :]
+                    <= case["slot_off"][:, None]).view(slots, 1, 1, 4096)
             lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)  # noqa: E731
         else:
             s = q.shape[1]
@@ -1012,6 +1098,8 @@ def check_flash(torch, results: dict) -> None:
                 band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < kw["window"])
                 lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=band)  # noqa: E731
         library_ms = cuda_ms(lib)
+        if label in decode_rows:
+            decode_rows[label]["library_graph_ms"] = graph_ms(torch, lib)
         del qq, kk, vv
         t_ops, t_bytes = _attn_bound(torch, q, k, kf.expand_offsets(kw["q_offset"], q.shape[0],
                                                                     q.device),
@@ -1020,6 +1108,13 @@ def check_flash(torch, results: dict) -> None:
                               library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                               bound_by="operations" if t_ops >= t_bytes else "bytes",
                               row_rel_l2={k: e[1] for k, e in errs.items()})
+        if label in decode_rows:
+            decode_rows[label].update({k: timings[label][k] for k in (
+                "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            row = decode_rows[label]
+            log(f"  K5 {label}, device ms a call (CUDA graph of 20): decode "
+                f"{row['graph_ms']:.4f} (chunk {row['chunk']}), simt {row['simt_graph_ms']:.4f}, "
+                f"SDPA {row['library_graph_ms']:.4f}")
         log(f"  K5 {label} q {tuple(q.shape)} kv {tuple(k.shape)} bf16: "
             + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items())
             + f" (the wrapper takes {chosen}), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
@@ -1030,23 +1125,27 @@ def check_flash(torch, results: dict) -> None:
         del q, k, v
 
     # where choose_kernel draws the line: Danube's heads over a 4096-position
-    # cache (the engine's prefill bucket at cache length 0), short q; both
-    # kernels held against the plain version, then timed
+    # cache (the engine's prefill bucket at cache length 0), short q; the
+    # kernels held against the plain version, then timed (the decode kernel
+    # at Sq = 1, which is all it takes)
     kv = [rnd(8, 4096, 120).bfloat16() for _ in range(2)]
-    short, short_err = {}, {"mma": 0.0, "simt": 0.0}
+    short, short_err = {}, {"mma": 0.0, "simt": 0.0, "decode": 0.0}
     for sq in (1, 2, 4, 8, 16, 32, 64):
         q = rnd(32, sq, 120).bfloat16()
-        for kernel in ("mma", "simt"):
+        kernels = ("mma", "simt") + (("decode",) if sq == 1 else ())
+        for kernel in kernels:
             _, err = compare(f"short q {sq}", kernel, q, *kv, ref.attention, causal=True)
             short_err[kernel] = max(short_err[kernel], err)
         short[sq] = {kernel: cuda_ms(lambda: kf._launch(kernel, q, *kv, causal=True))
-                     for kernel in ("mma", "simt")}
+                     for kernel in kernels}
     first_mma = min(sq for sq in short if kf.choose_kernel(torch.bfloat16, sq, 120, True) == "mma")
     log("  K5 short q, q (32, Sq, 120) kv (8, 4096, 120) bf16, offset 0, mma / simt ms: "
         + ", ".join(f"Sq {sq} {t['mma']:.4f} / {t['simt']:.4f}" for sq, t in short.items())
-        + f"; the wrapper takes mma from Sq {first_mma}; largest row relative L2 "
+        + f" (decode at Sq 1: {short[1]['decode']:.4f}); the wrapper takes mma from Sq "
+        f"{first_mma}; largest row relative L2 "
         + ", ".join(f"{k} {e:.3e}" for k, e in short_err.items()))
     del kv
+    decode_worst = max(check_decode_edges(), *(r["max_abs_err"] for r in decode_rows.values()))
 
     main = timings.pop("Danube prefill")
     results["flash_attention"] = dict(
@@ -1056,6 +1155,14 @@ def check_flash(torch, results: dict) -> None:
         library_ms=main["library_ms"], kernel=main["kernel"], simt_ms=main["simt_ms"],
         shape="Danube prefill: q (32, 2048, 120), kv (8, 4096, 120), causal, offset 0, bf16",
         other_shapes=timings, short_q_ms=short, sweep_row_rel_l2=sweep_err)
+    main = decode_rows.pop("Danube decode")
+    results["flash_attention_decode"] = dict(
+        name="flash_attention_decode", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:117", kernel="decode",
+        **{k: v for k, v in main.items() if k != "max_abs_err"}, max_abs_err=decode_worst,
+        shape="Danube decode: q (256, 1, 120), kv (64, 4096, 120), 8 slots at 1-4095 keys, bf16",
+        other_shapes=decode_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1071,36 +1178,41 @@ BF16_GMM_REL_L2 = 5e-3
 MIXTRAL = "mixtral-8x7b"
 # Mixtral 8x7B's expert products (E 8, D 4096, F 14336): gate/up and down of a
 # 2048-token prefill bucket (capacity 640) and of a 16-slot decode step
-# (capacity 16), gate/up of a 128-token bucket (capacity 40)
+# (capacity 16), gate/up of the engine's 2-token warm-up (capacity 2) and of a
+# 128-token bucket (capacity 40)
 GMM_SHAPES = {"prefill 2048 gate/up": (8, 640, 4096, 14336),
               "prefill 2048 down": (8, 640, 14336, 4096),
               "decode 16 slots gate/up": (8, 16, 4096, 14336),
               "decode 16 slots down": (8, 16, 14336, 4096),
+              "warm-up 2 gate/up": (8, 2, 4096, 14336),
               "bucket 128 gate/up": (8, 40, 4096, 14336)}
 # ragged and small shapes (E = 3): C, D, F not multiples of 16 or of the
 # wgmma kernel's 128 x 256 tile and 64-deep slices, each mma tile height,
 # loads one by one (D or F not a multiple of 8: mma only) and 16 bytes at a time
 GMM_RAGGED = [(3, 13, 37, 29), (3, 70, 100, 45), (3, 130, 264, 200), (3, 50, 520, 1000),
               (3, 17, 4096, 14336 - 8), (3, 200, 1032, 264), (3, 333, 136, 72),
-              (3, 129, 4096, 264)]
-# the capacities of the 16-slot decode step and of the 128-2048-token prefill
-# buckets (models/layers.py moe_capacity), where choose_kernel draws its line
-GMM_SWEEP_C = (16, 40, 80, 160, 320, 640)
+              (3, 129, 4096, 264), (3, 5, 200, 264), (3, 31, 1032, 1000)]
+# the capacities of the warm-up, the 16-slot decode step and the 128-2048-token
+# prefill buckets (models/layers.py moe_capacity), where choose_kernel draws
+# its lines
+GMM_SWEEP_C = (2, 16, 40, 80, 160, 320, 640)
 GMM_WIDTHS = {"gate/up": (4096, 14336), "down": (14336, 4096)}
 
 
 def check_grouped_matmul(torch, results: dict) -> None:
     """K6's kernels against the plain version: fp32 (K1's batched kernel)
-    and both bf16 kernels through ``_launch`` at every ragged shape each one
-    takes; then both bf16 kernels over the C sweep at Mixtral's widths, held
-    and timed beside ``torch.bmm`` and the bound, and the plain version's
-    time at the main path's shapes, where the public ``grouped_matmul`` is
-    held and timed with the kernel it took."""
+    and the bf16 kernels through ``_launch`` at every ragged shape each one
+    takes; then the bf16 kernels over the C sweep at Mixtral's widths, held
+    and timed beside ``torch.bmm`` and the bound (below C = 32 also as a
+    CUDA graph, the decode kernel bit-identical over repeated launches), and
+    the plain version's time at the main path's shapes, where the public
+    ``grouped_matmul`` is held and timed with the kernel it took."""
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    worst, worst_row = 0.0, {"wgmma": 0.0, "mma": 0.0}
+    worst, worst_row = 0.0, {"wgmma": 0.0, "decode": 0.0, "mma": 0.0}
+    decode_worst = 0.0
 
     def inputs(e, c, d, f):
         x = torch.randn(e, c, d, generator=g, device="cuda")
@@ -1108,16 +1220,32 @@ def check_grouped_matmul(torch, results: dict) -> None:
         return x, w
 
     def bf16_row_err(kernel, xb, wb, want):
-        nonlocal worst
+        nonlocal worst, decode_worst
         got = km._launch(kernel, xb, wb)
         torch.cuda.synchronize()
-        worst = max(worst, float((got.float() - want).abs().max()))
+        diff = float((got.float() - want).abs().max())
+        worst = max(worst, diff)
+        if kernel == "decode":
+            decode_worst = max(decode_worst, diff)
         err = float(rel_l2(torch, got, want).max())
         worst_row[kernel] = max(worst_row[kernel], err)
         if not err <= BF16_GMM_REL_L2:
-            raise AssertionError(f"K6 {kernel} {tuple(xb.shape)} @ {tuple(wb.shape)}: bf16 row "
-                                 f"relative L2 {err:.3e} > {BF16_GMM_REL_L2}")
+            raise AssertionError(f"K6 {kernel} {tuple(xb.shape)} @ {tuple(wb.shape)}: bf16 "
+                                 f"row relative L2 {err:.3e} > {BF16_GMM_REL_L2}")
         return err
+
+    def takes(kernel, c, d, f):
+        if kernel == "mma":
+            return True
+        return km._wgmma_takes(torch.bfloat16, d, f, True) and (
+            kernel == "wgmma" or c <= km.WGMMA_MIN_C)
+
+    def decode_repeats(xb, wb, label):
+        """Three launches bit-identical."""
+        runs = [km._launch("decode", xb, wb) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(runs[0], r) for r in runs[1:]):
+            raise AssertionError(f"K6 decode {label}: not bit-identical")
 
     for e, c, d, f in GMM_RAGGED:
         x, w = inputs(e, c, d, f)
@@ -1128,12 +1256,14 @@ def check_grouped_matmul(torch, results: dict) -> None:
             raise AssertionError(f"K6 fp32 ({e},{c},{d},{f}): max rel err {err32:.3e}")
         xb, wb = x.bfloat16(), w.bfloat16()
         want = ref.grouped_matmul(xb.float(), wb.float())
-        kernels = ["mma"] + (["wgmma"] if km._wgmma_takes(xb.dtype, d, f, True) else [])
-        errs = {k: bf16_row_err(k, xb, wb, want) for k in kernels}
+        errs = {k: bf16_row_err(k, xb, wb, want) for k in ("mma", "wgmma", "decode")
+                if takes(k, c, d, f)}
+        if "decode" in errs:
+            decode_repeats(xb, wb, f"({e},{c},{d},{f})")
         log(f"  K6 grouped matmul ({e},{c},{d}) @ ({e},{d},{f}): fp32 max rel err {err32:.3e}, "
             "bf16 row relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
-    # the C sweep at Mixtral's widths: both kernels held and timed
+    # the C sweep at Mixtral's widths: the kernels held and timed
     sweep = {}
     for width, (d, f) in GMM_WIDTHS.items():
         for c in GMM_SWEEP_C:
@@ -1141,31 +1271,50 @@ def check_grouped_matmul(torch, results: dict) -> None:
             xb, wb = x.bfloat16(), w.bfloat16()
             del x, w
             want = ref.grouped_matmul(xb.float(), wb.float())
-            errs = {k: bf16_row_err(k, xb, wb, want) for k in ("wgmma", "mma")}
+            kernels = [k for k in ("wgmma", "decode", "mma") if takes(k, c, d, f)]
+            errs = {k: bf16_row_err(k, xb, wb, want) for k in kernels}
             del want
-            ms = {k: cuda_ms(lambda: km._launch(k, xb, wb)) for k in ("wgmma", "mma")}
+            ms = {k: cuda_ms(lambda: km._launch(k, xb, wb)) for k in kernels}
             flops = 2.0 * 8 * c * d * f
             nbytes = 2.0 * (8 * c * d + 8 * d * f + 8 * c * f)
             t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
-            row = dict(wgmma_ms=ms["wgmma"], mma_ms=ms["mma"],
-                       library_ms=cuda_ms(lambda: torch.bmm(xb, wb)),
+            lib = lambda: torch.bmm(xb, wb)  # noqa: E731
+            row = dict({f"{k}_ms": t for k, t in ms.items()},
+                       library_ms=cuda_ms(lib),
                        bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        chosen=km.choose_kernel(xb.dtype, c, d, f, True),
                        row_rel_l2=errs, flops=flops)
+            if "decode" in kernels:
+                decode_repeats(xb, wb, f"{width} C={c}")
+                row.update({f"{k}_graph_ms": graph_ms(torch, lambda: km._launch(k, xb, wb))
+                            for k in kernels},
+                           library_graph_ms=graph_ms(torch, lib))
             sweep[(width, c)] = row
-            log(f"  K6 sweep {width} (8,{c},{d}) @ (8,{d},{f}) bf16: wgmma {ms['wgmma']:.4f} ms "
-                f"({flops / ms['wgmma'] / 1e9:.1f} TFLOP/s), mma {ms['mma']:.4f} ms "
-                f"({flops / ms['mma'] / 1e9:.1f} TFLOP/s), torch.bmm {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); choose_kernel picks "
-                f"{row['chosen']}; row relative L2 wgmma {errs['wgmma']:.3e}, mma {errs['mma']:.3e}")
+            log(f"  K6 sweep {width} (8,{c},{d}) @ (8,{d},{f}) bf16: "
+                + ", ".join(f"{k} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)" for k, t in ms.items())
+                + f", torch.bmm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}); choose_kernel picks {row['chosen']}; row relative L2 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            if "decode" in kernels:
+                log(f"    device ms a call (CUDA graph of 20): "
+                    + ", ".join(f"{k} {row[f'{k}_graph_ms']:.4f}" for k in kernels)
+                    + f", torch.bmm {row['library_graph_ms']:.4f}")
             del xb, wb
-    faster = [c for c in GMM_SWEEP_C
-              if all(sweep[(wd, c2)]["wgmma_ms"] <= sweep[(wd, c2)]["mma_ms"]
-                     for wd in GMM_WIDTHS for c2 in GMM_SWEEP_C if c2 >= c)]
-    log(f"  K6 sweep: the wgmma kernel is as fast or faster at both widths from C = "
+    for width in GMM_WIDTHS:
+        small = [c for c in GMM_SWEEP_C if c < km.WGMMA_MIN_C]
+        log(f"  K6 sweep {width}: below C = {km.WGMMA_MIN_C} (the decode kernel's), device "
+            "decode / wgmma / mma / torch.bmm ms: " + ", ".join(
+                f"C {c} {sweep[(width, c)]['decode_graph_ms']:.4f} / "
+                f"{sweep[(width, c)]['wgmma_graph_ms']:.4f} / "
+                f"{sweep[(width, c)]['mma_graph_ms']:.4f} / "
+                f"{sweep[(width, c)]['library_graph_ms']:.4f}" for c in small))
+    faster = [c for c in GMM_SWEEP_C if c >= km.WGMMA_MIN_C
+              and all(sweep[(wd, c2)]["wgmma_ms"] <= sweep[(wd, c2)]["mma_ms"]
+                      for wd in GMM_WIDTHS for c2 in GMM_SWEEP_C if c2 >= c)]
+    log(f"  K6 sweep: the wgmma kernel is as fast or faster than mma at both widths from C = "
         f"{min(faster) if faster else 'none'} of {GMM_SWEEP_C}; choose_kernel takes it from "
-        f"C = {km.WGMMA_MIN_C}; largest bf16 row relative L2 "
+        f"C = {km.WGMMA_MIN_C}, the decode kernel below; largest bf16 row relative L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst_row.items()) + f" (limit {BF16_GMM_REL_L2:g})")
 
     # the main path's shapes through the public wrapper: held, the kernel it
@@ -1184,7 +1333,10 @@ def check_grouped_matmul(torch, results: dict) -> None:
         if len(taken) != 1 or km.PATHS[taken[0]] != before[taken[0]] + 1:
             raise AssertionError(f"K6 {label}: grouped_matmul launched {taken}, want one kernel")
         kernel = taken[0]
-        worst = max(worst, float((got.float() - want).abs().max()))
+        diff = float((got.float() - want).abs().max())
+        worst = max(worst, diff)
+        if kernel == "decode":
+            decode_worst = max(decode_worst, diff)
         err = float(rel_l2(torch, got, want).max())
         del got, want
         if not err <= BF16_GMM_REL_L2:
@@ -1193,10 +1345,9 @@ def check_grouped_matmul(torch, results: dict) -> None:
         ms = cuda_ms(lambda: km.grouped_matmul(xb, wb))
         plain_ms = cuda_ms(lambda: ref.grouped_matmul(xb, wb), repeats=3)
         del xb, wb
-        timings[label] = dict(kernel=kernel, ms=ms, wgmma_ms=row["wgmma_ms"],
-                              mma_ms=row["mma_ms"], plain_ms=plain_ms,
-                              library_ms=row["library_ms"], bound_ms=row["bound_ms"],
-                              bound_by=row["bound_by"], row_rel_l2=err)
+        timings[label] = dict(kernel=kernel, ms=ms, plain_ms=plain_ms, row_rel_l2=err,
+                              **{k: v for k, v in row.items()
+                                 if k not in ("chosen", "flops", "row_rel_l2")})
         log(f"  K6 {label} ({e},{c},{d}) @ ({e},{d},{f}) bf16: grouped_matmul took {kernel}, "
             f"{ms:.4f} ms, row relative L2 {err:.3e}; plain {plain_ms:.4f} ms, torch.bmm "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
@@ -1208,10 +1359,17 @@ def check_grouped_matmul(torch, results: dict) -> None:
         library_ms=main["library_ms"], kernel=main["kernel"], wgmma_ms=main["wgmma_ms"],
         mma_ms=main["mma_ms"],
         shape="Mixtral prefill 2048 gate/up: (8, 640, 4096) @ (8, 4096, 14336), bf16",
-        other_shapes=timings,
+        other_shapes={k: v for k, v in timings.items() if v["kernel"] != "decode"},
         sweep={f"{wd} C={c}": {k: v for k, v in row.items() if k != "flops"}
                for (wd, c), row in sweep.items()},
         threshold_c=km.WGMMA_MIN_C, sweep_row_rel_l2=worst_row)
+    main = timings.pop("decode 16 slots gate/up")
+    results["grouped_matmul_decode"] = dict(
+        name="grouped_matmul_decode", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm.py:61", max_abs_err=decode_worst,
+        **{k: v for k, v in main.items() if k != "row_rel_l2"},
+        shape="Mixtral decode 16 slots gate/up: (8, 16, 4096) @ (8, 4096, 14336), bf16",
+        other_shapes={k: v for k, v in timings.items() if v["kernel"] == "decode"})
 
 
 # ---------------------------------------------------------------------------
@@ -1634,8 +1792,9 @@ def check_moe_layer(torch, cfg, params) -> dict:
 
 # device-time groups of a profiled window: kernel-name fragments of each group
 KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
+                 "K6 grouped_matmul decode": ("moe_gmm_decode",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
-                 "K5 flash_attention": ("flash_kernel", "flash_mma_kernel"),
+                 "K5 flash_attention": ("flash_kernel", "flash_mma_kernel", "flash_decode_kernel"),
                  "K4 rmsnorm": ("rmsnorm",),
                  "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
 
@@ -1690,9 +1849,61 @@ def decode_breakdown(torch, cfg, params, states, tokens) -> dict:
                                      for k, v in per_step.items())
         + f"; {n_ops:.0f} device ops per step; device idle "
         + (f"{idle:.1%}" if idle is not None else "not measured (no device events)"))
+    ab = decode_step_ab(torch, cfg, steps)
     return dict(decode_step_ms=step_ms, decode_device_ms=per_step,
                 decode_launches_per_step=counts, decode_ops_per_step=n_ops,
-                decode_idle_share=idle)
+                decode_idle_share=idle, decode_step_ab=ab)
+
+
+def decode_step_ab(torch, cfg, steps) -> dict:
+    """The decode step's device time by kernel group with each decode kernel
+    swapped for the kernel it replaced, in turns (the port's choice, the
+    others, the port's choice again): K5 on the SIMT kernel, and for an MoE
+    model K6 below C = WGMMA_MIN_C on the wgmma and on the mma kernel.  Each
+    is ``torch.profiler`` over 3 steps, with ``choose_kernel`` patched.  The
+    launch counts (and a ``GmmPaths`` record) are put back afterwards: these
+    steps compare kernels and are not the main path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import rmsnorm as kr
+
+    counters = (kf.PATHS, kf.LAUNCHES, km.PATHS, km.LAUNCHES, kr.LAUNCHES, kg.LAUNCHES)
+    saved = [dict(c) for c in counters]
+    record = getattr(getattr(km._launch, "__self__", None), "launches", None)
+    recorded = len(record) if record is not None else 0
+
+    k5, k6 = kf.choose_kernel, km.choose_kernel
+    variants = {"port": (k5, k6),
+                "K5 simt": (lambda dtype, sq, *a, **kw: "simt" if sq == 1 else k5(dtype, sq, *a, **kw),
+                            k6)}
+    if cfg.is_moe:
+        for kernel in ("wgmma", "mma"):
+            variants[f"K6 {kernel}"] = (k5, lambda dtype, c, *a, kernel=kernel: (
+                kernel if c < km.WGMMA_MIN_C and k6(dtype, c, *a) == "decode" else k6(dtype, c, *a)))
+    order = [*variants, "port"]
+    out = {}
+    try:
+        for name in order:
+            kf.choose_kernel, km.choose_kernel = variants[name]
+            steps(1)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                steps(3)
+            per_step, _, _ = device_groups(torch, prof, 3)
+            total = sum(per_step.values())
+            out.setdefault(name, []).append(dict(total=total, **per_step))
+            log(f"    step A/B, {name}: device {total:.3f} ms a step ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items() if k.startswith("K"))
+                + ")")
+    finally:
+        kf.choose_kernel, km.choose_kernel = k5, k6
+        for c, before in zip(counters, saved):
+            c.update(before)
+        if record is not None:
+            del record[recorded:]
+    return out
 
 
 def prefill_breakdown(torch, cfg, params, bucket: int = 2048) -> dict:
@@ -1804,10 +2015,10 @@ class GmmPaths:
         self.km = km
         self.launches: list[tuple[int, str]] = []  # (C, taken)
 
-    def launch(self, kernel, x, w):
+    def launch(self, kernel, x, w, **kw):
         before = dict(self.km.PATHS)
         try:
-            return self.real(kernel, x, w)
+            return self.real(kernel, x, w, **kw)
         finally:
             taken = [k for k in before if self.km.PATHS[k] != before[k]]
             if taken:
@@ -1829,15 +2040,18 @@ class GmmPaths:
 
 
 def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int, min_c: int) -> dict:
-    """Fail unless the decode step (C = ``decode_c``) launched only the mma
-    kernel, every launch at C >= ``min_c`` (the buckets) only the wgmma
-    kernel, and buckets of 256 tokens or more (C >= 80) ran; returns the
-    launches by C and kernel."""
+    """Fail unless the decode step (C = ``decode_c``) and every other launch
+    below C = ``min_c`` (the warm-up, the short buckets) launched only the
+    decode kernel, every launch at C >= ``min_c`` (the buckets) only the
+    wgmma kernel, and buckets of 256 tokens or more (C >= 80) ran; returns
+    the launches by C and kernel."""
     by_c = paths.by_c()
     log(f"  K6 launches by C and kernel: {by_c}")
-    if not by_c.get(decode_c, {}).get("mma") or set(by_c.get(decode_c, {})) != {"mma"}:
-        raise AssertionError(f"{phase}: the decode step (C = {decode_c}) should launch only the "
-                             f"mma K6 kernel: {by_c.get(decode_c)}")
+    small = {c: n for c, n in by_c.items() if c < min_c}
+    if not by_c.get(decode_c, {}).get("decode") or any(set(n) != {"decode"}
+                                                       for n in small.values()):
+        raise AssertionError(f"{phase}: the decode step (C = {decode_c}) and every launch below "
+                             f"C = {min_c} should launch only the decode K6 kernel: {small}")
     big = {c: n for c, n in by_c.items() if c >= min_c}
     if not any(c >= 80 for c in big) or any(set(n) != {"wgmma"} for n in big.values()):
         raise AssertionError(f"{phase}: the prefill buckets (C >= {min_c}, some >= 80) should "
@@ -1847,14 +2061,15 @@ def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int, min_c: int) -> di
 
 def check_k5_paths(phase: str, total: dict, prefill: dict) -> dict:
     """Fail unless the prefill launched only the tensor-core kernel and
-    decode only the SIMT kernel; returns the decode's launches per kernel."""
+    decode only the split-KV decode kernel; returns the decode's launches
+    per kernel."""
     decode = {k: total[k] - prefill[k] for k in total}
     log(f"  K5 launches by kernel: prefill {prefill}, decode {decode}")
-    if prefill["mma"] <= 0 or prefill["simt"] != 0:
+    if prefill["mma"] <= 0 or any(n for k, n in prefill.items() if k != "mma"):
         raise AssertionError(f"{phase}: the prefill should launch only the mma K5 kernel: "
                              f"{prefill}")
-    if decode["mma"] != 0 or decode["simt"] <= 0:
-        raise AssertionError(f"{phase}: decode should launch only the simt K5 kernel: {decode}")
+    if decode["decode"] <= 0 or any(n for k, n in decode.items() if k != "decode"):
+        raise AssertionError(f"{phase}: decode should launch only the decode K5 kernel: {decode}")
     return decode
 
 
@@ -1982,7 +2197,8 @@ def main() -> int:
     for k in ("rmsnorm", "flash_attention"):
         if fwd_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the forward path")
-    if fwd_launches["k5"]["mma"] <= 0 or fwd_launches["k5"]["simt"] != 0:
+    if fwd_launches["k5"]["mma"] <= 0 or any(n for k, n in fwd_launches["k5"].items()
+                                             if k != "mma"):
         raise AssertionError(f"the forward should launch only the mma K5 kernel: "
                              f"{fwd_launches['k5']}")
     k5_paths["forward"] = fwd_launches["k5"]
@@ -2013,8 +2229,9 @@ def main() -> int:
         f"{moe_launches['flash_attention']}, K4 rmsnorm {moe_launches['rmsnorm']} (K1 "
         f"{moe_launches['gemm']}, K2 {moe_launches['pallas_nest']}, K3 "
         f"{moe_launches['pallas_reduce']}); per profiled decode step K6 "
-        f"{per_step['K6 grouped_matmul wgmma'] + per_step['K6 grouped_matmul mma']:.0f} "
-        f"(mma {per_step['K6 grouped_matmul mma']:.0f}), K5 {per_step['K5 flash_attention']:.0f}, K4 "
+        f"{sum(n for k, n in per_step.items() if k.startswith('K6')):.0f} "
+        f"(decode {per_step['K6 grouped_matmul decode']:.0f}), K5 "
+        f"{per_step['K5 flash_attention']:.0f}, K4 "
         f"{per_step['K4 rmsnorm']:.0f}")
     launches["grouped_matmul"] = moe_launches["grouped_matmul"]
     for k in ("grouped_matmul", "rmsnorm", "flash_attention"):
@@ -2023,9 +2240,13 @@ def main() -> int:
     check_moe_layer(torch, mcfg, mparams)
     del served, mparams
 
+    # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
+    launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]
+                                          + k5_paths["MoE serving decode"]["decode"])
+    launches["grouped_matmul_decode"] = sum(n.get("decode", 0) for n in k6_paths.values())
     kernels = []
     for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
-                "grouped_matmul"):
+                "flash_attention_decode", "grouped_matmul", "grouped_matmul_decode"):
         row = dict(results[key])
         row["launches"] = launches[key]
         if key == "flash_attention":

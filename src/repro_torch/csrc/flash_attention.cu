@@ -1,4 +1,4 @@
-// K5: hand-written forward flash attention for Hopper (sm_90a): two kernels.
+// K5: hand-written forward flash attention for Hopper (sm_90a): three kernels.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (the Pallas TPU
 // kernel, pl.pallas_call at flash_attention.py:117, body _flash_kernel at
@@ -20,7 +20,7 @@
 // * Ragged Sq, Skv and D are masked inside the kernels; nothing is padded in
 //   device memory.
 //
-// flash_kernel (SIMT; decode, fp32, and whatever flash_mma_kernel does not
+// flash_kernel (SIMT; fp32, and whatever the other two kernels do not
 // take).  A block owns R = 4 q rows that share one KV head (the GQA group's
 // heads at a position first, then further positions), and its W warps split
 // the KV range in chunks of 32 keys, chunk c going to warp c % W.  Within a
@@ -72,6 +72,42 @@
 // start on 16 bytes, as cp.async needs); kernels/flash_attention.py sends
 // everything else to flash_kernel.  wgmma, TMA and warp specialisation are
 // later work.
+//
+// flash_decode_kernel (bf16 decode, Sq == 1: every served token).  Bound: a
+// Danube step over 8 slots at 1-4095 keys reads 66.8 MB of K/V, 20 us at
+// 3.35 TB/s (Mixtral's 16 slots 134.7 MB, 40 us); the arithmetic is 4
+// multiply-adds a K/V value, so decode is bound by bytes.  flash_kernel gives
+// a slot's KV head one block that walks every key: 64 or 128 blocks on 132
+// SMs, each paced by its longest row.  Here the key range is split across
+// blocks (flash-decoding):
+// * A block owns one KV head, all of its GQA group's q rows (padded to G =
+//   4, 8 or 16 rows, so each K/V byte is read once for the group) and one
+//   chunk of keys (kernels/flash_attention.py::decode_chunk: 256, or more
+//   where a head would have over 64 chunks).  The grid covers the whole
+//   cache; the offsets stay on the device, and a block whose chunk no row of
+//   its group can see exits at once.
+// * One thread streams the chunk's 64-key K and V tiles into a 2-stage ring
+//   with bulk copies (cp.async.bulk, the TMA's 1-D form: a tile of one KV
+//   head is one contiguous run of 64 D-value rows) completing on mbarriers;
+//   the waits trap after ~10 s, so a fault is a launch error.  With 2
+//   stages (66 KB of shared memory at G = 4) three blocks fit an SM, 180 KB
+//   of K/V in flight an SM: on an H100 this beat 3 stages with two blocks
+//   an SM (the same bytes in flight) and 32-key tiles with four or more
+//   blocks (PERF.md).
+// * 4 warps split a tile's keys, 16 each.  Scores: 8 lanes a key, each over
+//   16 of its columns from shared memory (conflict-free 16-byte reads), q
+//   in registers, summed by 3 xor shuffles.  Each warp keeps its own online
+//   softmax (fp32 m, l; P rounded to bf16 before P.V, as the reference) and
+//   accumulator (4 columns a lane); the block merges the warps in warp
+//   order.
+// * A chunk that is its head's only live one stores O / l.  Otherwise it
+//   stores (m, l, acc) in fp32 to a workspace, fences, and counts itself on
+//   its head's arrival counter (kernels/runtime.py); the last live chunk to
+//   arrive merges them all in chunk order with the factors exp(m_c - M),
+//   stores O / l (0 when l is 0) and resets the counter.  The sum order is
+//   fixed by the chunk size, so results are bit-identical run to run.
+// It takes bf16 with D % 8 == 0, D <= 128, a group of at most 16 and
+// 16-byte aligned pointers; everything else stays on flash_kernel.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
@@ -677,6 +713,435 @@ int run_mma(const void* q, const void* k, const void* v, void* out, const Params
   return launch_mma_dp<128>(q, k, v, out, p, static_cast<cudaStream_t>(stream));
 }
 
+// ---------------------------------------------------------------------------
+// flash_decode_kernel: bf16 decode, the KV range split across blocks (see the
+// note at the top)
+// ---------------------------------------------------------------------------
+constexpr int DEC_TK = 64;                    // keys per K/V tile
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_KW = DEC_TK / DEC_WARPS;    // keys of a tile per warp
+constexpr int DEC_STAGES = 2;                 // TMA ring depth
+constexpr int DEC_DP = 128;                   // largest head
+constexpr int DEC_TILE_BYTES = DEC_TK * DEC_DP * 2;  // room for one K or V tile
+constexpr int DEC_STAGE_BYTES = 2 * DEC_TILE_BYTES;
+constexpr int DEC_MAX_CHUNKS = DEC_WARPS * DEC_KW;  // the merge's factors fill the score buffer
+
+// G: q rows per block, the GQA group padded to 4, 8 or 16
+template <int G>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  return DEC_STAGES * DEC_STAGE_BYTES  // the K/V ring
+         + G * DEC_DP * 4              // q rows in fp32, later the block's merged acc
+         + DEC_WARPS * DEC_KW * G * 4  // each warp's scores, then its P
+         + 2 * DEC_WARPS * G * 4       // each warp's m and l
+         + 2 * G * 4                   // each row's visible keys [lo, hi)
+         + DEC_STAGES * 8;             // mbarriers
+}
+
+// mbarrier and bulk-copy helpers, as in csrc/moe_gmm.cu (copied, not shared
+// through a header: see the note above cp_async16)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete.  A wait that
+// lasts about 10 seconds traps, so a fault in the pipeline surfaces as a
+// launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000ll) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory
+// by the copy engine; their arrival completes a transaction on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// One block: KV head blockIdx.y (all of its GQA group's q rows) over chunk
+// blockIdx.x of `chunk` keys.  ws holds, per (KV head, chunk), G rows of
+// (m, l) then G rows of DEC_DP accumulator values; cnt one arrival counter
+// per KV head.
+template <int G>
+__global__ void __launch_bounds__(DEC_THREADS, 3)
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    Params p, int chunk, float* __restrict__ ws, int* __restrict__ cnt) {
+  extern __shared__ __align__(128) unsigned char dec_smem[];
+  float* q_s = reinterpret_cast<float*>(dec_smem + DEC_STAGES * DEC_STAGE_BYTES);  // [G][DP]
+  float* sc = q_s + G * DEC_DP;              // [warp][key][G]
+  float* m_s = sc + DEC_WARPS * DEC_KW * G;  // [warp][G]
+  float* l_s = m_s + DEC_WARPS * G;          // [warp][G]
+  int* lo_s = reinterpret_cast<int*>(l_s + DEC_WARPS * G);  // [G]
+  int* hi_s = lo_s + G;                                      // [G]
+  uint64_t* full = reinterpret_cast<uint64_t*>(hi_s + G);   // [DEC_STAGES]
+  __shared__ int last;
+
+  const int group = p.bhq / p.bhkv;
+  const int bkv = blockIdx.y, c = blockIdx.x;
+  const int d = p.d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t row0 = static_cast<size_t>(bkv) * group;  // the group's first q row
+
+  // the union of the rows' visible keys decides which chunks are live; no
+  // offset is read on the host
+  int lo_b = p.skv, hi_b = 0;
+  for (int r = 0; r < group; ++r) {
+    const int pos = p.offs ? p.offs[row0 + r] : p.off0;
+    const int hi = p.causal ? min(p.skv, pos + 1) : p.skv;
+    const int lo = p.has_window ? max(0, pos - p.window + 1) : 0;
+    if (lo < hi) {
+      lo_b = min(lo_b, lo);
+      hi_b = max(hi_b, hi);
+    }
+    if (tid == 0) {
+      lo_s[r] = lo;
+      hi_s[r] = hi;
+    }
+  }
+  const int c0 = lo_b / chunk;
+  const int live = hi_b > lo_b ? (hi_b - 1) / chunk + 1 - c0 : 0;
+  if (live == 0) {  // no row sees a key: chunk 0 writes the zeros
+    if (c == 0)
+      for (int i = tid; i < group * d; i += DEC_THREADS)
+        out[row0 * d + i] = __float2bfloat16(0.f);
+    return;
+  }
+  if (c < c0 || c >= c0 + live) return;  // a chunk no row can see
+
+  const int k_lo = max(c * chunk, lo_b), k_hi = min((c + 1) * chunk, hi_b);
+  const int ntiles = (k_hi - k_lo + DEC_TK - 1) / DEC_TK;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bkv) * p.skv * d;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bkv) * p.skv * d;
+  // tile i: keys [k_lo + 64 i, ...), rows of D values, contiguous in the cache
+  auto fetch = [&](int i) {
+    const int key0 = k_lo + i * DEC_TK;
+    const unsigned bytes = static_cast<unsigned>(min(DEC_TK, k_hi - key0) * d * 2);
+    unsigned char* st = dec_smem + (i % DEC_STAGES) * DEC_STAGE_BYTES;
+    uint64_t* bar = &full[i % DEC_STAGES];
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(st, kb + static_cast<size_t>(key0) * d, bytes, bar);
+    bulk_load(st + DEC_TILE_BYTES, vb + static_cast<size_t>(key0) * d, bytes, bar);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < DEC_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int i = 0; i < min(DEC_STAGES, ntiles); ++i) fetch(i);
+  }
+  // q rows in fp32, zero past D and for the rows past the group
+  for (int i = tid; i < G * DEC_DP; i += DEC_THREADS) {
+    const int r = i / DEC_DP, col = i % DEC_DP;
+    q_s[i] = r < group && col < d ? __bfloat162float(q[(row0 + r) * d + col]) : 0.f;
+  }
+  for (int r = group + tid; r < G; r += DEC_THREADS) {
+    lo_s[r] = 1;
+    hi_s[r] = 0;
+  }
+  __syncthreads();
+
+  // each warp's running state over its keys: m, l for every row (the same in
+  // every lane), and the accumulator's columns 4 lane .. 4 lane + 3
+  float m[G], l[G], acc[G][4];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  }
+  const int g8 = lane / 8, t8 = lane % 8;  // scoring: 8 lanes a key, 16 columns a lane
+  const int col = 4 * lane;                // P.V: 4 columns a lane
+  float* scw = sc + warp * DEC_KW * G;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % DEC_STAGES;
+    mbar_wait(&full[s], (i / DEC_STAGES) & 1);
+    const __nv_bfloat16* ks =
+        reinterpret_cast<const __nv_bfloat16*>(dec_smem + s * DEC_STAGE_BYTES);
+    const __nv_bfloat16* vs = ks + DEC_TILE_BYTES / 2;
+    const int key0 = k_lo + i * DEC_TK;
+    const int nk = min(DEC_TK, k_hi - key0);
+
+    // scores of the warp's 16 keys, 4 rows at a time: lanes 8 g .. 8 g + 7
+    // take key 4 it + g, each over columns 8 t .. 8 t + 7 and 64 + 8 t ..,
+    // and sum over the 8 lanes
+#pragma unroll
+    for (int rp = 0; rp < G; rp += 4) {
+      float qv[4][16];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* src =
+              reinterpret_cast<const float4*>(q_s + (rp + rr) * DEC_DP + 8 * t8 + 64 * h);
+          const float4 a = src[0], b = src[1];
+          qv[rr][8 * h + 0] = a.x;
+          qv[rr][8 * h + 1] = a.y;
+          qv[rr][8 * h + 2] = a.z;
+          qv[rr][8 * h + 3] = a.w;
+          qv[rr][8 * h + 4] = b.x;
+          qv[rr][8 * h + 5] = b.y;
+          qv[rr][8 * h + 6] = b.z;
+          qv[rr][8 * h + 7] = b.w;
+        }
+#pragma unroll
+      for (int it = 0; it < DEC_KW / 4; ++it) {
+        const int kl = warp * DEC_KW + 4 * it + g8;  // key within the tile
+        float sr[4] = {0.f, 0.f, 0.f, 0.f};
+        if (kl < nk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c8 = 8 * t8 + 64 * h;
+            if (c8 < d) {
+              float kf[8];
+              bf16x8_to_f32(*reinterpret_cast<const uint4*>(ks + kl * d + c8), kf);
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+#pragma unroll
+                for (int rr = 0; rr < 4; ++rr) sr[rr] = fmaf(qv[rr][8 * h + e], kf[e], sr[rr]);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) sr[rr] += __shfl_xor_sync(0xffffffffu, sr[rr], o);
+        if (t8 < 4) {  // lane t of the 8 stores row rp + t's score
+          const int r = rp + t8;
+          const float mine = t8 == 0 ? sr[0] : t8 == 1 ? sr[1] : t8 == 2 ? sr[2] : sr[3];
+          const int key = key0 + kl;
+          const bool vis = kl < nk && key >= lo_s[r] && key < hi_s[r];
+          scw[(4 * it + g8) * G + r] = vis ? mine * p.scale : NEG_INF;
+        }
+      }
+    }
+    __syncwarp();
+
+    // online softmax over the warp's DEC_KW keys: lane j takes key
+    // j % DEC_KW for every row; P rounded to bf16 replaces the score
+    const int j = lane % DEC_KW;
+    float alpha[G];
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const float sv = scw[j * G + r];
+      float mx = sv;
+#pragma unroll
+      for (int o = DEC_KW / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = __expf(m[r] - m_new);  // 1 while the row has seen no key (l, acc are 0)
+      const float pr = sv == NEG_INF ? 0.f : __expf(sv - m_new);
+      float ps = pr;
+#pragma unroll
+      for (int o = DEC_KW / 2; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l[r] = alpha[r] * l[r] + ps;
+      m[r] = m_new;
+      if (lane < DEC_KW) scw[j * G + r] = __bfloat162float(__float2bfloat16(pr));  // P in v's type
+    }
+    __syncwarp();
+
+    // O = alpha O + P.V over the warp's keys that are in the tile
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] *= alpha[r];
+    const int nkw = min(DEC_KW, nk - warp * DEC_KW);
+    if (col < d) {
+      for (int jj = 0; jj < nkw; ++jj) {
+        const uint2 raw =
+            *reinterpret_cast<const uint2*>(vs + (warp * DEC_KW + jj) * d + col);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 v01 = __bfloat1622float2(h[0]), v23 = __bfloat1622float2(h[1]);
+#pragma unroll
+        for (int r = 0; r < G; r += 4) {
+          const float4 pr = *reinterpret_cast<const float4*>(scw + jj * G + r);
+          const float pj[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            acc[r + rr][0] = fmaf(pj[rr], v01.x, acc[r + rr][0]);
+            acc[r + rr][1] = fmaf(pj[rr], v01.y, acc[r + rr][1]);
+            acc[r + rr][2] = fmaf(pj[rr], v23.x, acc[r + rr][2]);
+            acc[r + rr][3] = fmaf(pj[rr], v23.y, acc[r + rr][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + DEC_STAGES < ntiles) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fetch(i + DEC_STAGES);
+    }
+  }
+
+  // the block's state: the warps' merged in warp order
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      m_s[warp * G + r] = m[r];
+      l_s[warp * G + r] = l[r];
+    }
+  __syncthreads();
+  float mb[G], lb[G];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    mb[r] = NEG_INF;
+    for (int w = 0; w < DEC_WARPS; ++w) mb[r] = fmaxf(mb[r], m_s[w * G + r]);
+    lb[r] = 0.f;
+    for (int w = 0; w < DEC_WARPS; ++w) lb[r] += l_s[w * G + r] * __expf(m_s[w * G + r] - mb[r]);
+  }
+  float* acc_s = q_s;  // [G][DP]; q is not read again
+  for (int w = 0; w < DEC_WARPS; ++w) {
+    if (warp == w && col < d)
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        const float f = __expf(m[r] - mb[r]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc_s[r * DEC_DP + col + e] = (w == 0 ? 0.f : acc_s[r * DEC_DP + col + e]) + acc[r][e] * f;
+      }
+    __syncthreads();
+  }
+
+  if (live == 1) {  // the only live chunk: no partials
+    for (int i = tid; i < group * d; i += DEC_THREADS) {
+      const int r = i / d, cc = i % d;
+      float lr = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < G; ++rr)
+        if (rr == r) lr = lb[rr];
+      out[(row0 + r) * d + cc] = __float2bfloat16(acc_s[r * DEC_DP + cc] / (lr == 0.f ? 1.f : lr));
+    }
+    return;
+  }
+
+  // this chunk's partial to the workspace; the last live chunk to arrive
+  // merges them all in chunk order
+  const size_t per_chunk = static_cast<size_t>(G) * (2 + DEC_DP);
+  float* part = ws + (static_cast<size_t>(bkv) * gridDim.x + c) * per_chunk;
+  if (tid < G) {
+#pragma unroll
+    for (int rr = 0; rr < G; ++rr)
+      if (rr == tid) {
+        part[2 * rr] = mb[rr];
+        part[2 * rr + 1] = lb[rr];
+      }
+  }
+  for (int i = tid; i < G * DEC_DP; i += DEC_THREADS) part[2 * G + i] = acc_s[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&cnt[bkv], 1) == live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // every live chunk's factor exp(m_x - M) per row (at most DEC_MAX_CHUNKS:
+  // sc holds that many rows of G floats), then l and the accumulator summed in chunk order,
+  // whichever block arrived last
+  const float* first = ws + (static_cast<size_t>(bkv) * gridDim.x + c0) * per_chunk;
+  float* fx = sc;      // [chunk][G]
+  float* mt = m_s;     // [G]: M, then L
+  for (int i = tid; i < live * G; i += DEC_THREADS)
+    fx[i] = __ldcg(first + (i / G) * per_chunk + 2 * (i % G));
+  __syncthreads();
+  if (tid < G) {
+    float mx = NEG_INF;
+    for (int x = 0; x < live; ++x) mx = fmaxf(mx, fx[x * G + tid]);
+    mt[tid] = mx;
+  }
+  __syncthreads();
+  for (int i = tid; i < live * G; i += DEC_THREADS) fx[i] = __expf(fx[i] - mt[i % G]);
+  __syncthreads();
+  if (tid < G) {
+    float lt = 0.f;
+#pragma unroll 8
+    for (int x = 0; x < live; ++x) lt += __ldcg(first + x * per_chunk + 2 * tid + 1) * fx[x * G + tid];
+    l_s[tid] = lt;
+  }
+  __syncthreads();
+  for (int i = tid; i < group * d / 4; i += DEC_THREADS) {  // 4 columns a thread
+    const int r = 4 * i / d, cc = 4 * i % d;
+    float4 at = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int x = 0; x < live; ++x) {
+      const float4 a =
+          __ldcg(reinterpret_cast<const float4*>(first + x * per_chunk + 2 * G + r * DEC_DP + cc));
+      const float f = fx[x * G + r];
+      at.x += a.x * f;
+      at.y += a.y * f;
+      at.z += a.z * f;
+      at.w += a.w * f;
+    }
+    const float lt = l_s[r] == 0.f ? 1.f : l_s[r];
+    __nv_bfloat162 o2[2] = {__floats2bfloat162_rn(at.x / lt, at.y / lt),
+                            __floats2bfloat162_rn(at.z / lt, at.w / lt)};
+    *reinterpret_cast<uint2*>(out + (row0 + r) * d + cc) = *reinterpret_cast<const uint2*>(o2);
+  }
+  if (tid == 0) cnt[bkv] = 0;  // ready for the next launch on this stream
+}
+
+template <int G>
+int launch_decode_g(const void* q, const void* k, const void* v, void* out, const Params& p,
+                    int chunk, float* ws, int* cnt, cudaStream_t stream) {
+  constexpr int bytes = dec_smem_bytes<G>();
+  static bool configured = false;  // above 48 KB only after this attribute is set
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(p.skv > 0 ? (p.skv + chunk - 1) / chunk : 1, p.bhkv);
+  flash_decode_kernel<G><<<grid, DEC_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), p, chunk, ws, cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_decode(const void* q, const void* k, const void* v, void* out, const Params& p,
+               int chunk, float* ws, int* cnt, void* stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+                           16 == 0;
+  if (p.d < 8 || p.d > DEC_DP || p.d % 8 != 0 || !aligned || p.bhkv < 1 || p.bhkv > 65535 ||
+      p.bhq % p.bhkv != 0 || p.bhq / p.bhkv > 16 || p.skv < 0 || chunk < DEC_TK ||
+      chunk % DEC_TK != 0 || (p.skv + chunk - 1) / chunk > DEC_MAX_CHUNKS || ws == nullptr ||
+      cnt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int group = p.bhq / p.bhkv;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (group <= 4) return launch_decode_g<4>(q, k, v, out, p, chunk, ws, cnt, s);
+  if (group <= 8) return launch_decode_g<8>(q, k, v, out, p, chunk, ws, cnt, s);
+  return launch_decode_g<16>(q, k, v, out, p, chunk, ws, cnt, s);
+}
+
 }  // namespace
 
 extern "C" int repro_flash_f32(const void* q, const void* k, const void* v, void* out,
@@ -701,4 +1166,17 @@ extern "C" int repro_flash_mma_bf16(const void* q, const void* k, const void* v,
                                     void* stream) {
   const Params p{offs, off0, bhq, bhkv, sq, skv, d, causal, has_window, window, scale};
   return run_mma(q, k, v, out, p, stream);
+}
+
+// q (BHq, 1, D), k and v (BHkv, Skv, D) bf16 with D % 8 == 0, D <= 128, BHq / BHkv <= 16
+// and 16-byte aligned pointers; chunk keys per block (a multiple of 64); ws and cnt as
+// kernels/flash_attention.py allocates them (decode_workspace, arrival_counters).
+extern "C" int repro_flash_decode_bf16(const void* q, const void* k, const void* v, void* out,
+                                       const int* offs, int off0, int bhq, int bhkv, int skv,
+                                       int d, int causal, int has_window, int window,
+                                       float scale, int chunk, void* ws, void* cnt,
+                                       void* stream) {
+  const Params p{offs, off0, bhq, bhkv, 1, skv, d, causal, has_window, window, scale};
+  return run_decode(q, k, v, out, p, chunk, static_cast<float*>(ws), static_cast<int*>(cnt),
+                    stream);
 }

@@ -10,7 +10,7 @@
 // those bytes, 0.28 ms at 3.35 TB/s; a 2048-token prefill bucket (C = 640) does
 // 601 GFLOP, 0.61 ms at 989 TFLOP/s bf16, and is bound by operations.
 //
-// Two kernels compute it in bf16; kernels/moe_gmm.py::choose_kernel picks one
+// Three kernels compute it in bf16; kernels/moe_gmm.py::choose_kernel picks one
 // before launch from the dtype, C, D, F and the pointers' alignment.
 //
 // moe_gmm_wgmma_kernel (prefill, operation bound): Hopper's warpgroup MMA fed
@@ -31,8 +31,33 @@
 // cudaGetDriverEntryPoint (no -lcuda).  It takes D % 8 == 0, F % 8 == 0 and
 // 16-byte aligned pointers (TMA's strides and addresses).
 //
-// moe_gmm_bf16_kernel (decode, byte bound, and whatever the first does not
-// take): tensor-core fragments, mma.sync.aligned.m16n8k16 with fp32
+// moe_gmm_decode_kernel (decode, C < 32: bound by the expert weights' bytes,
+// 99.9% of what it moves).  moe_gmm_bf16_kernel gave C = 16 a 32-row tile
+// whose second warp row computed padding, kept two 8 KB slices in flight per
+// block, and ran gate/up in 1.7 waves; it lost to torch.bmm.  Here:
+// * A block owns one or two m16 row tiles (C <= 16 or <= 32) and a 256-column
+//   tile of one expert; each of its 8 consumer warps owns 32 distinct columns
+//   (mma.sync m16n8k16, fp32 accumulators), so no warp works on padding.
+// * One producer warp streams the 64-deep D slices by TMA, with the rank-3
+//   tensor maps of moe_gmm_wgmma_kernel: x's 16-row slice and four 64-column
+//   boxes of w (32 KB of weights, rows of 512 contiguous bytes) per stage,
+//   128-byte swizzled, into a 4-stage ring behind full/empty mbarriers, so
+//   up to 128 KB of weights are in flight an SM while the consumers work.
+//   The consumers read A and B fragments by ldmatrix from the swizzled
+//   tiles; TMA zero-fills rows past C, columns past F and D past its end.
+//   On an H100 the same tiles fed by a cp.async ring (two blocks an SM) lost
+//   to the wgmma kernel at gate/up; fed this way they beat it (PERF.md).
+// * The grid is (F tiles, E), tiles fastest, so the blocks in flight read
+//   neighbouring columns of the same weight rows.  Each block walks all of
+//   D, so the sum order is fixed and results are bit-identical run to run.
+//   D is not split across blocks: at Mixtral's decode shapes (448 and 128
+//   tiles on 132 SMs) a split into fp32 partials measured slower than one
+//   range (PERF.md).
+// It takes bf16 with C <= 32, D % 8 == 0, F % 8 == 0 and 16-byte aligned
+// pointers.
+//
+// moe_gmm_bf16_kernel (whatever the other two do not take: D or F not a
+// multiple of 8, an unaligned view): tensor-core fragments, mma.sync.aligned.m16n8k16 with fp32
 // accumulators.  The expert is the grid's outer (z) axis; a block owns a
 // (32 * MT) x 128 output tile of one expert and 8 warps (2 along C, 4 along F),
 // each warp (16 * MT) x 32.  The TPU kernel's sequential D grid axis becomes a
@@ -527,6 +552,175 @@ int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// moe_gmm_decode_kernel: small C, the expert weights streamed (decode)
+// ---------------------------------------------------------------------------
+namespace dec {
+
+constexpr int BN = 256;           // output columns (F) per block: four 64-column boxes of w
+constexpr int BK = 64;            // D slice per stage: one 128-byte swizzle row of bf16
+constexpr int STAGES = 4;         // TMA ring depth
+constexpr int CONSUMERS = 256;    // 8 warps, 32 columns each
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int BOX_BYTES = BK * 64 * 2;   // 8 KB: one 64-column box of w's slice
+constexpr int B_BYTES = (BN / 64) * BOX_BYTES;
+
+template <int MT>
+__host__ __device__ constexpr int a_bytes() {  // x's slice: 16 MT rows of 128 bytes
+  return 16 * MT * BK * 2;
+}
+template <int MT>
+__host__ __device__ constexpr int stage_bytes() {
+  return a_bytes<MT>() + B_BYTES;
+}
+template <int MT>
+constexpr int smem_bytes() {  // the ring, its barriers, and room to align it on 1024
+  return STAGES * stage_bytes<MT>() + 2 * STAGES * 8 + 1024;
+}
+
+// Byte offset of 16-byte chunk j of row r in a tile of 128-byte rows stored
+// with the 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B): the chunk
+// index is XORed with the row's index within its 8-row group.
+__device__ __forceinline__ unsigned swz(int r, int j) {
+  return static_cast<unsigned>(r * 128 + ((j ^ (r % 8)) << 4));
+}
+
+// grid (F tiles, E): expert blockIdx.y, columns blockIdx.x * BN .., all of D.
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_decode_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
+                      int c, int d, int f) {
+  constexpr int A_BYTES = a_bytes<MT>(), STAGE_BYTES = stage_bytes<MT>();
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: stage buffers start on 1024
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int e = blockIdx.y, col0 = blockIdx.x * BN;
+  const int n = (d + BK - 1) / BK;  // D's slices
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);                // the producer's arrive, plus the bytes
+      wg::mbar_init(&empty[s], CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread starts every copy
+    if (threadIdx.x == CONSUMERS) {
+      const int boxes = min(BN / 64, (f - col0 + 63) / 64);  // boxes wholly past F are not loaded
+      const unsigned bytes = A_BYTES + boxes * BOX_BYTES;
+      for (int kt = 0; kt < n; ++kt) {
+        const int s = kt % STAGES;
+        wg::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);  // the first round passes at once
+        unsigned char* st = smem + s * STAGE_BYTES;
+        const int k0 = kt * BK;
+        wg::mbar_expect_tx(&full[s], bytes);
+        wg::tma_load(st, &xmap, &full[s], k0, 0, e);
+        for (int j = 0; j < boxes; ++j)
+          wg::tma_load(st + A_BYTES + j * BOX_BYTES, &wmap, &full[s], col0 + 64 * j, k0, e);
+      }
+    }
+    return;
+  }
+
+  // consumers: warp w owns columns col0 + 32 w .. + 31, in box w / 2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[MT][4][4];  // [m16 tile][n8 tile of the warp's 32 columns][fragment]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+
+  for (int kt = 0; kt < n; ++kt) {
+    const int s = kt % STAGES;
+    wg::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* a_st = smem + s * STAGE_BYTES;
+    const unsigned char* b_st = a_st + A_BYTES + (warp / 2) * BOX_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = i * 16 + lane % 16;
+        ldmatrix_x4(a[i], a_st + swz(r, 2 * kk + lane / 16));
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        unsigned b[4];  // {b0, b1} of n8 tiles 2 p and 2 p + 1 of the warp's columns
+        const int kr = 16 * kk + lane % 8 + ((lane / 8) % 2) * 8;
+        ldmatrix_x4_trans(b, b_st + swz(kr, (warp % 2) * 4 + p * 2 + lane / 16));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * p], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+
+  // fragment element t of (i, j): row 16 i + lane / 4 (+ 8 for t >= 2),
+  // columns 2 (lane % 4) + {0, 1} of n8 tile j
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * c * f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = i * 16 + lane / 4 + h * 8;
+        const int col = col0 + warp * 32 + j * 8 + (lane % 4) * 2;
+        if (row < c && col < f)  // F % 8 == 0: a pair is in or out whole
+          *reinterpret_cast<__nv_bfloat162*>(oe + static_cast<size_t>(row) * f + col) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
+template <int MT>
+int launch_mt(const void* x, const void* w, void* out, int e, int c, int d, int f,
+              cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  int err = wg::make_map(&xmap, x, e, c, d, 16 * MT);
+  if (err == 0) err = wg::make_map(&wmap, w, e, d, f, BK);
+  if (err != 0) return err;
+  constexpr int bytes = smem_bytes<MT>();
+  static bool configured = false;  // above 48 KB only after this attribute is set
+  if (!configured) {
+    const cudaError_t e2 = cudaFuncSetAttribute(
+        moe_gmm_decode_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    configured = true;
+  }
+  const dim3 grid((f + BN - 1) / BN, e);
+  moe_gmm_decode_kernel<MT><<<grid, THREADS, bytes, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
+           cudaStream_t stream) {
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (c < 1 || c > 32 || d < 8 || d % 8 != 0 || f < 8 || f % 8 != 0 || !aligned || e < 1 ||
+      e > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return c <= 16 ? launch_mt<1>(x, w, out, e, c, d, f, stream)
+                 : launch_mt<2>(x, w, out, e, c, d, f, stream);
+}
+
+}  // namespace dec
+
 extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e, int c, int d,
                                   int f, int vec, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -538,4 +732,10 @@ extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e
 extern "C" int repro_moe_gmm_wgmma_bf16(const void* x, const void* w, void* out, int e, int c,
                                         int d, int f, void* stream) {
   return wg::launch(x, w, out, e, c, d, f, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 with C <= 32, D % 8 == 0, F % 8 == 0 and 16-byte aligned x, w, out.
+extern "C" int repro_moe_gmm_decode_bf16(const void* x, const void* w, void* out, int e, int c,
+                                         int d, int f, void* stream) {
+  return dec::launch(x, w, out, e, c, d, f, static_cast<cudaStream_t>(stream));
 }

@@ -9,12 +9,15 @@ sliding window, an online softmax in fp32.  Two kernels in
 * ``"mma"`` — ``flash_mma_kernel``, bf16 on the tensor cores (``mma.sync``
   m16n8k16, a ``cp.async`` K/V ring), 128 q positions of one head per block:
   the bucketed prefill and ``forward``;
+* ``"decode"`` — ``flash_decode_kernel``, bf16 with ``Sq == 1``: the KV
+  range split across blocks (a block owns one KV head's GQA rows and one
+  chunk of keys, streamed by TMA bulk copies), the chunks' softmax states
+  merged in chunk order by the last block to arrive;
 * ``"simt"`` — ``flash_kernel``, on the CUDA cores, 4 q rows per block, any
-  ``D <= 256``, fp32 or bf16: decode (``Sq == 1``) and whatever the first
-  does not take.
+  ``D <= 256``, fp32 or bf16: whatever the other two do not take.
 
-``choose_kernel`` picks one from the dtype, ``Sq``, ``D`` and the pointers'
-alignment alone, before any launch.
+``choose_kernel`` picks one from the dtype, ``Sq``, ``D``, the GQA group and
+the pointers' alignment alone, before any launch.
 
 ``q_offset`` is an int, or an int tensor of one offset per group of q rows
 (one per slot on the serving path: ``n`` entries with ``BHq % n == 0``),
@@ -35,16 +38,20 @@ import torch
 
 from . import ref
 from .build import cuda_library
-from .runtime import on_device, raw_stream, sm_count
+from .runtime import arrival_counters, on_device, raw_stream, sm_count
 
 LAUNCHES = {"flash_attention": 0}
-PATHS = {"mma": 0, "simt": 0}
+PATHS = {"mma": 0, "decode": 0, "simt": 0}
 PLAIN = {"flash_attention": 0}
 
 _SIMT_ENTRIES = {torch.float32: "repro_flash_f32", torch.bfloat16: "repro_flash_bf16"}
 MAX_HEAD = 256      # csrc/flash_attention.cu: DMAX (flash_kernel)
 MMA_MAX_HEAD = 128  # flash_mma_kernel: D padded to 128 in shared memory
 ROWS_PER_BLOCK = 4  # csrc/flash_attention.cu: R (flash_kernel)
+DECODE_MAX_GROUP = 16  # flash_decode_kernel: q rows of one KV head per block
+DECODE_TILE = 64       # flash_decode_kernel: keys per K/V tile (DEC_TK)
+DECODE_MAX_CHUNKS = 64  # and most chunks per KV head (DEC_MAX_CHUNKS)
+DECODE_CHUNK = 256      # keys per decode block (decode_chunk)
 
 
 def expand_offsets(q_offset, bhq: int, device) -> int | torch.Tensor:
@@ -61,9 +68,10 @@ def expand_offsets(q_offset, bhq: int, device) -> int | torch.Tensor:
     return off if n == bhq else off.repeat_interleave(bhq // n)
 
 
-def choose_kernel(dtype: torch.dtype, sq: int, d: int, aligned: bool) -> str:
-    """``"mma"`` or ``"simt"`` for attention of this dtype, q length and head
-    size; ``aligned``: q, k and v start on 16 bytes.
+def choose_kernel(dtype: torch.dtype, sq: int, d: int, aligned: bool, group: int = 1) -> str:
+    """``"mma"``, ``"decode"`` or ``"simt"`` for attention of this dtype, q
+    length, head size and GQA group (q heads per KV head); ``aligned``: q, k
+    and v start on 16 bytes.
 
     The tensor-core kernel takes bf16 with ``Sq > 1``, ``D <= 128``,
     ``D % 8 == 0`` and aligned pointers: rows of ``D`` bf16 values then start
@@ -71,14 +79,44 @@ def choose_kernel(dtype: torch.dtype, sq: int, d: int, aligned: bool) -> str:
     shared memory.  Timed on an H100 at Danube's heads over a 4096-position
     cache (chip_smoke.py phase 3, PERF.md), it was the faster kernel at every
     Sq from 2 to 64, the engine's 16- and 32-token buckets included.
-    Everything else goes to the SIMT kernel: decode (``Sq == 1``, where it
-    splits one q row's KV walk over 16 warps and holds the step level with
-    SDPA), fp32, ``D > 128`` or ``D % 8 != 0``, unaligned views.  No main-path
-    shape falls there except decode: the dense and MoE configs' heads are
-    64-128 wide (Danube 120, Mixtral 128), and the model stack hands K5 fresh
+    A decode step (``Sq == 1``) under the same conditions, with a group of
+    at most 16, goes to the split-KV decode kernel: on that H100 (two runs
+    of chip_smoke.py in one call) it took 0.044 ms of device time a call at
+    Danube's 8 slots over a 4096-position cache against the SIMT kernel's
+    0.178 and SDPA's 0.199-0.200 (a CUDA graph of 20 calls), and a Danube
+    decode step from 7.75 to 6.17-6.21 device ms (``decode_step_ab``).
+    Everything else goes to the SIMT kernel: fp32, ``D > 128`` or
+    ``D % 8 != 0``, a group above 16, unaligned views.  No main-path shape
+    falls there: the dense and MoE configs' heads are 64-128 wide (Danube
+    120, Mixtral 128) with groups of 4, and the model stack hands K5 fresh
     tensors or views of whole cache rows, all aligned.
     """
-    return "mma" if sq > 1 and _mma_takes(dtype, d, aligned) else "simt"
+    if not _mma_takes(dtype, d, aligned):
+        return "simt"
+    if sq > 1:
+        return "mma"
+    return "decode" if group <= DECODE_MAX_GROUP else "simt"
+
+
+def decode_chunk(skv: int) -> int:
+    """Keys per block of the decode kernel over a cache of ``skv``
+    positions: ``DECODE_CHUNK``, or the fewest keys (a multiple of the
+    64-key tile) that keep a KV head to ``DECODE_MAX_CHUNKS`` chunks.  Pure,
+    decided before launch: the live chunks depend on the offsets, which stay
+    on the device.
+
+    256 keys give a 4096-position cache 16 chunks a KV head: 1,024 blocks
+    at Danube's 8 slots and 2,048 at Mixtral's 16, a few waves at three
+    blocks an SM.  Smaller chunks pay each block's fixed costs (its
+    prologue and a merge input) more often; larger ones leave too few
+    blocks when the slots are short."""
+    fit = -(-skv // (DECODE_MAX_CHUNKS * DECODE_TILE)) * DECODE_TILE
+    return max(DECODE_CHUNK, fit)
+
+
+def decode_rows(group: int) -> int:
+    """q rows a decode block holds: the GQA group padded to 4, 8 or 16."""
+    return 4 if group <= 4 else 8 if group <= 8 else 16
 
 
 def _mma_takes(dtype: torch.dtype, d: int, aligned: bool) -> bool:
@@ -91,6 +129,10 @@ def _entry(kernel: str, dtype: torch.dtype):
         fn = cuda_library("flash_attention").repro_flash_mma_bf16
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
+    elif kernel == "decode":  # no Sq; the chunk, the workspace and the counters
+        fn = cuda_library("flash_attention").repro_flash_decode_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3)
     else:  # the SIMT entries also take the number of warps
         fn = getattr(cuda_library("flash_attention"), _SIMT_ENTRIES[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
@@ -127,12 +169,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return _launch(None, q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
-def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0):
-    """Launch the named kernel (``"mma"`` or ``"simt"``; ``None``:
-    ``choose_kernel``'s pick) on CUDA tensors, or raise if it does not take
-    them.  ``flash_attention`` goes through here with ``None``; the card tests
-    and ``chip_smoke.py`` name a kernel to hold each against the plain
-    version."""
+def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0,
+            chunk: int | None = None):
+    """Launch the named kernel (``"mma"``, ``"decode"`` or ``"simt"``;
+    ``None``: ``choose_kernel``'s pick) on CUDA tensors, or raise if it does
+    not take them.  ``flash_attention`` goes through here with ``None``; the
+    card tests and ``chip_smoke.py`` name a kernel to hold each against the
+    plain version, and may name the decode kernel's ``chunk`` (None:
+    ``decode_chunk``'s pick)."""
     if kernel is not None and kernel not in PATHS:
         raise ValueError(f"flash_attention: no kernel {kernel!r}")
     _check(q, k, v)
@@ -145,19 +189,34 @@ def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     aligned = _aligned(q, k, v)
+    group = bhq // bhkv
     if kernel is None:
-        kernel = choose_kernel(q.dtype, sq, d, aligned)
-    elif kernel == "mma" and not _mma_takes(q.dtype, d, aligned):
-        raise ValueError(f"flash_attention: the mma kernel takes bf16, D <= {MMA_MAX_HEAD}, "
+        kernel = choose_kernel(q.dtype, sq, d, aligned, group)
+    elif kernel in ("mma", "decode") and not _mma_takes(q.dtype, d, aligned):
+        raise ValueError(f"flash_attention: the {kernel} kernel takes bf16, D <= {MMA_MAX_HEAD}, "
                          f"D % 8 == 0 and 16-byte aligned tensors, not {q.dtype}, D = {d}")
+    elif kernel == "decode" and (sq != 1 or group > DECODE_MAX_GROUP):
+        raise ValueError(f"flash_attention: the decode kernel takes Sq == 1 and a group of at "
+                         f"most {DECODE_MAX_GROUP}, not Sq = {sq}, group = {group}")
     off = expand_offsets(q_offset, bhq, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     offs_ptr, off0 = (off.data_ptr(), 0) if isinstance(off, torch.Tensor) else (None, off)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), offs_ptr, off0,
-            bhq, bhkv, sq, skv, d, int(bool(causal)), int(window is not None),
-            int(window or 0), float(1.0 / d ** 0.5)]
+    shape = [bhq, bhkv] + ([skv] if kernel == "decode" else [sq, skv])  # decode: Sq is 1
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), offs_ptr, off0, *shape,
+            d, int(bool(causal)), int(window is not None), int(window or 0),
+            float(1.0 / d ** 0.5)]
+    ws = None  # held until the launch is queued
+    if kernel == "decode":
+        if chunk is None:
+            chunk = decode_chunk(skv)
+        if chunk < DECODE_TILE or chunk % DECODE_TILE or -(-skv // chunk) > DECODE_MAX_CHUNKS:
+            raise ValueError(f"flash_attention: decode chunk {chunk} for {skv} keys")
+        # per (KV head, chunk): (m, l) and the accumulator of each row, fp32
+        ws = torch.empty(max(1, -(-skv // chunk)) * bhkv * decode_rows(group) * (2 + MMA_MAX_HEAD),
+                         dtype=torch.float32, device=q.device)
+        args += [chunk, ws.data_ptr(), arrival_counters(q.device, bhkv).data_ptr()]
     if kernel == "simt":
         # few blocks (decode: one per slot and KV head) get 16 warps each to
         # split the KV walk; many blocks get 4

@@ -2,15 +2,20 @@
 
 Port of ``repro/kernels/moe_gmm.py::grouped_matmul`` (the Pallas TPU kernel).
 ``out[e] = x[e] @ w[e]`` for x ``(E, C, D)`` and w ``(E, D, F)``, an fp32
-accumulator over D, the output in x's type.  Three kernels compute it:
+accumulator over D, the output in x's type.  Four kernels compute it:
 
 * ``"wgmma"`` — ``moe_gmm_wgmma_kernel`` in ``repro_torch/csrc/moe_gmm.cu``,
   bf16 on Hopper's warpgroup MMA fed by TMA, 128 x 256 output tiles: the
   prefill buckets, bound by operations;
+* ``"decode"`` — ``moe_gmm_decode_kernel`` in the same file, bf16 with
+  ``C < WGMMA_MIN_C``: one or two m16 row tiles, every warp on its own 32
+  columns of a 256-column tile, the expert weights streamed by TMA through
+  a 4-stage ring of 64-deep slices, each block over all of D: the decode
+  step, bound by the weights' bytes;
 * ``"mma"`` — ``moe_gmm_bf16_kernel`` in the same file, bf16 on ``mma.sync``
-  m16n8k16 fragments with a ``cp.async`` ring, tiles as tall as C needs: the
-  decode step, bound by the weights' bytes, and any bf16 shape the first does
-  not take;
+  m16n8k16 fragments with a ``cp.async`` ring, tiles as tall as C needs: any
+  bf16 shape the other two do not take (D or F not a multiple of 8, an
+  unaligned view);
 * ``"gemm"`` — float32 on K1's 3xTF32 tensor-core kernel (``csrc/gemm.cu``,
   ``gemm.launch_f32``) with the expert as its batch axis.
 
@@ -20,7 +25,7 @@ kernels, so no padded copy is made (the reference pads to its block sizes).
 
 ``grouped_matmul`` launches a kernel for CUDA tensors and takes
 ``kernels.ref.grouped_matmul`` for CPU tensors only.  ``LAUNCHES`` counts
-kernel launches (all three), ``PATHS`` the launches of each, and ``PLAIN``
+kernel launches (all four), ``PATHS`` the launches of each, and ``PLAIN``
 the plain-version runs.
 """
 from __future__ import annotations
@@ -35,44 +40,47 @@ from .build import cuda_library
 from .runtime import on_device, raw_stream
 
 LAUNCHES = {"grouped_matmul": 0}
-PATHS = {"wgmma": 0, "mma": 0, "gemm": 0}
+PATHS = {"wgmma": 0, "decode": 0, "mma": 0, "gemm": 0}
 PLAIN = {"grouped_matmul": 0}
 
 # kernel -> (library, entry point, int arguments)
-_ENTRIES = {"wgmma": ("moe_gmm", "repro_moe_gmm_wgmma_bf16", 4),  # e, c, d, f
-            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5)}           # e, c, d, f, vec
-_DTYPES = {"wgmma": torch.bfloat16, "mma": torch.bfloat16, "gemm": torch.float32}
+_ENTRIES = {"wgmma": ("moe_gmm", "repro_moe_gmm_wgmma_bf16", 4),    # e, c, d, f
+            "decode": ("moe_gmm", "repro_moe_gmm_decode_bf16", 4),  # e, c, d, f
+            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5)}             # e, c, d, f, vec
+_DTYPES = {"wgmma": torch.bfloat16, "decode": torch.bfloat16, "mma": torch.bfloat16,
+           "gemm": torch.float32}
 
-# The wgmma kernel takes C from here up (see choose_kernel).
+# The wgmma kernel takes C from here up, the decode kernel below (see choose_kernel).
 WGMMA_MIN_C = 32
 
 
 def choose_kernel(dtype: torch.dtype, c: int, d: int, f: int, aligned: bool) -> str:
-    """``"wgmma"``, ``"mma"`` or ``"gemm"`` for a grouped matmul of this
-    dtype and shape; ``aligned``: x and w start on 16 bytes.
+    """``"wgmma"``, ``"decode"``, ``"mma"`` or ``"gemm"`` for a grouped
+    matmul of this dtype and shape; ``aligned``: x and w start on 16 bytes.
 
-    float32 takes ``"gemm"``.  bf16 takes the wgmma/TMA kernel when
-    ``D % 8 == 0``, ``F % 8 == 0`` and both pointers are aligned (TMA needs
-    16-byte row strides and addresses) and ``C >= WGMMA_MIN_C``; everything
-    else takes the ``mma.sync`` kernel.
+    float32 takes ``"gemm"``.  bf16 with ``D % 8 == 0``, ``F % 8 == 0`` and
+    both pointers aligned (TMA's 16-byte row strides and addresses) takes
+    the wgmma kernel when ``C >= WGMMA_MIN_C`` and the decode kernel below
+    it, both fed by TMA; everything else takes the ``mma.sync`` kernel.
 
-    The threshold comes from chip_smoke.py's sweep of both kernels over C in
-    {16, 40, 80, 160, 320, 640} at Mixtral 8x7B's gate/up and down widths,
-    five full runs on an H100 80GB HBM3 at 700 W (PERF.md section 6).  From
-    C = 40, the 128-token bucket, the wgmma kernel was faster at both widths
-    in every run: 0.340-0.369 against 0.419-0.442 ms gate/up and 0.332-0.400
-    against 0.380-0.428 down at C = 40, 0.893-0.952 against 2.656-2.770 and
-    0.816-0.879 against 2.511-2.788 at C = 640.  At C = 16, the 16-slot
-    decode step, it was ahead in three runs (by 5-9% gate/up, 2-3% down) and
-    mixed in two (-1% and 5% gate/up, 2% and -6% down): the step streams the
-    expert weights either way, and a 128-row wgmma tile does 8x its
-    operations.  The decode step keeps the mma kernel, whose time the step
-    was measured with, until an A/B of the step moves it (ROADMAP queue 2b),
-    so the line sits between the decode step's C and the smallest bucket's.
+    The lines come from chip_smoke.py on an H100 80GB HBM3 at 700 W
+    (PERF.md section 6).  From C = 40, the 128-token bucket, the wgmma
+    kernel has been faster than the mma kernel at both of Mixtral 8x7B's
+    widths in every recorded run (0.89-0.95 against 2.48-2.77 ms at a
+    2048-token bucket's gate/up).  Below C = 32, the decode step (C = 16)
+    and the warm-up (C = 2), the byte-bound decode kernel was the fastest
+    of the three in two runs of chip_smoke.py in one call: at C = 16
+    0.3060 device ms a call at gate/up and 0.2980-0.2987 at down (a CUDA
+    graph of 20 calls), against wgmma's 0.3172-0.3190 / 0.3105-0.3115 and
+    mma's 0.3394-0.3397 / 0.3126-0.3134; and the decode step with K6 on it
+    took 18.91-18.95 device ms against 19.52-19.57 with K6 on wgmma and
+    20.24-20.29 on mma (``decode_step_ab``).
     """
     if dtype == torch.float32:
         return "gemm"
-    return "wgmma" if c >= WGMMA_MIN_C and _wgmma_takes(dtype, d, f, aligned) else "mma"
+    if not _wgmma_takes(dtype, d, f, aligned):
+        return "mma"
+    return "wgmma" if c >= WGMMA_MIN_C else "decode"
 
 
 def _wgmma_takes(dtype: torch.dtype, d: int, f: int, aligned: bool) -> bool:
@@ -108,11 +116,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the named kernel (``"wgmma"``, ``"mma"`` or ``"gemm"``;
-    ``None``: ``choose_kernel``'s pick) on CUDA tensors, or raise if it does
-    not take them.  ``grouped_matmul`` goes through here with ``None``; the
-    card tests and ``chip_smoke.py`` name a kernel to hold each against the
-    plain version at any shape."""
+    """Launch the named kernel (``"wgmma"``, ``"decode"``, ``"mma"`` or
+    ``"gemm"``; ``None``: ``choose_kernel``'s pick) on CUDA tensors, or raise
+    if it does not take them.  ``grouped_matmul`` goes through here with
+    ``None``; the card tests and ``chip_smoke.py`` name a kernel to hold each
+    against the plain version at any shape it takes."""
     if kernel is not None and kernel not in PATHS:
         raise ValueError(f"grouped_matmul: no kernel {kernel!r}")
     _check(x, w)
@@ -128,9 +136,11 @@ def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     elif x.dtype != _DTYPES[kernel]:
         raise TypeError(f"grouped_matmul: the {kernel} kernel takes {_DTYPES[kernel]}, "
                         f"not {x.dtype}")
-    elif kernel == "wgmma" and not _wgmma_takes(x.dtype, d, f, aligned):
-        raise ValueError("grouped_matmul: the wgmma kernel takes D % 8 == 0, F % 8 == 0 and "
+    elif kernel in ("wgmma", "decode") and not _wgmma_takes(x.dtype, d, f, aligned):
+        raise ValueError(f"grouped_matmul: the {kernel} kernel takes D % 8 == 0, F % 8 == 0 and "
                          f"16-byte aligned tensors, not D = {d}, F = {f}, aligned = {aligned}")
+    elif kernel == "decode" and c > WGMMA_MIN_C:
+        raise ValueError(f"grouped_matmul: the decode kernel takes C <= {WGMMA_MIN_C}, not {c}")
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -138,7 +148,7 @@ def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
         if kernel == "gemm":  # raises on a launch error
             gemm.launch_f32(x, w, out, e, c, f, d)
         else:
-            ints = (e, c, d, f) if kernel == "wgmma" else (
+            ints = (e, c, d, f) if kernel != "mma" else (
                 e, c, d, f, int(d % 8 == 0 and f % 8 == 0 and aligned))
             err = _entry(kernel)(x.data_ptr(), w.data_ptr(), out.data_ptr(), *ints,
                                  raw_stream(x.device))

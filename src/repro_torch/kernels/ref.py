@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30  # the kernels' masked score (csrc/flash_attention.cu)
+
 
 def _repeat_kv(k, v, bhq):
     group = bhq // k.shape[0]
@@ -99,6 +101,44 @@ def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
         safe = torch.where(l == 0.0, torch.ones((), device=dev), l)
         out[:, q0:q0 + bq] = (acc / safe[..., None]).to(q.dtype)
     return out
+
+
+def attention_decode_split(q, k, v, *, causal=True, window=None, q_offset=0, chunk=128):
+    """Decode attention (``Sq == 1``) in the split-KV decode kernel's order:
+    each chunk of ``chunk`` keys gives its own online-softmax state (its max
+    m, its sum l of exp(s - m), and P rounded to v's type times V in fp32),
+    and the chunks' states are merged in chunk order with the factors
+    exp(m_c - M).  A row that sees no key gives 0.  Same arguments as
+    ``attention``; the kernel's own chunk is a multiple of 64 keys, any
+    ``chunk`` >= 1 is taken here."""
+    bhq, sq, d = q.shape
+    if sq != 1:
+        raise ValueError(f"attention_decode_split: Sq = {sq}, want 1")
+    skv = k.shape[1]
+    k, v = _repeat_kv(k, v, bhq)
+    dev = q.device
+    s = torch.einsum("bd,bkd->bk", q[:, 0].float(), k.float()) / (d ** 0.5)
+    mask = _mask(_q_pos(q_offset, bhq, torch.arange(1, device=dev))[:, 0],
+                 torch.arange(skv, device=dev)[None, :], causal, window)
+    mask = mask.expand(bhq, skv)
+    neg = torch.full((), NEG_INF, device=dev)
+    m_tot = torch.full((bhq,), NEG_INF, device=dev)
+    states = []
+    for k0 in range(0, skv, chunk):
+        sc, mc = s[:, k0:k0 + chunk], mask[:, k0:k0 + chunk]
+        m = torch.where(mc, sc, neg).amax(dim=-1)
+        p = torch.where(mc, torch.exp(sc - m[:, None]), torch.zeros((), device=dev))
+        acc = torch.einsum("bk,bkd->bd", p.to(v.dtype).float(), v[:, k0:k0 + chunk].float())
+        states.append((m, p.sum(dim=-1), acc))
+        m_tot = torch.maximum(m_tot, m)
+    l_tot = torch.zeros(bhq, device=dev)
+    acc_tot = torch.zeros(bhq, d, device=dev)
+    for m, l, acc in states:  # chunk order
+        f = torch.exp(m - m_tot)
+        l_tot = l_tot + l * f
+        acc_tot = acc_tot + acc * f[:, None]
+    safe = torch.where(l_tot == 0.0, torch.ones((), device=dev), l_tot)
+    return (acc_tot / safe[:, None]).to(q.dtype)[:, None]
 
 
 def grouped_matmul(x, w):

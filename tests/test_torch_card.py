@@ -14,14 +14,19 @@ without a guard; ``test_torch_kernels.py`` runs the same cases through the
 plain versions against the reference on the CPU.  The K4/K5 cases are
 tests/test_kernels.py's sweeps plus the head sizes the configs use (K4 also
 at the decode rows, past its registers and off 16-byte alignment), K5
-through each of its two kernels (``_launch``: the tensor-core kernel in
-bf16, the SIMT kernel in fp32 and bf16); ``test_torch_model_kernels.py``
-holds the plain versions against the reference on the CPU.  K6 runs at
-ragged shapes and at each of its tile heights (C up to 32, up to 64, above),
-with and without 16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync)
-named through ``_launch`` at ragged C, D and F with E = 3, and the
-wrapper's routing of buckets, decode steps and misaligned views;
-``test_torch_moe.py`` holds its plain version against the reference.
+through each of its three kernels (``_launch``: the tensor-core kernel in
+bf16, the SIMT kernel in fp32 and bf16, the split-KV decode kernel in bf16
+at decode shapes: ragged slots, a slot at offset 0, one past the cache and
+one with no key, a window, groups 1-16, several chunk sizes, bit-identical
+over repeated launches); ``test_torch_model_kernels.py`` holds the plain
+versions against the reference on the CPU.  K6 runs at ragged shapes and at
+each of its tile heights (C up to 32, up to 64, above), with and without
+16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync) named through
+``_launch`` at ragged C, D and F with E = 3, the decode kernel at the decode
+step's and warm-up's shapes and ragged small ones, unsplit and split (bit-
+identical, the arrival counters back at zero), and the wrapper's routing of
+buckets, decode steps and misaligned views; ``test_torch_moe.py`` holds its
+plain versions against the reference.
 """
 import numpy as np
 import pytest
@@ -251,7 +256,7 @@ def test_grouped_matmul_kernel_on_card(card, e, c, d, f, offset):
     row_err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
     assert float(row_err.max()) <= BF16_GMM_REL_L2
     took = p_gmm.choose_kernel(torch.bfloat16, c, d, f, not offset)
-    assert took == "mma" if offset else took in ("wgmma", "mma")
+    assert took == "mma" if offset else took in ("wgmma", "decode", "mma")
     assert p_gmm.PATHS[took] == paths[took] + 1  # a misaligned view takes the mma kernel
 
 
@@ -282,14 +287,15 @@ def test_grouped_matmul_both_kernels_on_card(card, kernel, e, c, d, f):
 @pytest.mark.cuda
 def test_grouped_matmul_routes_buckets_to_wgmma_and_decode_to_mma(card):
     """The public wrapper's choice on the card: a 640-row prefill bucket
-    takes the wgmma kernel, a 16-row decode step and a misaligned view the
-    mma kernel, fp32 K1's batched kernel; the wgmma kernel refuses what it
-    cannot take instead of falling back."""
+    takes the wgmma kernel, a 16-row decode step the decode kernel, a
+    misaligned view the mma kernel, fp32 K1's batched kernel; the wgmma and
+    decode kernels refuse what they cannot take instead of falling back."""
     g = torch.Generator(device=card).manual_seed(8)
     w = torch.randn(8, 256, 512, generator=g, device=card).bfloat16()
     flat = torch.randn(8 * 640 * 256 + 1, generator=g, device=card).bfloat16()
     for x, wt, kernel in [(flat[:8 * 640 * 256].view(8, 640, 256), w, "wgmma"),
-                          (flat[:8 * 16 * 256].view(8, 16, 256), w, "mma"),
+                          (flat[:8 * 16 * 256].view(8, 16, 256), w, "decode"),
+                          (flat[1:8 * 16 * 256 + 1].view(8, 16, 256), w, "mma"),
                           (flat[1:].view(8, 640, 256), w, "mma"),
                           (flat[:8 * 640 * 256].view(8, 640, 256).float(), w.float(), "gemm")]:
         before = dict(p_gmm.PATHS)
@@ -300,6 +306,35 @@ def test_grouped_matmul_routes_buckets_to_wgmma_and_decode_to_mma(card):
         p_gmm._launch("wgmma", flat[1:].view(8, 640, 256), w)
     with pytest.raises(ValueError):
         p_gmm._launch("wgmma", flat[:8 * 640 * 250].view(8, 640, 250), w[:, :250].contiguous())
+    with pytest.raises(ValueError):
+        p_gmm._launch("decode", flat[1:8 * 16 * 256 + 1].view(8, 16, 256), w)
+    with pytest.raises(ValueError):
+        p_gmm._launch("decode", flat[:8 * 40 * 256].view(8, 40, 256), w)  # C > 32
+
+
+# the decode kernel's shapes: Mixtral's decode step (C = 16) and warm-up
+# (C = 2) at gate/up and down, C 17-31 (two row tiles), ragged small shapes
+GMM_DECODE = [(8, 16, 4096, 14336), (8, 16, 14336, 4096), (8, 2, 4096, 14336),
+              (8, 2, 14336, 4096), (8, 31, 4096, 1024), (3, 17, 520, 1000), (3, 13, 40, 24),
+              (2, 1, 8, 8), (3, 5, 200, 264)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", GMM_DECODE)
+def test_grouped_matmul_decode_kernel_on_card(card, e, c, d, f):
+    """The decode kernel against the fp32 product of the same bf16 inputs,
+    bit-identical over repeated launches."""
+    g = torch.Generator(device=card).manual_seed(e * c + d * f)
+    xb = torch.randn(e, c, d, generator=g, device=card).bfloat16()
+    wb = (torch.randn(e, d, f, generator=g, device=card) / d ** 0.5).bfloat16()
+    want = p_ref.grouped_matmul(xb.float(), wb.float())
+    before = p_gmm.PATHS["decode"]
+    runs = [p_gmm._launch("decode", xb, wb) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert p_gmm.PATHS["decode"] == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    row_err = (runs[0].float() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(row_err.max()) <= BF16_GMM_REL_L2
 
 
 @pytest.mark.cuda
@@ -446,11 +481,12 @@ def test_flash_attention_per_head_offsets_prefill_on_card(card, kernel):
 @pytest.mark.cuda
 def test_flash_attention_routes_prefill_to_mma_and_decode_to_simt(card):
     """The public wrapper's choice on the card: a bf16 prefill bucket takes
-    the tensor-core kernel, a decode step and fp32 the SIMT kernel."""
+    the tensor-core kernel, a bf16 decode step the split-KV decode kernel,
+    fp32 (prefill or decode) the SIMT kernel."""
     g = torch.Generator(device=card).manual_seed(6)
     k = torch.randn(8, 512, 120, generator=g, device=card).bfloat16()
-    for sq, dtype, kernel in [(256, torch.bfloat16, "mma"), (1, torch.bfloat16, "simt"),
-                              (256, torch.float32, "simt")]:
+    for sq, dtype, kernel in [(256, torch.bfloat16, "mma"), (1, torch.bfloat16, "decode"),
+                              (256, torch.float32, "simt"), (1, torch.float32, "simt")]:
         q = torch.randn(32, sq, 120, generator=g, device=card).to(dtype)
         before = dict(p_flash.PATHS)
         p_flash.flash_attention(q, k.to(dtype), k.to(dtype), q_offset=256)
@@ -514,3 +550,48 @@ def test_model_and_engine_on_card(card, arch):
         eng.drain()
         out.append([h.tokens for h in hs])
     assert out[0] == out[1]
+
+
+# the decode kernel's cases: (slots, q heads, KV heads, D, Skv, visible keys
+# per slot, window); a slot at offset 0 (one key), one past Skv - 1, no key
+DECODE_CASES = [
+    (8, 32, 8, 120, 4096, [1, 300, 1111, 2047, 2500, 3333, 4000, 4095], None),  # Danube
+    (16, 32, 8, 128, 4096, [1 + 4094 * i // 15 for i in range(16)], None),      # Mixtral
+    (4, 32, 8, 128, 4096, [4096, 4096, 4096, 4096], None),                      # full caches
+    (5, 8, 2, 120, 300, [1, 301, 0, 128, 129], None),   # offset 0, past the cache, no key
+    (4, 4, 4, 64, 200, [0, 1, 64, 65], 16),             # MHA, a window
+    (2, 16, 1, 128, 1000, [500, 1000], None),           # a group of 16
+    (3, 6, 1, 32, 130, [64, 65, 130], 100),             # a group of 6 padded to 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,heads,kvh,d,skv,lens,window", DECODE_CASES)
+def test_flash_decode_kernel_on_card(card, slots, heads, kvh, d, skv, lens, window):
+    """The split-KV decode kernel against the plain version at several chunk
+    sizes (bf16, each q row's relative L2 error), bit-identical over repeated
+    launches, and the arrival counters back at zero."""
+    from repro_torch.kernels import runtime
+
+    g = torch.Generator(device=card).manual_seed(slots * d + skv)
+    q = torch.randn(slots * heads, 1, d, generator=g, device=card).bfloat16()
+    k = torch.randn(slots * kvh, skv, d, generator=g, device=card).bfloat16()
+    v = torch.randn(slots * kvh, skv, d, generator=g, device=card).bfloat16()
+    off = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=card)
+    offq = p_flash.expand_offsets(off, q.shape[0], card)
+    want = p_ref.attention(q, k, v, causal=True, window=window, q_offset=offq)
+    for chunk in (None, 64, 128, 512):
+        if chunk is not None and -(-skv // chunk) > p_flash.DECODE_MAX_CHUNKS:
+            continue
+        before = p_flash.PATHS["decode"]
+        runs = [p_flash._launch("decode", q, k, v, causal=True, window=window, q_offset=off,
+                                chunk=chunk) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert p_flash.PATHS["decode"] == before + 3
+        assert all(torch.equal(runs[0], r) for r in runs[1:]), chunk
+        assert _bf16_row_err(runs[0], want) <= BF16_ATTN_REL_L2, chunk
+        for i, n in enumerate(lens):  # a slot that sees no key gives 0
+            if n <= 0:
+                assert not runs[0][i * heads:(i + 1) * heads].any()
+    for cnt in runtime._COUNTERS.values():
+        assert int(cnt.abs().sum()) == 0

@@ -18,7 +18,8 @@ from repro_torch.kernels import flash_attention as p_flash
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
 from repro_torch.kernels import rmsnorm as p_rms
-from test_torch_card import ATTN_ATOL, ATTN_RTOL, ATTN_SWEEP, HEAD_SIZES, RMS_TOL, bf16_ulp
+from test_torch_card import (ATTN_ATOL, ATTN_RTOL, ATTN_SWEEP, BF16_ATTN_REL_L2, HEAD_SIZES,
+                             RMS_TOL, bf16_ulp)
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(7)
@@ -194,9 +195,12 @@ def test_cpu_attention_switches_to_chunked_above_threshold(monkeypatch):
     (torch.bfloat16, 40, 32, True, "mma"),       # a small head, padded to 128
     (torch.bfloat16, 16, 120, True, "mma"),      # the engine's shortest bucket
     (torch.bfloat16, 2, 64, True, "mma"),        # the shortest q the kernel takes
-    (torch.bfloat16, 1, 64, True, "simt"),       # a decode step never takes it
-    (torch.bfloat16, 1, 120, True, "simt"),      # decode
-    (torch.bfloat16, 1, 128, True, "simt"),
+    (torch.bfloat16, 1, 64, True, "decode"),     # a decode step takes the split-KV kernel
+    (torch.bfloat16, 1, 120, True, "decode"),    # Danube's decode
+    (torch.bfloat16, 1, 128, True, "decode"),    # Mixtral's decode
+    (torch.bfloat16, 1, 136, True, "simt"),      # decode with D > 128
+    (torch.bfloat16, 1, 30, True, "simt"),       # decode with D % 8 != 0
+    (torch.bfloat16, 1, 120, False, "simt"),     # decode off 16 bytes
     (torch.float32, 2048, 120, True, "simt"),    # fp32
     (torch.float32, 1, 64, True, "simt"),
     (torch.bfloat16, 2048, 136, True, "simt"),   # D > 128
@@ -213,14 +217,16 @@ def test_flash_kernel_choice(dtype, sq, d, aligned, want):
 def test_main_path_shapes_take_mma_and_decode_takes_simt(arch):
     """Every prefill bucket of the engine (against a 4096-position cache) and
     the 8192-token forward take the tensor-core kernel; a decode step the
-    SIMT kernel."""
+    split-KV decode kernel (the SIMT kernel only in fp32)."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import prefill_buckets
 
-    dh = get_config(arch).head_dim
+    cfg = get_config(arch)
+    dh, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     for sq in [*prefill_buckets(4096), 8192]:
-        assert p_flash.choose_kernel(torch.bfloat16, sq, dh, True) == "mma", sq
-    assert p_flash.choose_kernel(torch.bfloat16, 1, dh, True) == "simt"
+        assert p_flash.choose_kernel(torch.bfloat16, sq, dh, True, group) == "mma", sq
+    assert p_flash.choose_kernel(torch.bfloat16, 1, dh, True, group) == "decode"
+    assert p_flash.choose_kernel(torch.float32, 1, dh, True, group) == "simt"
 
 
 def test_named_kernel_entry_refuses_the_cpu_and_unknown_kernels():
@@ -228,9 +234,116 @@ def test_named_kernel_entry_refuses_the_cpu_and_unknown_kernels():
     raises instead of taking the plain version."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 2, 8, 8, 16))
     before = dict(p_flash.PATHS), p_flash.PLAIN["flash_attention"]
-    for kernel in ("mma", "simt"):
+    for kernel in ("mma", "decode", "simt"):
         with pytest.raises(ValueError):
             p_flash._launch(kernel, q, k, v)
     with pytest.raises(ValueError):
         p_flash._launch("sdpa", q, k, v)
     assert (dict(p_flash.PATHS), p_flash.PLAIN["flash_attention"]) == before
+
+
+@pytest.mark.parametrize("group,want", [(1, "decode"), (4, "decode"), (7, "decode"),
+                                        (16, "decode"), (17, "simt"), (32, "simt")])
+def test_decode_kernel_takes_groups_up_to_16(group, want):
+    """A decode block holds all q rows of one KV head, at most 16."""
+    assert p_flash.choose_kernel(torch.bfloat16, 1, 128, True, group) == want
+    assert p_flash.choose_kernel(torch.bfloat16, 2, 128, True, group) == "mma"
+    assert p_flash.decode_rows(group) == (4 if group <= 4 else 8 if group <= 8 else 16)
+
+
+@pytest.mark.parametrize("skv,want", [(4096, 256), (300, 256), (1, 256), (16384, 256),
+                                      (16385, 320), (100_000, 1600)])
+def test_decode_chunk_rule(skv, want):
+    """256 keys a block, more only where a KV head would have more than 64
+    chunks: a multiple of the 64-key tile; a pure function of Skv."""
+    chunk = p_flash.decode_chunk(skv)
+    assert chunk == want
+    assert chunk % p_flash.DECODE_TILE == 0 and -(-skv // chunk) <= p_flash.DECODE_MAX_CHUNKS
+
+
+# ---------------------------------------------------------------------------
+# K5's split-KV decode: its plain emulation (per-chunk online-softmax states
+# merged in chunk order) against the reference kernel, slot by slot
+# ---------------------------------------------------------------------------
+DECODE_CHUNK = 16  # keys per chunk in these tests: 48 keys are three chunks
+DECODE_SKV = 48
+# visible keys per slot: 1, a chunk edge - 1, + 0, + 1, the full cache, and
+# an offset one past the cache's last position (it still sees every key)
+DECODE_LENS = [1, 15, 16, 17, 48, 49]
+
+
+def _decode_case(group, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    slots, kv = len(DECODE_LENS), 2
+    q = rng.normal(size=(slots * kv * group, 1, d)).astype(np.float32)
+    k = rng.normal(size=(slots * kv, DECODE_SKV, d)).astype(np.float32)
+    v = rng.normal(size=(slots * kv, DECODE_SKV, d)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    return (q, k, v), (tq, tk, tv), slots, kv * group, kv
+
+
+def _held_per_slot(got, arrays, slots, heads, kv, window, lens, dtype):
+    q, k, v = arrays
+    jt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for i, n in enumerate(lens):
+        rows, kvr = slice(i * heads, (i + 1) * heads), slice(i * kv, (i + 1) * kv)
+        want = np.asarray(r_flash(jnp.asarray(q[rows], jt), jnp.asarray(k[kvr], jt),
+                                  jnp.asarray(v[kvr], jt), causal=True, window=window,
+                                  q_offset=int(n) - 1, block_q=1, block_k=16,
+                                  interpret=True)).astype(np.float32)
+        g = got[rows].float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+        else:  # both round P and the output to bf16, at other running maxima
+            err = np.linalg.norm(g - want, axis=-1) / np.maximum(
+                np.linalg.norm(want, axis=-1), 1e-30)
+            assert float(err.max()) <= BF16_ATTN_REL_L2, (n, float(err.max()))
+
+
+@pytest.mark.parametrize("group,d,window,dtype", [
+    (4, 32, None, torch.float32), (4, 32, None, torch.bfloat16),  # the models' group of 4
+    (1, 64, 8, torch.float32),                                    # MHA with a window
+    (16, 16, None, torch.float32)])                               # the largest group
+def test_decode_split_plain_matches_reference_per_slot(group, d, window, dtype):
+    """Ragged slot lengths around the chunk edges, the full cache and one past
+    it, GQA groups 1-16, a window: the emulation of the decode kernel's split
+    against the reference Pallas kernel (interpret mode) at each slot's own
+    offset, and against the plain version."""
+    arrays, (tq, tk, tv), slots, heads, kv = _decode_case(group, d, dtype, 19 + group + d)
+    off = torch.tensor([n - 1 for n in DECODE_LENS], dtype=torch.int32)
+    offq = p_flash.expand_offsets(off, tq.shape[0], "cpu")
+    got = p_ref.attention_decode_split(tq, tk, tv, causal=True, window=window, q_offset=offq,
+                                       chunk=DECODE_CHUNK)
+    assert got.shape == tq.shape and got.dtype == dtype
+    _held_per_slot(got, arrays, slots, heads, kv, window, DECODE_LENS, dtype)
+    if dtype == torch.float32:
+        plain = p_ref.attention(tq, tk, tv, causal=True, window=window, q_offset=offq)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=ATTN_RTOL, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 64, 128])
+def test_decode_split_rows_with_no_visible_key_give_zero(chunk):
+    """A slot at offset -1 (no key yet) and a window that ends before the
+    cache does: their rows are 0, as in the reference kernel."""
+    rng = np.random.default_rng(23)
+    q = rng.normal(size=(8, 1, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 40, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 40, 16)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    empty = p_ref.attention_decode_split(tq, tk, tv, causal=True, q_offset=-1, chunk=chunk)
+    assert not empty.any()
+    want = np.asarray(r_flash(q, k, v, causal=True, q_offset=-1, block_q=1, block_k=8,
+                              interpret=True))
+    assert not want.any()
+    past = p_ref.attention_decode_split(tq, tk, tv, causal=True, window=1, q_offset=45,
+                                        chunk=chunk)
+    assert not past.any()
+    off = torch.tensor([-1, 30], dtype=torch.int32)
+    mixed = p_ref.attention_decode_split(tq, tk, tv, causal=True,
+                                         q_offset=p_flash.expand_offsets(off, 8, "cpu"),
+                                         chunk=chunk)
+    assert not mixed[:4].any() and mixed[4:].abs().sum() > 0
+    np.testing.assert_allclose(
+        mixed[4:].numpy(), np.asarray(r_flash(q[4:], k[1:], v[1:], causal=True, q_offset=30,
+                                              block_q=1, block_k=8, interpret=True)),
+        rtol=ATTN_RTOL, atol=ATTN_ATOL)

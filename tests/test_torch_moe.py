@@ -75,7 +75,11 @@ def test_moe_capacity_matches_reference(reduced, capacity):
 
 
 @pytest.mark.parametrize("e,c,d,f", [(3, 13, 37, 29), (8, 10, 20, 12), (2, 33, 70, 17),
-                                     (4, 1, 24, 40), (2, 128, 64, 64)])
+                                     (4, 1, 24, 40), (2, 128, 64, 64),
+                                     # the decode kernel's C (decode step 16, warm-up 2,
+                                     # two row tiles 31), D on and off its 64-deep slices
+                                     (2, 16, 72, 40), (2, 2, 64, 24), (3, 31, 40, 24),
+                                     (1, 16, 136, 8), (2, 16, 520, 16)])
 def test_grouped_matmul_matches_reference(e, c, d, f):
     rng = np.random.default_rng(e * c + d * f)
     x = rng.normal(size=(e, c, d)).astype(np.float32)
@@ -127,10 +131,13 @@ MIN_C = p_gmm.WGMMA_MIN_C
     (BF16, 40, 4096, 14336, True, "wgmma"),      # 128-token bucket
     (BF16, MIN_C, 4096, 14336, True, "wgmma"),   # at the threshold
     (BF16, MIN_C + 1, 64, 64, True, "wgmma"),
-    (BF16, MIN_C - 1, 4096, 14336, True, "mma"),  # just below it
-    (BF16, 16, 4096, 14336, True, "mma"),        # the 16-slot decode step
-    (BF16, 16, 14336, 4096, True, "mma"),
-    (BF16, 1, 64, 64, True, "mma"),
+    (BF16, MIN_C - 1, 4096, 14336, True, "decode"),  # just below it
+    (BF16, 16, 4096, 14336, True, "decode"),     # the 16-slot decode step
+    (BF16, 16, 14336, 4096, True, "decode"),
+    (BF16, 2, 4096, 14336, True, "decode"),      # the engine's warm-up (2 tokens)
+    (BF16, 1, 64, 64, True, "decode"),
+    (BF16, 16, 4100, 14336, True, "mma"),        # decode with D % 8 != 0
+    (BF16, 16, 4096, 14336, False, "mma"),       # decode off 16 bytes
     (BF16, 640, 4100, 14336, True, "mma"),       # D % 8 != 0
     (BF16, 640, 4096, 14330, True, "mma"),       # F % 8 != 0
     (BF16, 640, 37, 29, True, "mma"),
@@ -148,16 +155,19 @@ def test_grouped_matmul_kernel_choice(dtype, c, d, f, aligned, want):
 def test_main_path_capacities_take_wgmma_and_decode_takes_mma():
     """Every prefill bucket of 128 tokens or more (C = 40-640 at Mixtral's
     capacity factor) takes the wgmma kernel at gate/up and down; the 16-slot
-    decode step (capacity = slots) the mma kernel."""
+    decode step (capacity = slots) and the shorter buckets the decode
+    kernel; the mma kernel no main-path shape."""
     from repro_torch.serve.engine import prefill_buckets
 
     cfg = p_config(ARCH)
     for t in prefill_buckets(4096):
         c = PL.moe_capacity(cfg, t)
         for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
-            assert p_gmm.choose_kernel(BF16, c, d, f, True) == ("wgmma" if t >= 128 else "mma"), t
+            want = "wgmma" if t >= 128 else "decode"
+            assert p_gmm.choose_kernel(BF16, c, d, f, True) == want, t
     assert PL.moe_capacity(cfg, 2048) == 640 and PL.moe_capacity(cfg, 128) == 40
-    assert p_gmm.choose_kernel(BF16, 16, cfg.d_model, cfg.d_ff, True) == "mma"
+    for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        assert p_gmm.choose_kernel(BF16, 16, d, f, True) == "decode"
 
 
 def test_named_grouped_matmul_kernel_refuses_the_cpu_and_unknown_kernels():
@@ -165,7 +175,7 @@ def test_named_grouped_matmul_kernel_refuses_the_cpu_and_unknown_kernels():
     entry raises instead of taking the plain version."""
     x, w = torch.ones(2, 16, 64).bfloat16(), torch.ones(2, 64, 64).bfloat16()
     before = dict(p_gmm.PATHS), p_gmm.PLAIN["grouped_matmul"], p_gmm.LAUNCHES["grouped_matmul"]
-    for kernel in ("wgmma", "mma", "gemm", None):
+    for kernel in ("wgmma", "decode", "mma", "gemm", None):
         with pytest.raises(ValueError):
             p_gmm._launch(kernel, x, w)
     with pytest.raises(ValueError):
