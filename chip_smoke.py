@@ -17,10 +17,15 @@ Phases, in order (any failure exits nonzero):
    its device time; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
    guarded reduction with unroll 1/2/4 and each of + * max min, K3 in its
-   split form too; K3 at every PolyBench LARGE reduction nest of the main
-   path that splits (matrix-vector products, means, deviations: at least
-   two programs per SM, within 2e-4 of the plain version, bit-identical over
-   two runs), timed on the device beside the unsplit form, the bound and
+   split form too; K2 at six main-path nests (the mini CLOUDSC scheme's
+   four-computation and ``dq`` nests and the saturation chain's first nest
+   at 137 x 65,536, 2mm's fill and gemver's ``A`` update at LARGE,
+   gesummv's 1-D combine), each timed on the device alone and a call
+   beside its bound and plain version, the fill beside ``Tensor.fill_``; K3
+   at every PolyBench LARGE reduction nest of the main path that splits
+   (matrix-vector products, means, deviations: at least two programs per
+   SM, within 2e-4 of the plain version, bit-identical over two runs),
+   timed on the device beside the unsplit form, the bound and
    ``torch.addmv``, and the 3-D products' split count (1); K4 in fp32
    and bf16 over rows {1, 8, 16, 2048, 8192} x D {128, 3840, 4096, 12288},
    timed (one call and device time) at Danube's and Mixtral's decode steps
@@ -50,8 +55,9 @@ Phases, in order (any failure exits nonzero):
    against ``Daisy(backend="torch")`` and timed (first and second call);
 5. main path, CLOUDSC: erosion, the mini scheme and the saturation chain at
    137 levels x 65,536 columns, checked the same way;
-6. counts: each kernel's launches over phases 4-5 (all must be > 0), and the
-   kernel recipes the planner or the contraction classifier sent to torch;
+6. counts: each kernel's launches over phases 4-5 (all must be > 0), K3's
+   split runs and K2's flattened runs (each > 0), and the kernel recipes
+   the planner or the contraction classifier sent to torch;
    then K1 (3xTF32) at every fp32 shape phase 4's LARGE programs handed it,
    within 2e-4 of the plain version, timed (one call and device time) beside
    full-fp32 ``torch.matmul`` and its 3xTF32 and fp32 bounds;
@@ -99,6 +105,12 @@ nearest-neighbour transfer so each nest gets exactly its own recipe.
 Output: progress lines, then a JSON line with every kernel's numbers, the
 ``nvidia-smi`` line with the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --k2 SRC`` runs only K2's main-path nests (and K3's
+call at atax ``t1``) with the ``repro_torch`` package under SRC, so that two
+trees are measured by one harness on one card, in turns, and counts the
+global loads and stores in the SASS of the mini nest's kernel (``cuobjdump
+-sass``); it ends with a JSON line and the ``nvidia-smi`` line.
 Without a card, or without ``src/repro_torch`` beside this file, it prints no
 result and exits nonzero.
 """
@@ -487,28 +499,36 @@ def fmt_ms(ms: float | None) -> str:
 
 
 def _nest_bound(nk, base) -> tuple[float, float]:
-    """(operation ms, byte ms) of a planned nest on these arrays."""
+    """(operation ms, byte ms) of a planned nest on these arrays: each input
+    read once (an array read before the nest writes it, or the write array
+    of an accumulate; a read the slab forwards is no input) and each output
+    written once; a reduction's old output is an input, as it is combined
+    with the result."""
     from repro_torch.core.ir import expr_ops
 
     points = math.prod(a.trip for a in nk.plan.axes)
     flops = float(points * sum(max(1, expr_ops(c.expr)) + (1 if c.accumulate else 0)
                                for c in nk.plan.comps))
-    read = {r.array for c in nk.plan.comps for r in c.reads}
-    written = {c.write.array for c in nk.plan.comps}
+    read, written = set(), set()
+    for c in nk.plan.comps:
+        read |= {r.array for r in c.reads if r.array not in written}
+        if c.accumulate and c.write.array not in written:
+            read.add(c.write.array)
+        written.add(c.write.array)
     if nk.kind == "pallas_reduce":
-        read |= written  # the old output is combined with the result
+        read |= written
     nbytes = 4.0 * (sum(base[a].numel() for a in read) + sum(base[a].numel() for a in written))
     return flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def _main_nests(nkm, prog, kind=None, names=None):
+def _main_nests(nkm, prog, kind=None, names=None, device="cuda"):
     """(nest program, planned kernel) of each canonical nest of ``prog``
     the nest planner takes, as the main path plans it."""
     from repro_torch.core import Daisy, Schedule
     from repro_torch.core.scheduler import nest_program
     from repro_torch.core.tiling import TilingError
 
-    norm = Daisy(backend="torch").plan(prog).program
+    norm = Daisy(backend="torch", device=device).plan(prog).program
     out = []
     for nest in norm.body:
         try:
@@ -523,7 +543,9 @@ def _main_nests(nkm, prog, kind=None, names=None):
 
 def check_nest_kernel(torch, results: dict) -> None:
     from repro_torch.core import ir
+    from repro_torch.core.scheduler import random_inputs
     from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.polybench import BENCHMARKS
 
     sms = nkm.sm_count(torch.device("cuda"))
     worst = {"pallas_nest": 0.0, "pallas_reduce": 0.0}
@@ -555,38 +577,7 @@ def check_nest_kernel(torch, results: dict) -> None:
         if not err <= KERNEL_MAX_REL:
             raise AssertionError(f"nest kernel {label}: max rel err {err} > {KERNEL_MAX_REL}")
 
-    # K2's time at a main-path nest: the mini CLOUDSC scheme's parallel nest
-    # at 137 x 65,536
-    from repro_torch.cloudsc import mini_cloudsc_program, scheme_inputs
-    from repro_torch.core.scheduler import random_inputs
-    from repro_torch.polybench import BENCHMARKS
-
-    nprog, nk = max(_main_nests(nkm, mini_cloudsc_program(NPROMA, KLEV), "parallel"),
-                    key=lambda pn: len(pn[1].plan.comps))
-    inp = random_inputs(nprog, seed=11)
-    inputs = scheme_inputs(NPROMA, KLEV)  # physical ranges for the thermodynamics
-    inp.update({k: v for k, v in inputs.items() if k in inp})
-    base = _env(torch, nprog, inp)
-    got, want = _copy(base), _copy(base)
-    nkm.run_nest(nk, got)
-    nkm.nest_plain(nk, want)
-    torch.cuda.synchronize()
-    err, diff = _compare(got, want)
-    worst["pallas_nest"] = max(worst["pallas_nest"], diff)
-    if not err <= KERNEL_MAX_REL:
-        raise AssertionError(f"pallas_nest on {nprog.name}: max rel err {err}")
-    work = _copy(base)
-    ms = cuda_ms(lambda: nkm.run_nest(nk, work))
-    plain_ms = cuda_ms(lambda: nkm.nest_plain(nk, work))
-    t_ops, t_bytes = _nest_bound(nk, base)
-    log(f"  K2 {nprog.name} {[a.trip for a in nk.plan.axes]}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library None, bound {max(t_ops, t_bytes):.4f} ms, max rel err {err:.3e}")
-    results["pallas_nest"] = dict(
-        name="nest_kernel[parallel]", route="triton", source="src/repro_torch/kernels/nest_kernel.py",
-        replaces="src/repro/kernels/nest_kernel.py:244 (_kernel)", max_abs_err=worst["pallas_nest"],
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
-        shape=f"{nprog.name} {[a.trip for a in nk.plan.axes]}")
+    results["pallas_nest"] = check_k2_nests(torch, nkm, worst["pallas_nest"])
 
     # K3 at every LARGE reduction nest of the main path: the launch's split
     # against the plain version, twice (bit-identical), then timed beside the
@@ -658,6 +649,133 @@ def check_nest_kernel(torch, results: dict) -> None:
         device_ms=main["device_ms"], unsplit_ms=main["unsplit_ms"],
         unsplit_device_ms=main["unsplit_device_ms"], library_device_ms=main["library_device_ms"],
         splits=main["splits"], programs=main["programs"], other_shapes=timings)
+
+
+def _k2_nests(nkm):
+    """(label, nest program, planned kernel) of K2's main-path nests: the
+    mini CLOUDSC scheme's four-computation nest and its ``dq`` nest, the
+    saturation chain's first nest (137 x 65,536), 2mm's fill and gemver's
+    ``A`` update at LARGE, and gesummv's 1-D combine (1,300)."""
+    from repro_torch.cloudsc import mini_cloudsc_program, saturation_chain_program
+    from repro_torch.polybench import BENCHMARKS
+
+    def pick(prog, test):
+        return next(pn for pn in _main_nests(nkm, prog, "parallel") if test(pn[1]))
+
+    def named(name):
+        return lambda nk: nk.plan.comps[0].name == name
+
+    mini = _main_nests(nkm, mini_cloudsc_program(NPROMA, KLEV), "parallel")
+    large = lambda name: BENCHMARKS[name].variants["a"](LARGE[name])  # noqa: E731
+    return [
+        ("mini scheme nest", *max(mini, key=lambda pn: len(pn[1].plan.comps))),
+        ("mini scheme dq", *next(pn for pn in mini if named("dq")(pn[1]))),
+        ("saturation chain first nest",
+         *pick(saturation_chain_program(NPROMA, KLEV), named("licm_pfl_rain"))),
+        ("2mm fill", *pick(large("2mm"), lambda nk: not nk.plan.comps[0].reads)),
+        ("gemver A update", *pick(large("gemver"), named("a_up"))),
+        ("gesummv 1-D combine", *pick(large("gesummv"), named("fin"))),
+    ]
+
+
+def _k2_inputs(nprog):
+    """Seeded inputs of a K2 nest; the CLOUDSC arrays in physical ranges."""
+    from repro_torch.cloudsc import saturation_chain_inputs, scheme_inputs
+    from repro_torch.core.scheduler import random_inputs
+
+    inp = random_inputs(nprog, seed=11)
+    if nprog.name.startswith(("mini_cloudsc", "saturation_chain")):
+        phys = (scheme_inputs if nprog.name.startswith("mini") else saturation_chain_inputs)(
+            NPROMA, KLEV)
+        inp.update({k: v for k, v in phys.items() if k in inp})
+    return inp
+
+
+def sass_counts(cubins) -> dict | None:
+    """Global loads and stores in the SASS of ``cubins`` (``cuobjdump
+    -sass``): 128-bit ones and narrower ones, each with how many are
+    predicated; None when there is no cubin or no ``cuobjdump``."""
+    import os
+    import re
+    import shutil
+
+    if not cubins:
+        return None
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        import triton
+
+        tool = str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+    counts = {f"{op} {w}{p}": 0 for op in ("LDG", "STG") for w in ("128", "narrower")
+              for p in ("", " predicated")}
+    for cub in sorted(cubins):
+        sass = subprocess.run([tool, "-sass", str(cub)], capture_output=True, text=True,
+                              timeout=120).stdout
+        for m in re.finditer(r"^\s*/\*[0-9a-f]+\*/\s*(@!?U?P\w+\s+)?(LDG|STG)\.([\w.]*)", sass,
+                             re.M):
+            wide = "128" if re.search(r"(^|\.)128(\.|$)", m.group(3)) else "narrower"
+            counts[f"{m.group(2)} {wide}{' predicated' if m.group(1) else ''}"] += 1
+    return counts
+
+
+def check_k2_nests(torch, nkm, worst: float, sass: bool = False) -> dict:
+    """K2 at its main-path nests against the plain version (within
+    ``KERNEL_MAX_REL``), each timed on the device alone (``graph_ms``) and
+    a call (``cuda_ms``) beside its bound and the plain version, the fill
+    beside ``Tensor.fill_``; with ``sass``, the global accesses in the SASS
+    of the mini nest's kernel.  Returns K2's row of the kernels line."""
+    rows = []
+    counts = None
+    for label, nprog, nk in _k2_nests(nkm):
+        base = _env(torch, nprog, _k2_inputs(nprog))
+        got, want = _copy(base), _copy(base)
+        flat_runs = nkm.FLAT["pallas_nest"]
+        nkm.run_nest(nk, got)
+        torch.cuda.synchronize()
+        flat = nkm.FLAT["pallas_nest"] > flat_runs
+        if sass and label == "mini scheme nest":
+            counts = sass_counts({Path(p) for ck in nk.compiled.values()
+                                  for name, p in ck.metadata_group.items()
+                                  if name.endswith(".cubin")})
+        nkm.nest_plain(nk, want)
+        err, diff = _compare(got, want)
+        worst = max(worst, diff)
+        if not err <= KERNEL_MAX_REL:
+            raise AssertionError(f"K2 {label}: max rel err {err:.3e} > {KERNEL_MAX_REL}")
+        work = _copy(base)
+        call = lambda: nkm.run_nest(nk, work)  # noqa: E731
+        t_ops, t_bytes = _nest_bound(nk, base)
+        row = dict(nest=label, shape=[a.trip for a in nk.plan.axes], arrays=len(nk.arrays),
+                   flat=flat, max_rel_err=err, graph_ms=graph_ms(torch, call), ms=cuda_ms(call),
+                   plain_ms=cuda_ms(lambda: nkm.nest_plain(nk, work)),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=None, library_graph_ms=None)
+        if not nk.plan.comps[0].reads:  # a constant fill: Tensor.fill_ on the same array
+            arr = work[nk.plan.comps[0].write.array]
+            value = float(nk.plan.comps[0].expr())
+            row["library_ms"] = cuda_ms(lambda: arr.fill_(value))
+            row["library_graph_ms"] = graph_ms(torch, lambda: arr.fill_(value))
+        rows.append(row)
+        lib = ("" if row["library_ms"] is None else
+               f", fill_ {row['library_ms']:.4f} (device {row['library_graph_ms']:.4f})")
+        log(f"  K2 {label} {row['shape']} ({row['arrays']} arrays, "
+            f"{'flattened' if flat else 'tiled'}): device {row['graph_ms']:.4f} ms, a call "
+            f"{row['ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['graph_ms']:.0%} of it), plain {row['plain_ms']:.4f}{lib}; "
+            f"max rel err {err:.3e}")
+    if sass:
+        log(f"  K2 mini scheme nest SASS: {counts if counts is not None else 'not read'}")
+    main = rows[0]
+    return dict(
+        name="nest_kernel[parallel]", route="triton", source="src/repro_torch/kernels/nest_kernel.py",
+        replaces="src/repro/kernels/nest_kernel.py:244 (_kernel)", max_abs_err=worst,
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, graph_ms=main["graph_ms"],
+        shape=f"{main['nest']} {main['shape']}", nests=rows,
+        **({"sass": counts} if sass else {}))
 
 
 def _addmv_library_ms(torch, nk, base, want):
@@ -2073,7 +2191,34 @@ def check_k5_paths(phase: str, total: dict, prefill: dict) -> dict:
     return decode
 
 
-def main() -> int:
+def k2_only(torch, smi: str) -> int:
+    """``--k2 SRC``: K2 at its main-path nests and K3's call at atax ``t1``
+    (LARGE), with the package under SRC (another tree's, to set two trees
+    side by side on one card); prints one JSON line and the card's name and
+    power limit."""
+    from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.core.scheduler import random_inputs
+    from repro_torch.polybench import BENCHMARKS
+
+    log(f"K2 with {nkm.__file__}")
+    row = check_k2_nests(torch, nkm, 0.0, sass=True)
+    nprog, nk = _main_nests(nkm, BENCHMARKS["atax"].variants["a"](LARGE["atax"]), "reduce",
+                            ("t1",))[0]
+    work = _env(torch, nprog, random_inputs(nprog, seed=11))
+    call = lambda: nkm.run_nest(nk, work)  # noqa: E731
+    k3 = dict(ms=cuda_ms(call), graph_ms=graph_ms(torch, call))
+    log(f"  K3 atax t1: a call {k3['ms']:.4f} ms, device {k3['graph_ms']:.4f} ms")
+    print(json.dumps({"k2": row, "k3_atax_t1": k3}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and (len(argv) != 2 or argv[0] != "--k2"):
+        print(f"usage: {Path(__file__).name} [--k2 SRC]", file=sys.stderr)
+        return 2
+    src = Path(argv[1]).resolve() if argv else HERE / "src"
     try:
         import torch
     except ImportError:
@@ -2082,13 +2227,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    if not (HERE / "src" / "repro_torch").is_dir():
-        print(f"no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
+    if not (src / "repro_torch").is_dir():
+        print(f"no repro_torch under {src}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(HERE / "src"))
+    sys.path.insert(0, str(src))
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        return k2_only(torch, nvidia_smi())
 
     from repro_torch.configs import get_config
     from repro_torch.core import codegen
@@ -2130,17 +2277,20 @@ def main() -> int:
     for k in nkm.EMITTED:
         nkm.EMITTED[k] = 0
     nkm.SPLIT["pallas_reduce"] = 0
+    nkm.FLAT["pallas_nest"] = 0
     codegen.ROUTED.clear()
     gemm_shapes = main_path(torch)
     torch.cuda.synchronize()
     launches = {"gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
     split_runs = nkm.SPLIT["pallas_reduce"]
+    flat_runs = nkm.FLAT["pallas_nest"]
     routed = dict(codegen.ROUTED)
 
     log("phase 6: counts over phases 4-5")
-    log(f"  launches: K1 gemm {launches['gemm']}, K2 nest {launches['pallas_nest']}, "
-        f"K3 reduce {launches['pallas_reduce']} ({split_runs} of them split)")
+    log(f"  launches: K1 gemm {launches['gemm']}, K2 nest {launches['pallas_nest']} "
+        f"({flat_runs} of them flattened), K3 reduce {launches['pallas_reduce']} "
+        f"({split_runs} of them split)")
     log(f"  kernel recipes routed to torch: {sum(routed.values())}")
     for reason, n in sorted(routed.items()):
         log(f"    {n} x {reason}")
@@ -2149,6 +2299,8 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     if split_runs <= 0:
         raise AssertionError("no K3 run on the main path took the split form")
+    if flat_runs <= 0:
+        raise AssertionError("no K2 run on the main path took the flattened form")
     if not gemm_shapes:
         raise AssertionError("phase 4's LARGE programs handed K1 no fp32 product")
     results["gemm"]["main_path_shapes"] = check_gemm_main_shapes(torch, gemm_shapes)
@@ -2255,6 +2407,8 @@ def main() -> int:
             row["launches_by_c"] = k6_paths
         if key == "pallas_reduce":
             row["split_launches"] = split_runs
+        if key == "pallas_nest":
+            row["flat_runs"] = flat_runs
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,14 +9,25 @@ source, one module per distinct source text:
 * one program per parallel tile (a 1-D grid, decomposed per axis); every
   axis is a power-of-two block holding its tile, lanes past the tile or the
   loop bound masked;
-* every access is a masked load at its affine offsets (stencil halos read
-  straight from the array; lanes outside it read 0, as the reference's
-  zero-padded views do) — no padded copies;
+* every access is a load at its affine offsets (stencil halos read straight
+  from the array; lanes outside it read 0, as the reference's zero-padded
+  views do) — no padded copies.  Arrays of one declared shape share one set
+  of shape and stride parameters (``NestKernel.groups``), checked equal at
+  launch;
 * K2 (``pallas_nest``): the computations of the nest run in order; a read of
   what an earlier computation wrote at the same index uses the in-register
-  value (the reference's ``slab_env``).  Guard and bound masks select new
-  against old content, and only lanes inside the domain, the guards and the
-  array are stored;
+  value (the reference's ``slab_env``).  Only lanes inside the domain, the
+  guards and the array are stored.  The old content of a written array is
+  loaded only where the result depends on it (``needs_old``: an accumulate,
+  or a guard whose unselected lanes a later computation reads from the
+  slab), and a computation that also reads its write index uses that load.
+  A nest whose accesses are all the identity over arrays of the domain's
+  shape (``flat_nest``) runs, on contiguous arrays, over one flattened
+  range, one program a ``FLAT_BLOCK``-element block, so a row length that
+  is not a multiple of 16 elements does not stop 128-bit accesses; every
+  block but the last runs an unmasked body.  The other nests (broadcasts,
+  guards, halos) and strided arrays keep the tiled form, every access
+  masked;
 * K3 (``pallas_reduce``): one accumulating computation.  The TPU's
   sequential reduction grid axis becomes a loop inside the program over
   reduction tiles, with ``unroll`` chunks per tile combined in order into an
@@ -40,24 +51,27 @@ compiled kernel serves every problem size with the same canonical structure
 
 Bound: these kernels are memory bound (a few flops per element, except the
 CLOUDSC thermodynamics); the least time is the bytes each array is read and
-written once over 3.35 TB/s.  What held K3 back at the matrix-vector nests
-was the launch, not re-reads: one program per parallel tile walked the whole
+written once over 3.35 TB/s.  K2 reads each input and writes each output
+once (no dead reload of old content, no second load of a pointer read and
+written); what is left between it and the bound is the launch and, in
+the tiled form, the masked accesses.  What held K3 back at the matrix-vector nests was
+the launch, not re-reads: one program per parallel tile walked the whole
 reduction alone, so 19-33 programs left most of the 132 SMs idle; the split
-fills the card.  Both forms still reload the old content of every written
-array, and K3 re-reads operands that do not span the reduction axis once
-per parallel tile.
+fills the card.  K3 still reloads the old output and re-reads operands that
+do not span the reduction axis once per parallel tile.
 
 ``run_nest`` launches the kernel for CUDA tensors and takes ``nest_plain`` —
 the same plan evaluated over the whole extent in torch, with the same masks,
 neutral elements and final combine — for CPU tensors only.  ``EMITTED``
 counts nest runs on the card (one launch per run, split or not), ``SPLIT``
-the runs that took the split form and ``PLAIN`` the plain-version runs.
+the runs that took the split form, ``FLAT`` the K2 runs that took the
+flattened form, and ``PLAIN`` the plain-version runs.
 """
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -67,16 +81,26 @@ from ..core.ir import Access, BinOp, Call, Const, Expr, Neg, Node, Program, Read
 from ..core.tiling import TilePlan, TilingError, next_pow2, plan_nest_tiling
 from .build import generated_module, import_triton
 from .runtime import arrival_counters as _counters  # one per parallel tile of a split
-from .runtime import sm_count
+from .runtime import on_device, raw_stream, sm_count
 
 EMITTED = {"pallas_nest": 0, "pallas_reduce": 0}
 SPLIT = {"pallas_reduce": 0}
+FLAT = {"pallas_nest": 0}
 PLAIN = {"pallas_nest": 0, "pallas_reduce": 0}
 
 # A reduction nest is split until it launches this many programs per SM.
 PROGRAMS_PER_SM = 2
 # Pipeline depth of the split form's reduction loop.
 SPLIT_STAGES = 3
+
+
+# K2's flattened form: elements a program takes and its warps, chosen by
+# device time at the mini CLOUDSC scheme's nest (137 x 65,536, 6 arrays) on
+# an H100 (PERF.md, PR 20): blocks of 1,024 to 4,096 elements and 4 or 8
+# warps lay within 3% of each other, this the fastest; a persistent grid of
+# 4 programs an SM was 4-8% slower.
+FLAT_BLOCK = 1024
+FLAT_WARPS = 4
 
 _NEUTRAL_SRC = {"+": "0.0", "*": "1.0", "max": 'float("-inf")', "min": 'float("inf")'}
 _COMBINE_SRC = {"+": "({a} + {b})", "*": "({a} * {b})",
@@ -85,15 +109,17 @@ _REDUCE_SRC = {"+": "tl.sum({x}, axis={k})", "*": "tl.reduce({x}, {k}, _mul)",
                "max": "tl.max({x}, axis={k})", "min": "tl.min({x}, axis={k})"}
 
 
-@dataclass
+@dataclass(eq=False)
 class NestKernel:
     """A planned nest: its tiling, the arrays it touches, and (lazily) its
-    generated Triton source."""
+    generated Triton source and what its launches share."""
 
     program: Program
     plan: TilePlan
     unroll: int
     arrays: tuple[str, ...]
+    # compiled kernels by launch specialization (``_launch``)
+    compiled: dict = field(default_factory=dict, repr=False)
 
     @property
     def kind(self) -> str:
@@ -110,6 +136,41 @@ class NestKernel:
         return math.prod(a.block for a in self.plan.parallel)
 
     @functools.cached_property
+    def programs(self) -> int:
+        """Programs of the tiled launch: one per parallel tile."""
+        return math.prod(p.n_tiles for p in self.plan.parallel)
+
+    @functools.cached_property
+    def groups(self) -> tuple[tuple[int, ...], ...]:
+        """Positions in ``arrays`` of the arrays that share one set of shape
+        and stride parameters: one group per declared shape."""
+        by_shape: dict[tuple[int, ...], list[int]] = {}
+        for k, name in enumerate(self.arrays):
+            by_shape.setdefault(tuple(self.program.array(name).shape), []).append(k)
+        return tuple(tuple(v) for v in by_shape.values())
+
+    @functools.cached_property
+    def group_of(self) -> dict[str, int]:
+        """Array name -> its parameter group."""
+        return {self.arrays[k]: g for g, members in enumerate(self.groups) for k in members}
+
+    @functools.cached_property
+    def bounds(self) -> tuple[int, ...]:
+        """(start, stop) of every slab axis, flattened: the launch's last
+        arguments."""
+        return tuple(v for a in self.plan.axes for v in (a.start, a.stop))
+
+    @functools.cached_property
+    def flat(self) -> bool:
+        """Whether the flattened form applies (``flat_nest``)."""
+        return flat_nest(self.program, self.plan)
+
+    @functools.cached_property
+    def flat_elems(self) -> int:
+        """Elements of the flattened range (every array's size)."""
+        return math.prod(a.trip for a in self.plan.axes)
+
+    @functools.cached_property
     def source(self) -> str:
         return triton_source(self)
 
@@ -117,6 +178,63 @@ class NestKernel:
     def split_source(self) -> str:
         """The split form of a reduction: ``nest_split``."""
         return triton_source(self, split=True)
+
+    @functools.cached_property
+    def kernel(self):
+        """The generated ``nest_kernel`` (imported once per planned nest)."""
+        import_triton()
+        return generated_module(self.source, "nest").nest_kernel
+
+    @functools.cached_property
+    def split_kernel(self):
+        """The generated ``nest_split``."""
+        import_triton()
+        return generated_module(self.split_source, "nest_split").nest_split
+
+
+def needs_old(plan: TilePlan, ci: int) -> bool:
+    """Whether computation ``ci`` of a parallel nest needs the old content
+    of its write array: it accumulates, or it has a guard and the merged
+    value on the lanes the guard leaves (the old content) is read from the
+    slab by a later computation, directly or as that one's old content.
+    Otherwise every lane that is stored or forwarded takes the new value.
+    Lanes outside the array are never stored, and the slab forwards the new
+    value there, as the reference's zero-padded views do."""
+    comp = plan.comps[ci]
+    if comp.accumulate is not None:
+        return True
+    if not comp.guards:
+        return False
+    key = (comp.write.array, comp.write.index)
+    for cj in range(ci + 1, len(plan.comps)):
+        later = plan.comps[cj]
+        if any((r.array, r.index) == key for r in later.reads):
+            return True
+        if later.write.array == comp.write.array:
+            return needs_old(plan, cj)
+    return False
+
+
+def flat_nest(program: Program, plan: TilePlan) -> bool:
+    """Whether a parallel nest can run over one flattened range: no guard,
+    every axis starting at 0, and every access the identity (dimension d
+    subscripted by axis d, offset 0) of an array of the domain's shape — so
+    each array is covered whole, element for element, and a contiguous one
+    is a single range.  A pointwise nest: its results do not depend on the
+    blocking."""
+    if plan.kind != "parallel" or any(c.guards for c in plan.comps):
+        return False
+    if any(a.start != 0 for a in plan.axes):
+        return False
+    shape = tuple(a.stop for a in plan.axes)
+    ident = [(a.name, 0) for a in plan.axes]
+    for c in plan.comps:
+        for a in (c.write,) + c.reads:
+            if tuple(program.array(a.array).shape) != shape:
+                return False
+            if [(d.iterator, d.const) for d in plan.access_dims(a)] != ident:
+                return False
+    return True
 
 
 def reduce_splits(plan: TilePlan, sms: int) -> int:
@@ -214,48 +332,103 @@ def run_nest(nk: NestKernel, env: dict[str, torch.Tensor]) -> None:
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
-def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor], splits: int | None = None) -> None:
-    """Launch the generated Triton kernel on ``env``'s CUDA tensors, once:
-    ``nest_kernel``, or for a split reduction ``nest_split`` over a
-    workspace of partials.  ``splits`` is ``reduce_splits``' count unless
-    given (the card tests and ``chip_smoke.py`` name one to hold and time
-    each form)."""
-    import_triton()
-    args: list[Any] = []
-    dev = None
-    for name in nk.arrays:
-        t = env[name]
-        if t.device.type != "cuda" or t.dtype != torch.float32:
+def launch_args(nk: NestKernel, env: dict[str, torch.Tensor]) -> tuple[list, torch.device, bool]:
+    """(the kernel's runtime arguments, the arrays' device, whether the
+    flattened form applies) for ``env``: the arrays, each parameter group's
+    shape and strides, then the loop bounds.  Raises ``ValueError`` unless
+    every array is float32 on one device and the arrays of each group agree
+    in shape and strides.  The flattened form applies to a ``flat`` nest
+    whose arrays are contiguous at the declared shape."""
+    ts = [env[name] for name in nk.arrays]
+    dev = ts[0].device
+    for name, t in zip(nk.arrays, ts):
+        if t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"nest kernel: {name} is {t.dtype} on {t.device}, "
-                             "want float32 on cuda")
-        if dev is None:
-            dev = t.device
-        elif t.device != dev:
-            raise ValueError(f"nest kernel: arrays on {dev} and {t.device}")
-        args.append(t)
-        args.extend(t.shape)
-        args.extend(t.stride())
-    for ax in nk.plan.axes:
-        args.extend((ax.start, ax.stop))
-    programs = math.prod(p.n_tiles for p in nk.plan.parallel)
+                             f"want float32 on {dev}")
+    args: list[Any] = list(ts)
+    flat = nk.flat
+    for members in nk.groups:
+        first = ts[members[0]]
+        shape, stride = first.shape, first.stride()
+        for k in members[1:]:
+            if ts[k].shape != shape or ts[k].stride() != stride:
+                raise ValueError(
+                    f"nest kernel: {nk.arrays[k]} has shape {tuple(ts[k].shape)} and strides "
+                    f"{ts[k].stride()}, {nk.arrays[members[0]]} of the same parameter group "
+                    f"{tuple(shape)} and {stride}")
+        args.extend(shape)
+        args.extend(stride)
+        flat = flat and first.is_contiguous() and first.numel() == nk.flat_elems
+    args.extend(nk.bounds)
+    return args, dev, flat
+
+
+def nest_launch(nk: NestKernel, env: dict[str, torch.Tensor], splits: int | None = None):
+    """Launch the generated Triton kernel on ``env``'s CUDA tensors, once:
+    ``nest_kernel`` (K2 flattened where ``launch_args`` allows, one program
+    a ``FLAT_BLOCK``-element block; tiled otherwise), or for a split
+    reduction ``nest_split`` over a workspace of partials.  ``splits`` is
+    ``reduce_splits``' count unless given (the card tests and
+    ``chip_smoke.py`` name one to hold and time each form).  Returns the
+    compiled kernel."""
+    args, dev, is_flat = launch_args(nk, env)
+    if dev.type != "cuda":
+        raise ValueError(f"nest kernel: arrays on {dev}, want cuda")
     if splits is None:
-        splits = reduce_splits(nk.plan, sm_count(dev))
+        splits = 1 if nk.kind == "pallas_nest" else reduce_splits(nk.plan, sm_count(dev))
     elif splits < 1 or splits > 1 and (nk.kind != "pallas_reduce"
                                        or splits > nk.plan.reduce_grid.n_tiles):
         raise ValueError(f"nest kernel: {splits} splits of a {nk.kind} nest")
-    with torch.cuda.device(dev):
-        if splits == 1:
-            generated_module(nk.source, "nest").nest_kernel[(programs,)](
-                *args, num_warps=nk.num_warps)
+    with on_device(dev):
+        if nk.kind == "pallas_nest" and is_flat:
+            out = _launch(nk, nk.kernel, (-(-nk.flat_elems // FLAT_BLOCK), 1, 1), args,
+                          {"FLAT": True, "BLOCK": FLAT_BLOCK}, {"num_warps": FLAT_WARPS}, dev)
+            FLAT["pallas_nest"] += 1
+        elif nk.kind == "pallas_nest":
+            out = _launch(nk, nk.kernel, (nk.programs, 1, 1), args, {"FLAT": False, "BLOCK": 1},
+                          {"num_warps": nk.num_warps}, dev)
+        elif splits == 1:
+            out = _launch(nk, nk.kernel, (nk.programs, 1, 1), args, {},
+                          {"num_warps": nk.num_warps}, dev)
         else:
-            mod = generated_module(nk.split_source, "nest_split")
-            ws = torch.empty((splits, programs, nk.par_block_elems), dtype=torch.float32,
+            ws = torch.empty((splits, nk.programs, nk.par_block_elems), dtype=torch.float32,
                              device=dev)
-            mod.nest_split[(programs, splits)](
-                *args, ws, _counters(dev, programs), split_tiles(nk.plan, splits),
-                num_warps=nk.num_warps, num_stages=SPLIT_STAGES)
+            args += [ws, _counters(dev, nk.programs), split_tiles(nk.plan, splits)]
+            out = _launch(nk, nk.split_kernel, (nk.programs, splits, 1), args, {},
+                          {"num_warps": nk.num_warps, "num_stages": SPLIT_STAGES}, dev)
             SPLIT[nk.kind] += 1
     EMITTED[nk.kind] += 1
+    return out
+
+
+def _launch(nk: NestKernel, fn, grid: tuple[int, int, int], args: list, constexprs: dict,
+            options: dict, dev: torch.device):
+    """Launch the jitted ``fn`` on ``grid``.  Triton's own dispatch works out
+    the arguments' specialization (16-byte aligned pointers, integers equal
+    to 1 or divisible by 16), compiles or finds the kernel and launches it:
+    most of a small nest's host time.  So the compiled kernel it returns is
+    kept on ``nk`` under a key that fixes that specialization (each
+    pointer's 16-byte alignment and every integer's value) and later
+    launched directly, on the current stream.  Launch hooks, where a tool
+    added one, go through Triton's dispatch."""
+    import triton
+
+    key = (fn.__name__, dev.index, *constexprs.values(), *options.values(),
+           *(a.data_ptr() % 16 == 0 if isinstance(a, torch.Tensor) else a for a in args))
+    compiled = nk.compiled.get(key)
+    hooks = triton.knobs.runtime
+    if compiled is None or _hooked(hooks.launch_enter_hook) or _hooked(hooks.launch_exit_hook):
+        compiled = nk.compiled[key] = fn[grid](*args, **constexprs, **options)
+    else:
+        compiled.run(*grid, raw_stream(dev), compiled.function, compiled.packed_metadata, None,
+                     None, None, *args, *constexprs.values())
+    return compiled
+
+
+def _hooked(hook) -> bool:
+    """Whether a Triton launch hook does anything: a ``HookChain`` with a
+    call in it, or (older Triton) any hook that is set."""
+    return hook is not None and bool(getattr(hook, "calls", True))
 
 
 def _expr_lines(e: Expr, read_var, prefix: str) -> tuple[list[str], str]:
@@ -309,13 +482,23 @@ def _helpers(nk: NestKernel) -> list[str]:
     return out
 
 
+def _is_literal(v: str) -> bool:
+    try:
+        float(v)
+    except ValueError:
+        return False
+    return True
+
+
 def triton_source(nk: NestKernel, split: bool = False) -> str:
     """The Triton module text for a planned nest (no triton import needed):
     ``nest_kernel``, or with ``split`` (reductions only) ``nest_split``,
     whose second grid axis takes ranges of ``per`` reduction tiles and
     writes fp32 partials to ``ws``; the last program of a parallel tile to
     arrive (its count in ``cnt``) combines them in split order and then
-    with the old output."""
+    with the old output.  A parallel nest's ``nest_kernel`` takes the
+    constexprs ``FLAT`` (the flattened form, in ``BLOCK``-element blocks;
+    only a ``flat`` nest has it) and ``BLOCK``."""
     plan = nk.plan
     if split and plan.kind != "reduce":
         raise ValueError("only a reduction nest has a split form")
@@ -324,14 +507,13 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
     n_par = len(plan.parallel)
     pos = {a.name: k for k, a in enumerate(axes)}
     arr_ix = {name: k for k, name in enumerate(nk.arrays)}
-    shapes = {name: nk.program.array(name).shape for name in nk.arrays}
+    grp = nk.group_of
 
-    params: list[str] = []
-    for name in nk.arrays:
-        k = arr_ix[name]
-        params.append(f"p{k}")
-        params += [f"n{k}_{d}" for d in range(len(shapes[name]))]
-        params += [f"s{k}_{d}" for d in range(len(shapes[name]))]
+    params = [f"p{k}" for k in range(len(nk.arrays))]
+    for g, members in enumerate(nk.groups):
+        rank = len(nk.program.array(nk.arrays[members[0]]).shape)
+        params += [f"n{g}_{d}" for d in range(rank)]
+        params += [f"s{g}_{d}" for d in range(rank)]
     for k in range(n_axes):
         params += [f"lo{k}", f"hi{k}"]
 
@@ -342,13 +524,13 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
         decomp.append(f"t{k} = pid % nt{k}")
         decomp.append(f"pid = pid // nt{k}")
         decomp.append(f"r{k} = tl.arange(0, {axes[k].block})")
-        decomp.append(f"x{k} = lo{k} + t{k} * {t} + r{k}")
+        decomp.append(f"b{k} = lo{k} + t{k} * {t}")
+        decomp.append(f"x{k} = b{k} + r{k}")
         decomp.append(f"m{k} = (r{k} < {t}) & (x{k} < hi{k})")
     inner: list[str] = []
     for k in range(n_par, n_axes - (1 if plan.reduce_grid else 0)):  # inner reductions
         inner.append(f"x{k} = lo{k} + tl.arange(0, {axes[k].block})")
         inner.append(f"m{k} = x{k} < hi{k}")
-    body: list[str] = ["pid = tl.program_id(0)"] + decomp + inner
 
     def expand(k: int, rank: int) -> str:
         """Index pattern placing 1-D axis ``k`` at its slab position."""
@@ -358,16 +540,16 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
 
     def access_src(a: Access, rank: int) -> tuple[str, str | None]:
         """(pointer expression, mask expression or None) of an access."""
-        k = arr_ix[a.array]
+        k, g = arr_ix[a.array], grp[a.array]
         terms, masks = [], []
         for d, dm in enumerate(plan.access_dims(a)):
             if dm.iterator is None:
-                terms.append(f"{dm.const} * s{k}_{d}")
+                terms.append(f"{dm.const} * s{g}_{d}")
                 continue
             ax = pos[dm.iterator]
             ix = f"(x{ax}{expand(ax, rank)} + {dm.const})" if dm.const else f"x{ax}{expand(ax, rank)}"
-            terms.append(f"{ix} * s{k}_{d}")
-            masks.append(f"({ix} >= 0) & ({ix} < n{k}_{d})" if dm.const else f"({ix} < n{k}_{d})")
+            terms.append(f"{ix} * s{g}_{d}")
+            masks.append(f"({ix} >= 0) & ({ix} < n{g}_{d})" if dm.const else f"({ix} < n{g}_{d})")
             masks.append(f"m{ax}{expand(ax, rank)}")
         ptr = f"p{k}" + "".join(f" + {t}" for t in terms)
         return ptr, (" & ".join(masks) if masks else None)
@@ -379,7 +561,10 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
             gs.append(f"({' + '.join(terms)} >= 0)")
         return " & ".join(gs) if gs else None
 
-    def load_lines(comp, rank: int, loaded: dict, slab: dict, tag: str) -> list[str]:
+    def load_src(var: str, ptr: str, mask: str | None) -> str:
+        return f"{var} = tl.load({ptr}" + (f", mask={mask}, other=0.0)" if mask else ")")
+
+    def load_lines(comp, loaded: dict, slab: dict, tag: str, access) -> list[str]:
         out = []
         for i, r in enumerate(comp.reads):
             key = (r.array, r.index)
@@ -388,33 +573,81 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
                 continue
             if key not in loaded:
                 var = f"v{len(loaded)}_{tag}"
-                ptr, mask = access_src(r, rank)
-                out.append(f"{var} = tl.load({ptr}" + (f", mask={mask}, other=0.0)" if mask else ")"))
+                out.append(load_src(var, *access(r)))
                 loaded[key] = var
             loaded[(tag, i)] = loaded[key]
         return out
 
-    if plan.kind == "parallel":
+    def parallel_body(access, guards: bool, shape: str, sfx: str = "") -> list[str]:
+        """The computations in order over one block: ``access(a)`` gives an
+        access's (pointer, mask); ``shape`` is the block's shape (a constant
+        value is broadcast to it); ``sfx`` keeps the names of two bodies of
+        one kernel apart."""
+        out: list[str] = []
         slab: dict[str, tuple[tuple, str]] = {}
         loaded: dict = {}
         for ci, comp in enumerate(plan.comps):
-            tag = f"c{ci}"
-            body += load_lines(comp, n_axes, loaded, slab, tag)
-            lines, val = _expr_lines(comp.expr, lambda i, tag=tag: loaded[(tag, i)], f"e{ci}_")
-            body += lines
-            wptr, wmask = access_src(comp.write, n_axes)
-            guard = guard_src(comp, n_axes)
-            body.append(f"w{ci} = {wptr}")
-            body.append(f"old{ci} = tl.load(w{ci}, mask={wmask}, other=0.0)")
-            new = val if comp.accumulate is None else _COMBINE_SRC[comp.accumulate].format(
-                a=f"old{ci}", b=val)
-            sel = " & ".join(x for x in (wmask, guard) if x)
-            body.append(f"new{ci} = tl.where({sel}, {new}, old{ci})")
-            body.append(f"tl.store(w{ci}, new{ci}, mask={sel})")
+            tag = f"c{ci}{sfx}"
+            out += load_lines(comp, loaded, slab, tag, access)
+            lines, new = _expr_lines(comp.expr, lambda i, tag=tag: loaded[(tag, i)], f"e{ci}{sfx}_")
+            out += lines
+            wptr, wmask = access(comp.write)
+            guard = guard_src(comp, n_axes) if guards else None
+            key = (comp.write.array, comp.write.index)
+            if needs_old(plan, ci):
+                if comp.write.array in slab:  # the merged value of an earlier write
+                    old = slab[comp.write.array][1]
+                elif key in loaded:  # this computation reads its write index
+                    old = loaded[key]
+                else:
+                    old = f"old{ci}{sfx}"
+                    out.append(load_src(old, wptr, wmask))
+                if comp.accumulate is not None:
+                    new = _COMBINE_SRC[comp.accumulate].format(a=old, b=new)
+                if guard:
+                    new = f"tl.where({guard}, {new}, {old})"
+            elif _is_literal(new):
+                new = f"tl.full({shape}, {new}, tl.float32)"
+            w = f"w{ci}{sfx}"
+            out.append(f"{w} = {wptr}")
+            if not new.isidentifier():
+                out.append(f"new{ci}{sfx} = {new}")
+                new = f"new{ci}{sfx}"
+            smask = " & ".join(x for x in (wmask, guard) if x)
+            out.append(f"tl.store({w}, {new}" + (f", mask={smask})" if smask else ")"))
             # later reads of this array use the in-register value (the
             # planner rejects reads of it at any other index)
-            slab[comp.write.array] = (comp.write.index, f"new{ci}")
+            slab[comp.write.array] = (comp.write.index, new)
+        return out
+
+    def indent(lines: list[str], n: int = 1) -> list[str]:
+        return ["    " * n + ln for ln in lines]
+
+    extra: list[str] = []
+    if plan.kind == "parallel":
+        extra = ["FLAT: tl.constexpr", "BLOCK: tl.constexpr"]
+        block_shape = "[" + ", ".join(str(a.block) for a in axes) + "]"
+        tiled = (["pid = tl.program_id(0)"] + decomp
+                 + parallel_body(lambda a: access_src(a, n_axes), True, block_shape))
+        if nk.flat:
+            # one program a block; only the last block of the range is ragged
+            g = grp[nk.arrays[0]]
+            size = " * ".join(f"n{g}_{d}" for d in range(n_axes))
+            flat_ptr = lambda a: f"p{arr_ix[a.array]} + offs"  # noqa: E731
+            body = (["if FLAT:"]
+                    + indent([f"nflat = {size}",
+                              "offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
+                              "if tl.program_id(0) * BLOCK + BLOCK <= nflat:"]
+                             + indent(parallel_body(lambda a: (flat_ptr(a), None), False,
+                                                    "[BLOCK]"))
+                             + ["else:", "    fm = offs < nflat"]
+                             + indent(parallel_body(lambda a: (flat_ptr(a), "fm"), False,
+                                                    "[BLOCK]", "_m")))
+                    + ["else:"] + indent(tiled))
+        else:
+            body = tiled
     else:
+        body = ["pid = tl.program_id(0)"] + decomp + inner
         comp = plan.comps[0]
         op = comp.accumulate
         red = plan.reduce_grid
@@ -435,7 +668,7 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
             loop.append(f"m{rk} = (r{rk} < {chunk}) & (x{rk} < hi{rk})")
             loaded: dict = {}
             tag = f"u{c}"
-            loop += load_lines(comp, n_axes, loaded, {}, tag)
+            loop += load_lines(comp, loaded, {}, tag, lambda a: access_src(a, n_axes))
             lines, val = _expr_lines(comp.expr, lambda i, tag=tag: loaded[(tag, i)], f"e{c}_")
             loop += lines
             loop.append(f"z{c} = tl.where({full_mask}, {val}, {_NEUTRAL_SRC[op]})")
@@ -444,7 +677,7 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
             if c:
                 loop.append(f"z0 = " + _COMBINE_SRC[op].format(a="z0", b=f"z{c}"))
         loop.append("acc = " + _COMBINE_SRC[op].format(a="acc", b="z0"))
-        loop = ["    " + ln for ln in loop]
+        loop = indent(loop)
         wptr, wmask = access_src(comp.write, n_par)
 
         def write(v: str) -> list[str]:
@@ -461,6 +694,7 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
                                         for k in range(n_par))
             size = nk.par_block_elems
             splits = "tl.num_programs(1)"
+            extra = ["ws", "cnt", "per"]
             # every thread's partial is stored before the counter's release;
             # the last to arrive reads the partials past L1 (".cg")
             body = (["prog = tl.program_id(0)", "pid = prog"] + decomp + inner
@@ -471,21 +705,20 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
                        "tl.debug_barrier()",
                        'arrived = tl.atomic_add(cnt + prog, 1, sem="acq_rel")',
                        f"if arrived == {splits} - 1:"]
-                    + ["    " + ln for ln in
-                       [f'tot = tl.load(ws + prog * {size} + off, cache_modifier=".cg")',
-                        f"for s in range(1, {splits}):",
-                        f"    z = tl.load(ws + (s * tl.num_programs(0) + prog) * {size} + off, "
-                        'cache_modifier=".cg")',
-                        "    tot = " + _COMBINE_SRC[op].format(a="tot", b="z")]
-                       + write("tot") + ["tl.atomic_xchg(cnt + prog, 0)"]])
+                    + indent([f'tot = tl.load(ws + prog * {size} + off, cache_modifier=".cg")',
+                              f"for s in range(1, {splits}):",
+                              f"    z = tl.load(ws + (s * tl.num_programs(0) + prog) * {size} + off, "
+                              'cache_modifier=".cg")',
+                              "    tot = " + _COMBINE_SRC[op].format(a="tot", b="z")]
+                             + write("tot") + ["tl.atomic_xchg(cnt + prog, 0)"]))
 
     src = ["import triton", "import triton.language as tl", ""]
     src += ["", "@triton.jit", "def _mul(a, b):", "    return a * b", ""]
     for h in _helpers(nk):
         src += ["", h, ""]
-    name, extra = ("nest_split", ["ws", "cnt", "per"]) if split else ("nest_kernel", [])
+    name = "nest_split" if split else "nest_kernel"
     src += ["", "@triton.jit", f"def {name}({', '.join(params + extra)}):"]
-    src += ["    " + ln for ln in body]
+    src += indent(body)
     return "\n".join(src) + "\n"
 
 

@@ -11,7 +11,13 @@ arithmetic against fp64 in an emulation on the CPU.  The nest-kernel cases
 are tests/test_tiling.py's edge cases, built from the port's IR, plus K3's
 split form at every split count of a reduction with each op, with and
 without a guard; ``test_torch_kernels.py`` runs the same cases through the
-plain versions against the reference on the CPU.  The K4/K5 cases are
+plain versions against the reference on the CPU.  K2's forms (``K2_CASES``)
+run where the old content is elided and where it is kept (an accumulate, a
+guard then a slab read), on a halo write out of the array, flattened (rows
+not a multiple of 16; a range that its blocks divide and one they do not)
+and tiled (tiles that divide the extent and ragged ones), and one planned
+nest again on other strides;
+``test_torch_nest_kernel.py`` holds their generated source on the CPU.  The K4/K5 cases are
 tests/test_kernels.py's sweeps plus the head sizes the configs use (K4 also
 at the decode rows, past its registers and off 16-byte alignment), K5
 through each of its three kernels (``_launch``: the tensor-core kernel in
@@ -100,6 +106,101 @@ def guarded_reduce_op(ir, op, n, m):
                                        ir.Array("y", (n,))),
                       (ir.Loop("i", n, body=(ir.Loop("k", m, body=(c,)),)),))
 
+
+
+def pointwise(ir, n, m):
+    """A pointwise nest of three computations over arrays of its own shape
+    (the mini CLOUDSC scheme's form): a temporary written first, an update
+    that reads its own write index, and a read of both from the slab."""
+    R, acc = ir.Read, ir.acc
+    ij = ("i", "j")
+    comps = (
+        ir.Computation("t", acc("T", *ij), (acc("A", *ij),), R(0) * 2.0),
+        ir.Computation("b", acc("B", *ij), (acc("B", *ij), acc("T", *ij), acc("A", *ij)),
+                       R(0) + R(1) / (R(2) * R(2) + 1.5)),
+        ir.Computation("c", acc("C", *ij), (acc("T", *ij), acc("B", *ij)), R(0) - R(1)))
+    return ir.Program("pointwise", tuple(ir.Array(a, (n, m)) for a in "ABCT"),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=comps),)),))
+
+
+def fill(ir, n, m):
+    """A constant fill (PolyBench's ``tmp[i][j] = 0``): nothing read."""
+    z = ir.Computation("z", ir.acc("Z", "i", "j"), (), ir.Const(0.0))
+    return ir.Program("fill", (ir.Array("Z", (n, m)),),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=(z,)),)),))
+
+
+def accumulate(ir, n, m, guarded=False):
+    """``C[i][j] += A[i][j] * 0.5`` (where ``i >= j`` if ``guarded``): the
+    old content is an operand."""
+    c = ir.Computation("acc", ir.acc("C", "i", "j"), (ir.acc("A", "i", "j"),),
+                       ir.Read(0) * 0.5, accumulate="+",
+                       guards=(ir.aff("i", ("j", -1)),) if guarded else ())
+    return ir.Program("accumulate", (ir.Array("A", (n, m)), ir.Array("C", (n, m))),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=(c,)),)),))
+
+
+def guarded_forward(ir, n, m):
+    """A guarded write read back from the slab by a later computation: on
+    the lanes the guard leaves, the slab holds the old content."""
+    R, acc = ir.Read, ir.acc
+    comps = (
+        ir.Computation("g", acc("B", "i", "j"), (acc("A", "i", "j"),), R(0) * 2.0,
+                       guards=(ir.aff("i", ("j", -1)),)),
+        ir.Computation("f", acc("C", "i", "j"), (acc("B", "i", "j"),), R(0) + 1.0))
+    return ir.Program("gforward", tuple(ir.Array(a, (n, m)) for a in "ABC"),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=comps),)),))
+
+
+def guarded_then_accumulated(ir, n, m):
+    """A guarded write whose merged value the next computation accumulates
+    onto: the guard's unselected lanes reach the store through the slab."""
+    R, acc = ir.Read, ir.acc
+    comps = (
+        ir.Computation("g", acc("B", "i", "j"), (acc("A", "i", "j"),), R(0) * 2.0,
+                       guards=(ir.aff("i", ("j", -1)),)),
+        ir.Computation("a", acc("B", "i", "j"), (acc("A", "i", "j"),), R(0), accumulate="+"))
+    return ir.Program("gacc", tuple(ir.Array(a, (n, m)) for a in "AB"),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=comps),)),))
+
+
+def halo_write(ir, n, m, rows=None):
+    """``B[i+1][j]`` written for every ``i < rows`` and read back from the
+    slab; at ``rows = n`` (the default) the last row lies outside B and is
+    not stored."""
+    R, acc, aff = ir.Read, ir.acc, ir.aff
+    comps = (
+        ir.Computation("h", acc("B", aff("i", const=1), "j"), (acc("A", "i", "j"),), R(0) * 2.0),
+        ir.Computation("r", acc("C", "i", "j"), (acc("B", aff("i", const=1), "j"), acc("A", "i", "j")),
+                       R(0) + R(1)))
+    return ir.Program("halo", tuple(ir.Array(a, (n, m)) for a in "ABC"),
+                      (ir.Loop("i", rows or n, body=(ir.Loop("j", m, body=comps),)),))
+
+
+def broadcast_update(ir, n, m):
+    """gemver's ``A[i][j] = A[i][j] + u[i] * v[j]``: a broadcast keeps the
+    tiled form, and the write index is read once."""
+    R, acc = ir.Read, ir.acc
+    c = ir.Computation("up", acc("A", "i", "j"), (acc("A", "i", "j"), acc("u", "i"), acc("v", "j")),
+                       R(0) + R(1) * R(2))
+    return ir.Program("bcast", (ir.Array("A", (n, m)), ir.Array("u", (n,)), ir.Array("v", (m,))),
+                      (ir.Loop("i", n, body=(ir.Loop("j", m, body=(c,)),)),))
+
+
+# K2's forms on the card: (label, program, explicit tile or None)
+K2_CASES = [
+    ("pointwise 37x45 (rows of 45)", lambda ir: pointwise(ir, 37, 45), None),
+    ("pointwise 64x128", lambda ir: pointwise(ir, 64, 128), None),
+    ("pointwise 300x301 tile (8, 16)", lambda ir: pointwise(ir, 300, 301), (8, 16)),
+    ("fill 37x45", lambda ir: fill(ir, 37, 45), None),
+    ("accumulate 33x70", lambda ir: accumulate(ir, 33, 70), None),
+    ("guarded accumulate 33x70 tile (8, 16)", lambda ir: accumulate(ir, 33, 70, True), (8, 16)),
+    ("guard then slab read 19x23", lambda ir: guarded_forward(ir, 19, 23), (4, 8)),
+    ("halo write out of the array 19x23", lambda ir: halo_write(ir, 19, 23), (4, 8)),
+    ("broadcast 16x32, tiles divide", lambda ir: broadcast_update(ir, 16, 32), (4, 8)),
+    ("broadcast 18x37, ragged tiles", lambda ir: broadcast_update(ir, 18, 37), (4, 8)),
+    ("broadcast 200x3000 default tile", lambda ir: broadcast_update(ir, 200, 3000), None),
+]
 
 # tests/test_kernels.py's flash-attention sweep: (BHq, BHkv, Sq, Skv, causal, window, offset)
 ATTN_SWEEP = [
@@ -352,6 +453,73 @@ def test_nest_kernel_on_card(card, label, build, knobs):
     p_nest.nest_plain(nk, ref)
     for name in env:
         assert max_rel(env[name].cpu().numpy(), ref[name].cpu().numpy()) < MAX_REL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,build,tile", K2_CASES, ids=[c[0] for c in K2_CASES])
+def test_nest_kernel_forms_on_card(card, label, build, tile):
+    """K2 against its plain version where it elides the old content and
+    where it keeps it (accumulate, guard then slab read), on a halo write
+    out of the array, flattened (rows not a multiple of 16; 64 x 128 runs
+    only the unmasked body, 37 x 45 also the masked last block) and tiled,
+    on tiles that divide the extent and ragged ones: one launch a run."""
+    prog = build(pir)
+    inp = random_inputs(prog, seed=5)
+    env = {k: torch.tensor(v, device=card) for k, v in inp.items()}
+    ref = {k: v.clone() for k, v in env.items()}
+    nk = p_nest.plan_nest(prog, prog.body[0], Schedule(use_idioms=False, pallas_nest=True,
+                                                       nest_tile=tile))
+    before = p_nest.EMITTED["pallas_nest"], p_nest.FLAT["pallas_nest"]
+    p_nest.run_nest(nk, env)
+    torch.cuda.synchronize()
+    assert p_nest.EMITTED["pallas_nest"] == before[0] + 1
+    assert p_nest.FLAT["pallas_nest"] == before[1] + nk.flat
+    p_nest.nest_plain(nk, ref)
+    for name in env:
+        assert max_rel(env[name].cpu().numpy(), ref[name].cpu().numpy()) < MAX_REL, name
+
+
+def _strided(base: torch.Tensor, pad: int) -> torch.Tensor:
+    """A copy of ``base`` in rows ``pad`` elements longer than its own."""
+    n, m = base.shape
+    out = torch.full((n, m + pad), float("nan"), device=base.device)[:, :m]
+    out.copy_(base)
+    return out
+
+
+@pytest.mark.cuda
+def test_nest_kernel_recalled_on_other_strides_on_card(card):
+    """One planned nest called on contiguous arrays (flattened), then on rows
+    padded to 64 elements and on column-major arrays (tiled), then on
+    contiguous arrays again (the kernel bound at the first call, launched
+    directly), each against the plain version; and arrays of one parameter
+    group that disagree in strides raise."""
+    prog = pointwise(pir, 37, 45)
+    inp = random_inputs(prog, seed=6)
+    base = {k: torch.tensor(v, device=card) for k, v in inp.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    nk = p_nest.plan_nest(prog, prog.body[0], Schedule(use_idioms=False, pallas_nest=True))
+    p_nest.nest_plain(nk, want)
+    layouts = {
+        "contiguous": lambda t: t.clone(),
+        "rows of 64": lambda t: _strided(t, 64 - t.shape[1]),
+        "column-major": lambda t: t.t().contiguous().t(),
+    }
+    for label, lay in [*layouts.items(), ("contiguous", layouts["contiguous"])]:
+        env = {k: lay(v) for k, v in base.items()}
+        before = p_nest.EMITTED["pallas_nest"], p_nest.FLAT["pallas_nest"]
+        p_nest.run_nest(nk, env)
+        torch.cuda.synchronize()
+        assert p_nest.EMITTED["pallas_nest"] == before[0] + 1, label
+        assert p_nest.FLAT["pallas_nest"] == before[1] + (label == "contiguous"), label
+        for name in env:
+            assert max_rel(env[name].cpu().numpy(), want[name].cpu().numpy()) < MAX_REL, (label, name)
+    # one compiled kernel bound per layout; the second contiguous run reused its own
+    assert len(nk.compiled) == 3
+    mixed = {k: v.clone() for k, v in base.items()}
+    mixed["B"] = _strided(base["B"], 3)
+    with pytest.raises(ValueError, match="parameter group"):
+        p_nest.run_nest(nk, mixed)
 
 
 @pytest.mark.cuda

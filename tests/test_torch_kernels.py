@@ -31,7 +31,9 @@ from repro_torch.core.tiling import TilingError
 from repro_torch.kernels import gemm as p_gemm
 from repro_torch.kernels import nest_kernel as p_nest
 from repro_torch.kernels import ops as p_ops
-from test_torch_card import CASES, reduce_op, stencil, syrk1, triangle
+from test_torch_card import (CASES, accumulate, broadcast_update, fill, guarded_forward,
+                             guarded_then_accumulated, halo_write, pointwise, reduce_op, stencil,
+                             syrk1, triangle)
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(42)
@@ -241,9 +243,27 @@ def test_einsum2_batched_contraction_is_routed_before_launch():
 
 
 # ---------------------------------------------------------------------------
-# K2/K3: the nest kernel, on tests/test_tiling.py's edge cases (CASES)
+# K2/K3: the nest kernel, on tests/test_tiling.py's edge cases (CASES) and on
+# the cases where K2's old content decides the result (K2_REF_CASES)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("label,build,knobs", CASES, ids=[c[0] for c in CASES])
+K2_REF_CASES = [
+    (f"{label}-{tile}", build, dict(pallas_nest=True, nest_tile=tile))
+    for label, build, tiles in [
+        ("pointwise", lambda ir: pointwise(ir, 9, 13), [None, (4, 8)]),
+        ("fill", lambda ir: fill(ir, 9, 13), [None]),
+        ("accumulate", lambda ir: accumulate(ir, 9, 13), [None, (4, 8)]),
+        ("guarded-accumulate", lambda ir: accumulate(ir, 9, 13, True), [(4, 8)]),
+        ("guarded-forward", lambda ir: guarded_forward(ir, 9, 13), [(4, 8)]),
+        ("halo-write", lambda ir: halo_write(ir, 9, 13, rows=8), [(4, 8), (3, 5)]),
+        ("guarded-then-accumulated", lambda ir: guarded_then_accumulated(ir, 9, 13), [(4, 8)]),
+        ("broadcast-update", lambda ir: broadcast_update(ir, 9, 13), [None, (4, 8)]),
+    ]
+    for tile in tiles
+]
+
+
+@pytest.mark.parametrize("label,build,knobs", CASES + K2_REF_CASES,
+                         ids=[c[0] for c in CASES + K2_REF_CASES])
 def test_emit_nest_matches_reference(label, build, knobs):
     rprog, pprog = build(rir), build(pir)
     inp = random_inputs(pprog, seed=4, dtype=np.float64)
@@ -261,6 +281,35 @@ def test_emit_nest_matches_reference(label, build, knobs):
         assert max_rel(env[name].numpy(), oracle[name]) < MAX_REL, name
     if label == "stencil-(4, 8)":  # untouched boundary rows keep their content
         np.testing.assert_array_equal(env["B"].numpy()[0], inp["B"][0].astype(np.float32))
+
+
+@pytest.mark.parametrize("tile", [(4, 8), (3, 5)])
+def test_halo_write_out_of_the_array_matches_reference(tile):
+    """``B[i+1][j]`` for every row ``i`` of B, read back by ``C[i][j]``: on
+    the row past B the slab forwards the new value, as the reference's
+    does, so C matches the reference everywhere.  B's stored rows do not:
+    the reference writes its output view back with
+    ``lax.dynamic_update_slice``, which clamps a view that runs past the
+    array, and stores B shifted by a row; the port stores B[1:] only (the
+    sequential semantics stop at the write outside B)."""
+    rprog, pprog = halo_write(rir, 9, 13), halo_write(pir, 9, 13)
+    inp = random_inputs(pprog, seed=4, dtype=np.float64)
+    want = r_nest.emit_nest(rprog, rprog.body[0],
+                            {k: jnp.asarray(v, jnp.float32) for k, v in inp.items()},
+                            RSchedule(mode="canonical", use_idioms=False, pallas_nest=True,
+                                      nest_tile=tile))
+    env = {k: torch.tensor(v, dtype=torch.float32) for k, v in inp.items()}
+    p_nest.emit_nest(pprog, pprog.body[0], env, Schedule(use_idioms=False, pallas_nest=True,
+                                                         nest_tile=tile))
+    a, b = inp["A"].astype(np.float32), inp["B"].astype(np.float32)
+    for name in ("A", "C"):
+        assert max_rel(env[name].numpy(), np.asarray(want[name])) < MAX_REL, name
+    np.testing.assert_allclose(env["C"].numpy()[-1], 3.0 * a[-1], rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(want["B"]), 2.0 * a, rtol=1e-6)  # shifted
+    np.testing.assert_array_equal(env["B"].numpy()[0], b[0])
+    np.testing.assert_allclose(env["B"].numpy()[1:], 2.0 * a[:-1], rtol=1e-6)
+    with pytest.raises(IndexError):
+        execute_numpy(pprog, inp)
 
 
 @pytest.mark.parametrize("build,tile", [
@@ -326,6 +375,12 @@ def test_generated_triton_source_parses_for_every_eligible_nest():
         else:
             with pytest.raises(ValueError):
                 nk.split_source
+            # K2: the flattened form's constexprs; its branch only in a
+            # pointwise nest (tests/test_torch_nest_kernel.py)
+            fn = next(f for f in ast.parse(nk.source).body
+                      if isinstance(f, ast.FunctionDef) and f.name == "nest_kernel")
+            assert [a.arg for a in fn.args.args][-2:] == ["FLAT", "BLOCK"]
+            assert ("if FLAT:" in nk.source) == nk.flat
         for attr, entries in sources.items():
             tree = ast.parse(getattr(nk, attr))
             fns = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
