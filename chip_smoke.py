@@ -95,10 +95,22 @@ Phases, in order (any failure exits nonzero):
    prefill bucket's K6 time by kernel; then the MoE layer alone on every
    layer's weights and random inputs, a
    2048-token bucket and a 16-slot decode step, against the plain fp32
-   layer, every expert keeping tokens of the bucket.
+   layer, every expert keeping tokens of the bucket;
+10. seeding and transfer on the card: the tune CLI's ``tune`` in-process
+   (one card, ``jobs=1``) with search (1 iteration, population 4) and the
+   transfer epoch over the A variants of gemm, atax, jacobi-2d and
+   correlation and CLOUDSC's erosion and scheme at ``bench``, every
+   candidate built and timed on the card: its seconds, measurements, recipe
+   kinds, K2/K3 launches (each > 0) and routing decisions, no nest
+   quarantined or unmeasured; then ``Daisy.pretuned()`` over
+   ``data/pretuned_cuda.json`` on the 15 benchmarks x {a, b, np} at
+   ``bench``: every nest exact against the reference's
+   ``data/pretuned_xla.json`` exact against it too, outputs against
+   ``Daisy(backend="torch")``, first and second call beside phase 4's
+   hand-seeded plan.
 
-Kernel recipes are seeded, per canonical nest, for every nest the nest
-planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
+In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
+every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
 ``pallas_nest`` / ``pallas_reduce`` for the rest), into a database without
 nearest-neighbour transfer so each nest gets exactly its own recipe.
 
@@ -835,7 +847,8 @@ def _timed(torch, fn, inputs):
     return env, time.perf_counter() - t0
 
 
-def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label) -> None:
+def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label) -> tuple:
+    """Returns ``backend="cuda"``'s first and second call, in seconds."""
     seed_kernel_recipes(cuda_daisy, program)
     t0 = time.perf_counter()
     fn_k, plan = cuda_daisy.compile(program)
@@ -861,6 +874,7 @@ def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label)
     log(f"  {label}: ok (max rel vs torch {worst:.2e}); recipes {kinds}; "
         f"compile {t_compile:.2f} s; run: cuda {t_k:.4f} s (first {first_k:.3f} s), "
         f"torch {t_t:.4f} s (first {first_t:.3f} s)")
+    return first_k, t_k
 
 
 def check_oracle(torch, cuda_daisy, program, inputs, outputs, label) -> None:
@@ -884,8 +898,9 @@ def check_oracle(torch, cuda_daisy, program, inputs, outputs, label) -> None:
     log(f"  {label} small: matches execute_numpy")
 
 
-def main_path(torch) -> dict:
-    """Phases 4-5; returns the fp32 shapes K1 took in the LARGE programs."""
+def main_path(torch) -> tuple[dict, dict]:
+    """Phases 4-5; returns the fp32 shapes K1 took in the LARGE programs and
+    the hand-seeded plan's (first, second) call at ``bench`` by label."""
     import numpy as np
 
     from repro_torch.cloudsc import (erosion_program, mini_cloudsc_program, physical_inputs,
@@ -911,12 +926,14 @@ def main_path(torch) -> dict:
     ]
     for prog, inputs, outputs, label in oracle_programs:
         check_oracle(torch, cuda_daisy, prog, inputs, outputs, label)
+    bench_times = {}
     for name in NAMES:
         b = BENCHMARKS[name]
         for var in ("a", "b", "np"):
             prog = b.make(var, BENCH_SIZE)
-            run_program(torch, cuda_daisy, torch_daisy, prog, random_inputs(prog, seed=3),
-                        [b.output], f"{name}/{var} {BENCH_SIZE}")
+            label = f"{name}/{var} {BENCH_SIZE}"
+            bench_times[label] = run_program(torch, cuda_daisy, torch_daisy, prog,
+                                             random_inputs(prog, seed=3), [b.output], label)
     with GemmShapes(ops) as gemm_shapes:
         for name in NAMES:
             b = BENCHMARKS[name]
@@ -934,7 +951,106 @@ def main_path(torch) -> dict:
                  "cloudsc mini scheme")
     run_program(torch, cuda_daisy, torch_daisy, saturation_chain_program(NPROMA, KLEV),
                  f32(saturation_chain_inputs(NPROMA, KLEV)), ["TEND"], "cloudsc saturation chain")
-    return gemm_shapes.shapes
+    return gemm_shapes.shapes, bench_times
+
+
+# ---------------------------------------------------------------------------
+# phase 10: seeding and transfer on the card
+# ---------------------------------------------------------------------------
+SEARCH_NAMES = ("gemm", "atax", "jacobi-2d", "correlation")  # with CLOUDSC's two programs
+
+
+def seeding_path(torch, nkm, codegen, bench_times: dict) -> None:
+    """Phase 10: (a) the tune CLI's ``tune`` in-process on the card, with
+    search and transfer, over the A variants of ``SEARCH_NAMES`` and the two
+    CLOUDSC programs at ``bench``; K2 and K3 must launch during the search and
+    no nest may be quarantined or unmeasured.  (b) ``Daisy.pretuned()`` over
+    ``data/pretuned_cuda.json`` on the 15 benchmarks x {a, b, np} at
+    ``bench``: every nest that resolves exactly against the reference's
+    ``pretuned_xla.json`` does so against it too, and the outputs agree with
+    ``Daisy(backend="torch")``; each program's first and second call beside
+    phase 4's hand-seeded plan."""
+    import tempfile
+
+    from repro_torch.core import Daisy, TuningDatabase
+    from repro_torch.core.database import default_pretuned_path
+    from repro_torch.core.scheduler import random_inputs
+    from repro_torch.polybench import BENCHMARKS, NAMES
+    from repro_torch.tools import tune as T
+
+    t0 = time.perf_counter()
+    emitted, routed = dict(nkm.EMITTED), dict(codegen.ROUTED)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-") as tmp:
+        db, _ = T.tune(suite="all", size=BENCH_SIZE, backend="cuda", device="cuda",
+                       names=list(SEARCH_NAMES), out=Path(tmp) / "db.json", jobs=1,
+                       iterations=1, population=4, repeats=3, verbose=False)
+    torch.cuda.synchronize()
+    launched = {k: nkm.EMITTED[k] - emitted[k] for k in emitted}
+    routed = {k: n - routed.get(k, 0) for k, n in codegen.ROUTED.items() if n > routed.get(k, 0)}
+    summary = db.summary()
+    search_s = time.perf_counter() - t0
+    log(f"  (a) tune: {summary['entries']} nests in {search_s:.1f} s, "
+        f"{db.meta['measurements']} measurements; recipes {summary['kinds']}; provenance "
+        f"{summary['provenance']}; launches K2 {launched['pallas_nest']}, K3 "
+        f"{launched['pallas_reduce']}; routed to torch {sum(routed.values())}")
+    for reason, n in sorted(routed.items()):
+        log(f"    {n} x {reason}")
+    if db.meta.get("quarantined"):
+        raise AssertionError(f"phase 10: nests quarantined: {db.meta['quarantined']}")
+    if summary["entries"] != db.meta["nests_tuned"] or summary["measured"] != summary["entries"]:
+        raise AssertionError(f"phase 10: {db.meta['nests_tuned']} nests tuned, "
+                             f"{summary['entries']} entries, {summary['measured']} measured")
+    for k, n in launched.items():
+        if n <= 0:
+            raise AssertionError(f"phase 10: {k} was not launched during the search")
+
+    t1 = time.perf_counter()
+    pre = Daisy.pretuned()
+    xla = Daisy(db=TuningDatabase.load(default_pretuned_path("xla")), backend="torch")
+    plain = Daisy(backend="torch")
+    n_exact = n_nests = 0
+    kinds: dict[str, int] = {}
+    by_idiom: dict[str, dict[str, set[str]]] = {}  # idiom -> kind -> fingerprints
+    for name in NAMES:
+        b = BENCHMARKS[name]
+        for var in ("a", "b", "np"):
+            prog = b.make(var, BENCH_SIZE)
+            label = f"{name}/{var} {BENCH_SIZE}"
+            want_exact = {n.fingerprint for n in xla.plan(prog).nests if n.source == "exact"}
+            fn, plan = pre.compile(prog)
+            lost = [n.fingerprint for n in plan.nests
+                    if n.fingerprint in want_exact and n.source != "exact"]
+            if lost:
+                raise AssertionError(f"phase 10: {label}: {len(lost)} nests exact against "
+                                     f"pretuned_xla.json are not exact against the cuda file")
+            n_exact += sum(n.source == "exact" for n in plan.nests)
+            n_nests += len(plan.nests)
+            for n in plan.nests:
+                kinds[n.recipe.kind] = kinds.get(n.recipe.kind, 0) + 1
+                by_idiom.setdefault(n.idiom, {}).setdefault(n.recipe.kind, set()).add(n.fingerprint)
+            inputs = random_inputs(prog, seed=3)
+            env, first = _timed(torch, fn, inputs)
+            ref = plain.compile(prog)[0](inputs)
+            got, want = env[b.output], ref[b.output]
+            if tuple(got.shape) != tuple(prog.array(b.output).shape) \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"phase 10: {label}: {b.output} has shape "
+                                     f"{tuple(got.shape)} or non-finite values")
+            if not torch.allclose(got, want, rtol=PROGRAM_RTOL, atol=PROGRAM_ATOL):
+                raise AssertionError(f"phase 10: {label}: {b.output} differs from the torch "
+                                     f"backend (max rel {max_rel(got, want):.3e})")
+            del env, ref
+            second = _timed(torch, fn, inputs)[1]
+            hand = bench_times[label]
+            log(f"  (b) {label}: ok (max rel vs torch {max_rel(got, want):.2e}); "
+                f"pretuned first {first:.3f} s, second {second:.4f} s; hand-seeded "
+                f"(phase 4) first {hand[0]:.3f} s, second {hand[1]:.4f} s")
+    log(f"  (b) {n_exact} of {n_nests} nests exact; recipes {kinds}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    distinct = {idiom: {k: len(fps) for k, fps in sorted(ks.items())}
+                for idiom, ks in sorted(by_idiom.items())}
+    log(f"  (b) recipes by idiom over the distinct nests: {distinct}")
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2279,7 +2395,7 @@ def main(argv: list[str] | None = None) -> int:
     nkm.SPLIT["pallas_reduce"] = 0
     nkm.FLAT["pallas_nest"] = 0
     codegen.ROUTED.clear()
-    gemm_shapes = main_path(torch)
+    gemm_shapes, bench_times = main_path(torch)
     torch.cuda.synchronize()
     launches = {"gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
@@ -2391,6 +2507,11 @@ def main(argv: list[str] | None = None) -> int:
             raise AssertionError(f"kernel {k} was not launched on the MoE serving path")
     check_moe_layer(torch, mcfg, mparams)
     del served, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 10: seeding and transfer on the card (the tune CLI, then Daisy.pretuned())")
+    seeding_path(torch, nkm, codegen, bench_times)
 
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]

@@ -1,8 +1,11 @@
 """Transfer-tuning database (paper §4): canonical nest -> recipe.
 
-Port of ``repro/core/database.py``: a copy of the lookup and the v2 JSON
-persistence (``add``/``lookup``/``load``/``save``); merging and fold-back
-are not ported yet.
+Port of ``repro/core/database.py``: a copy of the lookup, the v2 JSON
+persistence, ``merge``, ``replace_entry`` and ``summary``, with import roots
+changed.  Files written by either package load in the other (fingerprints
+are byte-identical).  The shipped databases are ``data/pretuned_cuda.json``
+(tuned on the card by ``repro_torch.tools.tune``, the default) and the
+reference's ``data/pretuned_xla.json``.
 
 Lookup order mirrors the paper exactly:
  1. exact fingerprint match ("if a B loop nest is reduced to an A loop nest")
@@ -43,7 +46,7 @@ class DatabaseCorruption(RuntimeError):
     """A database file (and its ``.bak``, if any) failed to parse or failed
     its content checksum."""
 
-# Directory holding the shipped pretuned databases (``repro.tools.tune``
+# Directory holding the shipped pretuned databases (``repro_torch.tools.tune``
 # output).  Overridable for deployments that stage their own tuning data.
 PRETUNED_DIR_ENV = "REPRO_PRETUNED_DIR"
 
@@ -54,7 +57,7 @@ def pretuned_dir() -> Path:
     return Path(d) if d else Path(__file__).resolve().parents[3] / "data"
 
 
-def default_pretuned_path(backend: str = "xla") -> Path:
+def default_pretuned_path(backend: str = "cuda") -> Path:
     """Path of the shipped pretuned database for ``backend``.
 
     Looks for ``pretuned_<backend>.json`` then the generic ``pretuned.json``
@@ -69,9 +72,17 @@ def default_pretuned_path(backend: str = "xla") -> Path:
     raise FileNotFoundError(
         f"no pretuned database for backend {backend!r} under {root} "
         f"(looked for {', '.join(c.name for c in cands)}); generate one with "
-        f"`python -m repro.tools.tune --suite all --backend {backend} "
+        f"`python -m repro_torch.tools.tune --suite all --backend {backend} "
         f"--out {cands[0]}`"
     )
+
+
+def try_load_pretuned(backend: str = "cuda") -> "TuningDatabase | None":
+    """The shipped pretuned database, or None when none is installed."""
+    try:
+        return TuningDatabase.load(default_pretuned_path(backend))
+    except FileNotFoundError:
+        return None
 
 
 @dataclass
@@ -161,6 +172,29 @@ class TuningDatabase:
         self._gen += 1
         return "added"
 
+    def replace_entry(
+        self, fingerprint: str, recipe: Recipe,
+        measured_us: float | None = None, provenance: str = "",
+    ) -> tuple[Recipe, float | None, str]:
+        """Unconditionally swap an entry's recipe; returns the previous
+        ``(recipe, measured_us, provenance)`` so the caller can restore it.
+
+        ``add`` keeps whichever recipe carries the *smaller* measurement —
+        correct for offline seeding, wrong for a hot-swap or rollback where
+        the incumbent's stored timing is stale and the caller has just
+        re-measured both sides.  The embedding is untouched (same canonical
+        nest), and the generation bumps so caches keyed on database state
+        expire."""
+        self._sync()
+        i = self._by_fp.get(fingerprint)
+        if i is None:
+            raise KeyError(f"no entry for fingerprint {fingerprint!r}")
+        e = self.entries[i]
+        prev = (e.recipe, e.measured_us, e.provenance)
+        e.recipe, e.measured_us, e.provenance = recipe, measured_us, provenance
+        self._gen += 1
+        return prev
+
     def lookup_exact(self, fingerprint: str) -> Recipe | None:
         """The recipe tuned for exactly this fingerprint, or None."""
         self._sync()
@@ -186,6 +220,56 @@ class TuningDatabase:
             d = np.array([distance(q, e.embedding) for e in self.entries])
         order = np.argsort(d, kind="stable")[:k]
         return [(float(d[i]), self.entries[i]) for i in order if d[i] <= self.radius]
+
+    def merge(self, other: "TuningDatabase") -> dict[str, int]:
+        """Fold ``other``'s entries into this database.
+
+        Incremental tuning runs compose: per fingerprint the better-measured
+        recipe wins (the same rule ``add`` applies), unknown fingerprints are
+        appended, tuning-run histories (``meta['runs']``) concatenate, and
+        ``other``'s remaining meta fills in missing keys.  Databases tuned
+        for different backends refuse to merge — their measurements were
+        taken under different lowerings and do not rank against each other.
+        Returns a report ``{'added': n, 'improved': n, 'kept': n}``.
+        """
+        mine = self.meta.get("backend")
+        theirs = other.meta.get("backend")
+        if mine and theirs and mine != theirs:
+            raise ValueError(
+                f"refusing to merge databases tuned for different backends "
+                f"({mine!r} vs {theirs!r}): their measurements do not rank "
+                "against each other"
+            )
+        report = {"added": 0, "improved": 0, "kept": 0}
+        label = {"added": "added", "replaced": "improved", "kept": "kept"}
+        for e in other.entries:
+            action = self.add(e.fingerprint, e.embedding, e.recipe,
+                              provenance=e.provenance, measured_us=e.measured_us)
+            report[label[action]] += 1
+        runs = list(self.meta.get("runs", []))
+        runs += [r for r in other.meta.get("runs", []) if r not in runs]
+        for k, v in other.meta.items():
+            self.meta.setdefault(k, v)
+        if runs:
+            self.meta["runs"] = runs
+        return report
+
+    def summary(self) -> dict:
+        """Size/provenance report: entry count, recipe-kind and provenance
+        histograms, how many entries carry a measurement, and the meta."""
+        kinds: dict[str, int] = {}
+        prov: dict[str, int] = {}
+        for e in self.entries:
+            kinds[e.recipe.kind] = kinds.get(e.recipe.kind, 0) + 1
+            key = e.provenance.rsplit(":", 1)[-1] if e.provenance else "unknown"
+            prov[key] = prov.get(key, 0) + 1
+        return {
+            "entries": len(self.entries),
+            "measured": sum(1 for e in self.entries if e.measured_us is not None),
+            "kinds": dict(sorted(kinds.items())),
+            "provenance": dict(sorted(prov.items())),
+            "meta": dict(self.meta),
+        }
 
     def lookup(self, fingerprint: str, embedding: np.ndarray) -> tuple[Recipe | None, str]:
         """Exact-then-nearest lookup; returns (recipe-or-None, provenance)."""

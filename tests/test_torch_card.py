@@ -32,7 +32,10 @@ each of its tile heights (C up to 32, up to 64, above), with and without
 step's and warm-up's shapes and ragged small ones, unsplit and split (bit-
 identical, the arrival counters back at zero), and the wrapper's routing of
 buckets, decode steps and misaligned views; ``test_torch_moe.py`` holds its
-plain versions against the reference.
+plain versions against the reference.  The evolutionary search's
+``measure_recipe`` times a K2 and a K3 nest on the card, and ``seed_nest``
+seeds a mini program's nests there; ``test_torch_search.py`` holds the
+search against the reference on the CPU.
 """
 import numpy as np
 import pytest
@@ -763,3 +766,62 @@ def test_flash_decode_kernel_on_card(card, slots, heads, kvh, d, skv, lens, wind
                 assert not runs[0][i * heads:(i + 1) * heads].any()
     for cnt in runtime._COUNTERS.values():
         assert int(cnt.abs().sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the evolutionary search's measurement on the card
+# ---------------------------------------------------------------------------
+def _atax_kernel_nests():
+    """atax's canonical nests at mini size that the planner puts on K2 and
+    on K3, as standalone nest programs."""
+    from repro_torch.core import Daisy
+    from repro_torch.core.scheduler import nest_program
+    from repro_torch.core.tiling import TilingError, plan_nest_tiling
+    from repro_torch.polybench import BENCHMARKS
+
+    p = Daisy(device="cpu")._normalized(BENCHMARKS["atax"].make("a", "mini"))
+    kinds = {}
+    for nest in p.body:
+        try:
+            plan = plan_nest_tiling(p, nest)
+        except TilingError:
+            continue
+        kinds.setdefault("pallas_nest" if plan.kind == "parallel" else "pallas_reduce",
+                         nest_program(p, nest))
+    assert set(kinds) == {"pallas_nest", "pallas_reduce"}
+    return kinds
+
+
+@pytest.mark.cuda
+def test_measure_recipe_times_k2_and_k3_on_card(card):
+    """``measure_recipe`` builds, launches and times a K2 and a K3 nest on the
+    card (finite times; the launch counters move), and a preset tile too."""
+    from repro_torch.core import Recipe
+    from repro_torch.core.recipes import NEST_TILE_PRESETS, REDUCE_TILE_PRESETS
+    from repro_torch.core.search import measure_recipe
+
+    presets = {"pallas_nest": NEST_TILE_PRESETS[0], "pallas_reduce": REDUCE_TILE_PRESETS[0]}
+    for kind, nprog in _atax_kernel_nests().items():
+        for tile in (None, presets[kind]):
+            before = p_nest.EMITTED[kind]
+            t = measure_recipe(nprog, random_inputs(nprog), Recipe(kind=kind, tile=tile),
+                               repeats=3, device=card)
+            assert np.isfinite(t) and t > 0, (kind, tile)
+            assert p_nest.EMITTED[kind] >= before + 4  # a warm-up and three timed runs
+
+
+@pytest.mark.cuda
+def test_seed_nest_on_card(card):
+    """``Daisy.seed_nest`` on the card returns a finite time and a kernel or
+    torch recipe for each of a mini program's nests."""
+    from repro_torch.core import Daisy
+    from repro_torch.polybench import BENCHMARKS
+
+    d = Daisy(backend="cuda", device=card)
+    p = d._normalized(BENCHMARKS["atax"].make("a", "mini"))
+    for nest in p.body:
+        fp, emb, recipe, t, prov = d.seed_nest(p, nest, search_iterations=1, population=4,
+                                               repeats=2)
+        assert np.isfinite(t) and t > 0 and prov.endswith((":search", ":idiom"))
+        assert recipe.kind in ("einsum", "vectorize", "sequential", "pallas_gemm",
+                               "pallas_nest", "pallas_reduce")

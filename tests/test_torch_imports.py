@@ -25,9 +25,11 @@ def test_every_module_is_listed():
               "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe_gmm",
               "repro_torch.models.layers",
               "repro_torch.models.model", "repro_torch.models.convert",
-              "repro_torch.models.plain", "repro_torch.serve", "repro_torch.serve.engine"):
+              "repro_torch.models.plain", "repro_torch.serve", "repro_torch.serve.engine",
+              "repro_torch.core.search", "repro_torch.fault", "repro_torch.autotune",
+              "repro_torch.tools.tune", "repro_torch.tools.explain"):
         assert m in MODULES, m
-    assert len(MODULES) >= 45
+    assert len(MODULES) >= 49
 
 
 def test_import_hygiene_subprocess():
