@@ -107,12 +107,37 @@ Phases, in order (any failure exits nonzero):
    ``bench``: every nest exact against the reference's
    ``data/pretuned_xla.json`` exact against it too, outputs against
    ``Daisy(backend="torch")``, first and second call beside phase 4's
-   hand-seeded plan.
+   hand-seeded plan;
+11. main path, LLaVA-NeXT-Mistral-7B (vlm) at its published widths, all 32
+   layers, bf16, seeded weights: served through ``ServingEngine`` (8 slots,
+   4096 positions) as in phase 7, 16 requests of 128-2048 prompt tokens,
+   text-only as the reference serves it, with ``explain_kernels()`` printed;
+   ``forward`` on 2880 seeded patch embeddings and 1216 text tokens, held
+   against the fp32 plain forward at the last 256 text positions; then
+   ``ops.matmul`` (K1) at the contraction plan's ``q_proj`` and ``ffn_in``
+   products of a 2048-token bucket in fp32 and bf16, held against the plain
+   version and timed beside ``torch.matmul``; K4/K5 launches (> 0), K5's
+   prefill only on the tensor-core kernel and its decode only on the decode
+   kernel, the forward only on the tensor-core kernel;
+12. main path, SeamlessM4T-large-v2 (audio) at its published widths, all 24
+   encoder and 24 decoder layers, bf16, seeded: served (8 slots, 2048
+   positions; 16 requests of 16-512 prompt tokens) as in phase 11, each
+   request's encoder run over zero frames at prefill as the reference's
+   stub frontend does, the watched logits held against the plain forward
+   over the same memory; ``forward`` on 4096 seeded frames and 256 tokens;
+   the same kernel routes, and every cross-attention launch of a decode
+   step on K5's decode kernel (its prefill on the tensor-core kernel).
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
 ``pallas_nest`` / ``pallas_reduce`` for the rest), into a database without
 nearest-neighbour transfer so each nest gets exactly its own recipe.
+
+Phase 3 also holds K5 and K4 at the shapes phases 11-12 add (Seamless's
+encoder and cross-attention at D = 64 and a GQA group of 1, in a bucket and
+at a decode step, its self-attention decode step, LLaVA-NeXT's
+4096-position causal forward, K4 at width 1024) and times each on the
+device beside SDPA (``F.rms_norm``) and its bound.
 
 Output: progress lines, then a JSON line with every kernel's numbers, the
 ``nvidia-smi`` line with the card's name and power limit, and last
@@ -1399,6 +1424,123 @@ def check_flash(torch, results: dict) -> None:
         other_shapes=decode_rows)
 
 
+# K5 and K4 at the shapes phases 11-12 give them that no earlier phase runs:
+# SeamlessM4T-large-v2's 16 heads of 64 (multi-head: a GQA group of 1) in its
+# 4096-frame encoder (non-causal), its decoder's cross-attention over the
+# 4096-frame memory (non-causal, offset 0) in a 2048-token bucket and at an
+# 8-slot decode step, its self-attention decode step over a 2048-position
+# cache, LLaVA-NeXT's 4096-position causal forward (2880 patches and 1216
+# text tokens), and K4 at Seamless's width.  (q, kv, causal, kernel, slot
+# lengths for a decode step)
+FAMILY_K5 = {
+    "Seamless encoder": ((16, 4096, 64), (16, 4096, 64), False, "mma", None),
+    "Seamless cross prefill 2048": ((16, 2048, 64), (16, 4096, 64), False, "mma", None),
+    "Seamless cross decode": ((128, 1, 64), (128, 4096, 64), False, "decode", None),
+    # the lengths phase 12's slots reach: prompts of 16-512 tokens, 32 new
+    "Seamless self decode": ((128, 1, 64), (128, 2048, 64), True, "decode",
+                             [17, 60, 140, 230, 300, 390, 470, 543]),
+    "LLaVA forward 4096": ((32, 4096, 128), (8, 4096, 128), True, "mma", None),
+}
+FAMILY_K4 = (2048, 1024)
+
+
+def check_family_kernels(torch, smi: str, results: dict) -> None:
+    """K5 at FAMILY_K5's shapes and K4 at FAMILY_K4, each held against its
+    plain version (K5 bf16 by the row relative L2, K4 within one bf16 ulp)
+    on the kernel ``choose_kernel`` picks, which must be the one named, then
+    timed: a call (CUDA events), on the device alone (a CUDA graph of 20
+    calls, and for Sq > 1 and K4 also the profiler's device time) beside
+    SDPA (``F.rms_norm``) timed the same way, the plain version and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as kr
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"prefill": {}, "decode": {}}
+    for label, (qs, kvs, causal, kernel, lens) in FAMILY_K5.items():
+        q = torch.randn(*qs, generator=g, device="cuda").bfloat16()
+        k = torch.randn(*kvs, generator=g, device="cuda").bfloat16()
+        v = torch.randn(*kvs, generator=g, device="cuda").bfloat16()
+        group = qs[0] // kvs[0]
+        chosen = kf.choose_kernel(q.dtype, qs[1], qs[2], True, group)
+        if chosen != kernel:
+            raise AssertionError(f"K5 {label}: choose_kernel takes {chosen}, not {kernel}")
+        if lens is not None:  # one offset per slot, expanded to the q rows
+            slot_off = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            off = kf.expand_offsets(slot_off, qs[0], "cuda")
+        else:
+            off = 0
+        kw = dict(causal=causal, window=None, q_offset=off)
+        call = lambda: kf._launch(None, q, k, v, **kw)  # noqa: E731
+        plain = ref.attention_chunked if qs[1] * kvs[1] > 1 << 22 else ref.attention
+        got = call()
+        want = plain(q, k, v, **kw)
+        err = float(rel_l2(torch, got, want).max())
+        diff = float((got.float() - want.float()).abs().max())
+        if not err <= BF16_ATTN_REL_L2:
+            raise AssertionError(f"K5 {kernel} {label}: row relative L2 {err:.3e}")
+        slots = qs[0] // 16 if qs[1] == 1 else 1  # a decode step: Seamless's 16 heads a slot
+        heads = qs[0] // slots
+        qq = q.view(slots, heads, qs[1], qs[2])
+        kk = k.repeat_interleave(group, 0).view(slots, heads, kvs[1], qs[2])
+        vv = v.repeat_interleave(group, 0).view(slots, heads, kvs[1], qs[2])
+        if lens is not None:
+            mask = (torch.arange(kvs[1], device="cuda")[None, :]
+                    <= slot_off[:, None]).view(slots, 1, 1, kvs[1])
+            lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)  # noqa: E731
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)  # noqa: E731
+        t_ops, t_bytes = _attn_bound(torch, q, k, kf.expand_offsets(off, qs[0], q.device),
+                                     causal, None)
+        row = dict(shape=f"q {qs} kv {kvs} {'causal' if causal else 'non-causal'} bf16",
+                   kernel=chosen, max_abs_err=diff, row_rel_l2=err, ms=cuda_ms(call),
+                   plain_ms=cuda_ms(lambda: plain(q, k, v, **kw), repeats=3),
+                   library_ms=cuda_ms(lib), bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", card=smi)
+        row.update(graph_ms=graph_ms(torch, call), library_graph_ms=graph_ms(torch, lib))
+        alone = f"graph {row['graph_ms']:.4f}, SDPA graph {row['library_graph_ms']:.4f}"
+        if qs[1] > 1:  # also the profiler's device time, which may lose a kernel
+            row.update(device_ms=device_ms(torch, call),
+                       library_device_ms=device_ms(torch, lib, kernels=None))
+            alone += (f"; device {fmt_ms(row['device_ms'])}, SDPA device "
+                      f"{fmt_ms(row['library_device_ms'])}")
+        log(f"  K5 {label} {row['shape']}: {chosen} {row['ms']:.4f} ms a call ({alone}), "
+            f"plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); row relative L2 {err:.3e}; {smi}")
+        rows["decode" if qs[1] == 1 else "prefill"][label] = row
+        del q, k, v, qq, kk, vv, got, want
+    results["flash_attention"]["family_shapes"] = rows["prefill"]
+    results["flash_attention_decode"]["family_shapes"] = rows["decode"]
+
+    n, d = FAMILY_K4
+    x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
+    gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).bfloat16()
+    call = lambda: kr.rmsnorm(x, gamma, eps=1e-6)  # noqa: E731
+    want = ref.rmsnorm(x, gamma, eps=1e-6)
+    diff = (call().float() - want.float()).abs()
+    if not bool((diff <= bf16_ulp(torch, want)).all()):
+        raise AssertionError(f"K4 rmsnorm {n}x{d} bf16: max abs diff {float(diff.max()):.3e}")
+    lib = (lambda: F.rms_norm(x, (d,), gamma, 1e-6)) if hasattr(F, "rms_norm") else None
+    t_ops, t_bytes = 4.0 * n * d / PEAK_FP32 * 1e3, 2.0 * (2 * n * d + d) / PEAK_BYTES * 1e3
+    row = dict(shape=f"{n}x{d} bf16", max_abs_err=float(diff.max()), ms=cuda_ms(call),
+               graph_ms=graph_ms(torch, call), device_ms=device_ms(torch, call),
+               plain_ms=cuda_ms(lambda: ref.rmsnorm(x, gamma, eps=1e-6)),
+               library_ms=cuda_ms(lib) if lib else None,
+               library_device_ms=device_ms(torch, lib, kernels=None) if lib else None,
+               library_graph_ms=graph_ms(torch, lib) if lib else None,
+               bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               card=smi)
+    log(f"  K4 rmsnorm {row['shape']} (Seamless's width): {row['ms']:.4f} ms a call (graph "
+        f"{row['graph_ms']:.4f}, device {fmt_ms(row['device_ms'])}), plain "
+        f"{row['plain_ms']:.4f}, F.rms_norm {fmt_ms(row['library_ms'])} (graph "
+        f"{fmt_ms(row['library_graph_ms'])}, device {fmt_ms(row['library_device_ms'])}), bound "
+        f"{row['bound_ms']:.4f} ms; {smi}")
+    results["rmsnorm"]["family_shapes"] = {"Seamless 2048-token bucket": row}
+
+
 # ---------------------------------------------------------------------------
 # phase 3, the MoE layer: K6 against its plain version
 # ---------------------------------------------------------------------------
@@ -1633,17 +1775,23 @@ MIXTRAL_WATCHED = (0, 10, 21, 31)
 
 
 def seeded_params(torch, cfg):
-    """``init_params`` from SEED on the card, with gamma and the embeddings
-    redrawn as described at EMBED_STD."""
+    """``init_params`` from SEED on the card, with every gamma (the blocks'
+    norms, an encoder-decoder's cross-attention norm and both final norms)
+    and the embeddings redrawn as described at EMBED_STD."""
     from repro_torch.models import model as M
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, gen)
     dt = M.dtype_of(cfg)
     gamma = lambda: (0.5 + torch.rand(cfg.d_model, generator=gen, device="cuda")).to(dt)  # noqa: E731
-    for blk in params["layers"]:
-        blk["norm1"], blk["norm2"] = gamma(), gamma()
-    params["final_norm"] = gamma()
+    for stack in ("layers", "encoder", "decoder"):
+        for blk in params.get(stack, ()):
+            for k in blk:
+                if k.startswith("norm"):
+                    blk[k] = gamma()
+    for k in ("final_norm", "enc_final_norm"):
+        if k in params:
+            params[k] = gamma()
     params["embed"] = (torch.randn(cfg.vocab, cfg.d_model, generator=gen, device="cuda")
                        * EMBED_STD).to(dt)
     return params
@@ -1679,13 +1827,11 @@ def mutants(torch, cfg, params):
         return ((w.float() / scale).to(torch.float8_e4m3fn).float() * scale).to(w.dtype)
 
     def mapped(fn_w, fn_norm):
-        out = {k: (fn_norm(v) if k == "final_norm" else fn_w(v))
-               for k, v in params.items() if k != "layers"}
-        out["layers"] = MappedLayers(params["layers"], lambda b: {
-            "norm1": fn_norm(b["norm1"]), "norm2": fn_norm(b["norm2"]),
-            "mixer": {k: fn_w(w) for k, w in b["mixer"].items()},
-            "ffn": {k: fn_w(w) for k, w in b["ffn"].items()}})
-        return out
+        block = lambda b: {k: (fn_norm(v) if k.startswith("norm")  # noqa: E731
+                               else {n: fn_w(w) for n, w in v.items()}) for k, v in b.items()}
+        return {k: (MappedLayers(v, block) if isinstance(v, list)
+                    else fn_norm(v) if k.endswith("final_norm") else fn_w(v))
+                for k, v in params.items()}
 
     same = lambda t: t  # noqa: E731
     yield "fp8 weights", cfg, mapped(fp8, same), None
@@ -1697,14 +1843,18 @@ def mutants(torch, cfg, params):
 
 
 def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
-               watched: tuple[int, ...], seed: int) -> dict:
-    """Serve ``n_requests`` requests (prompts of 128-2048 tokens, all submitted
-    at once) through ``ServingEngine`` twice: a timed run, which adds only the
-    first-token callback and a synchronized prefill timer, then a recorded run
-    of the same traffic whose watched requests' prefill and decode logits are
-    held against the fp32 plain forward.  For MoE the recorded run also keeps
-    the engine's routing: the assignments each prefill drops and keeps, and
-    the plain forward follows the engine's dispatch groups and near-ties."""
+               watched: tuple[int, ...], seed: int, max_len: int = 4096,
+               prompt_lens: tuple[int, int] = (128, 2048), bucket: int = 2048) -> dict:
+    """Serve ``n_requests`` requests (prompts of ``prompt_lens`` tokens, all
+    submitted at once) through ``ServingEngine`` with ``slots`` slots of
+    ``max_len`` positions twice: a timed run, which adds only the first-token
+    callback and a synchronized prefill timer, then a recorded run of the
+    same traffic whose watched requests' prefill and decode logits are held
+    against the fp32 plain forward (for audio over the engine's memory of
+    zero frames).  For MoE the recorded run also keeps the engine's routing:
+    the assignments each prefill drops and keeps, and the plain forward
+    follows the engine's dispatch groups and near-ties.  ``bucket``: the
+    prefill bucket ``prefill_breakdown`` profiles."""
     import numpy as np
 
     from repro_torch.models import layers as L
@@ -1719,7 +1869,7 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
         f"{cfg.window}" + (f", {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
                            f"{cfg.capacity_factor}" if moe else "")
         + f"; {n_params / 1e9:.3f} B parameters in {cfg.dtype}")
-    scfg = ServeConfig(batch_slots=slots, max_len=4096, max_new_tokens=32)
+    scfg = ServeConfig(batch_slots=slots, max_len=max_len, max_new_tokens=32)
 
     warm = ServingEngine(cfg, params, ServeConfig(batch_slots=2, max_len=256, max_new_tokens=4))
     warm.submit(np.arange(1, 100, dtype=np.int32))
@@ -1727,7 +1877,7 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
     del warm
 
     rng = np.random.default_rng(seed)
-    lens = rng.integers(128, 2049, n_requests)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
 
     def completed(handles):
@@ -1842,10 +1992,14 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
         seqs[rid] = torch.as_tensor(np.concatenate([h.prompt, h.tokens[:-1]]), device="cuda")
         engine_logits[rid] = torch.cat([rec_prefill[rid].float(),
                                         torch.stack(rec_decode[rid][:g_len - 1]).float()])
-        if not engine_logits[rid].shape[0] == p_len + g_len - 1 < cfg.window:
+        if not (engine_logits[rid].shape[0] == p_len + g_len - 1
+                and (cfg.window is None or p_len + g_len - 1 < cfg.window)):
             raise AssertionError(f"request {rid}: {engine_logits[rid].shape[0]} logits recorded "
                                  f"for {p_len} + {g_len} tokens")
         fwd_kw[rid] = {}
+        if cfg.family == "audio":  # the engine's stub frontend: zero frames
+            fwd_kw[rid]["embeds"] = torch.zeros((cfg.frontend_len, cfg.d_model),
+                                                dtype=M.dtype_of(cfg), device="cuda")
         if moe:  # the engine's dispatch groups: the padded bucket, then one per token
             bucket = int(prefill_routes[rid][0][0].shape[0])
             fwd_kw[rid]["moe_groups"] = (
@@ -1901,16 +2055,18 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
         del mparams
         log(f"  mutant '{label}' vs fp32 plain: relative L2 max {float(merr.max()):.3e}, "
             f"median {float(merr.median()):.3e}")
-        if not float(merr.max()) > LOGITS_REL_TOL:
+        if bool((merr <= LOGITS_REL_TOL).all()):  # NaN logits are caught
             raise AssertionError(f"tolerance {LOGITS_REL_TOL} does not catch '{label}'")
         labels.append(label)
     log(f"  engine logits within relative L2 {LOGITS_REL_TOL} (max {engine_err:.3e}); "
         f"{', '.join(labels)} each exceed it")
     stats["max_rel_l2"] = engine_err
+    log("  explain_kernels():\n" + "\n".join("    " + line
+                                             for line in eng.explain_kernels().splitlines()))
     stats.update(decode_breakdown(torch, cfg, params, eng._states, eng._tokens))
     del eng
     gc.collect()
-    stats.update(prefill_breakdown(torch, cfg, params))
+    stats.update(prefill_breakdown(torch, cfg, params, bucket))
     log(f"  serving metrics: {json.dumps(stats)}")
     return dict(stats=stats, cfg=cfg, params=params)
 
@@ -2095,16 +2251,20 @@ def decode_step_ab(torch, cfg, steps) -> dict:
     others, the port's choice again): K5 on the SIMT kernel, and for an MoE
     model K6 below C = WGMMA_MIN_C on the wgmma and on the mma kernel.  Each
     is ``torch.profiler`` over 3 steps, with ``choose_kernel`` patched.  The
-    launch counts (and a ``GmmPaths`` record) are put back afterwards: these
-    steps compare kernels and are not the main path's."""
+    launch counts (and a ``GmmPaths`` record and ``CrossPaths`` counts) are
+    put back afterwards: these steps compare kernels and are not the main
+    path's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import rmsnorm as kr
+    from repro_torch.models import layers as L
 
-    counters = (kf.PATHS, kf.LAUNCHES, km.PATHS, km.LAUNCHES, kr.LAUNCHES, kg.LAUNCHES)
+    cross = getattr(getattr(L.attention, "__self__", None), "counts", {})
+    counters = (kf.PATHS, kf.LAUNCHES, km.PATHS, km.LAUNCHES, kr.LAUNCHES, kg.LAUNCHES,
+                *cross.values())
     saved = [dict(c) for c in counters]
     record = getattr(getattr(km._launch, "__self__", None), "launches", None)
     recorded = len(record) if record is not None else 0
@@ -2144,7 +2304,8 @@ def prefill_breakdown(torch, cfg, params, bucket: int = 2048) -> dict:
     """Where one prefill bucket's time goes: ``M.decode_step`` on ``bucket``
     tokens into an empty 4096-position cache, as the engine prefills a
     request; host-clock ms (synchronized), and the device time and launches
-    of its kernels by group from ``torch.profiler``."""
+    of its kernels by group from ``torch.profiler``; for audio also the
+    encoder's host-clock ms over the engine's zero frames."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2164,6 +2325,19 @@ def prefill_breakdown(torch, cfg, params, bucket: int = 2048) -> dict:
     t0 = time.perf_counter()
     calls(3)
     call_ms = (time.perf_counter() - t0) / 3 * 1e3
+    enc = {}
+    if cfg.family == "audio":  # the engine encodes zero frames per request before the bucket
+        frames = torch.zeros((1, cfg.frontend_len, cfg.d_model), dtype=M.dtype_of(cfg),
+                             device="cuda")
+        M.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            M.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc["encode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"  the encoder over {cfg.frontend_len} zero frames (once per request at prefill): "
+            f"{enc['encode_ms']:.3f} ms on the host clock, synchronized")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         calls(2)
     per_call, counts, n_ops = device_groups(torch, prof, 2)
@@ -2176,7 +2350,7 @@ def prefill_breakdown(torch, cfg, params, bucket: int = 2048) -> dict:
         + (f"{idle:.1%}" if idle is not None else "not measured (no device events)"))
     del state
     return dict(prefill_bucket=bucket, prefill_call_ms=call_ms, prefill_device_ms=per_call,
-                prefill_launches=counts, prefill_ops=n_ops, prefill_idle_share=idle)
+                prefill_launches=counts, prefill_ops=n_ops, prefill_idle_share=idle, **enc)
 
 
 def _leaves(p):
@@ -2215,30 +2389,237 @@ def forward_path(torch, cfg, params) -> None:
         raise AssertionError(f"forward logits: relative L2 {err:.3e} > {LOGITS_REL_TOL}")
 
 
+# Phases 11-12: the vlm and audio families at full width.  LLaVA-NeXT's
+# forward takes its 2880 anyres patch positions and 1216 text tokens (4096 in
+# all); Seamless's its 4096 frames and 256 text tokens.  Phase 12 serves
+# prompts of 16-512 tokens from 2048-position slots.
+LLAVA, SEAMLESS = "llava-next-mistral-7b", "seamless-m4t-large-v2"
+LLAVA_TEXT, SEAMLESS_TEXT = 1216, 256
+FORWARD_COMPARED = 256  # last text positions held against the plain forward
+
+
+def family_forward(torch, cfg, params, n_text: int) -> dict:
+    """``forward`` on one sequence of ``n_text`` seeded tokens with seeded
+    frontend embeddings (vlm: ``frontend_len`` patch embeddings at the token
+    embeddings' scale before the text; audio: ``frontend_len`` frames of
+    unit scale into the encoder), held against the fp32 plain forward at the
+    last FORWARD_COMPARED text positions."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+
+    toks = torch.as_tensor(np.random.default_rng(SEED + 3).integers(0, cfg.vocab, n_text),
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    scale = EMBED_STD if cfg.family == "vlm" else 1.0
+    emb = (torch.randn((cfg.frontend_len, cfg.d_model), generator=gen, device="cuda")
+           * scale).to(M.dtype_of(cfg))
+    t0 = time.perf_counter()
+    logits = M.forward(cfg, params, {"tokens": toks[None], "embeds": emb[None]})[0]
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    if tuple(logits.shape) != (n_text, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} or non-finite")
+    want = plain.forward(cfg, params, toks, embeds=emb)[-FORWARD_COMPARED:]
+    err = float(rel_l2(torch, logits[-FORWARD_COMPARED:], want).max())
+    log(f"  forward on {cfg.frontend_len} {cfg.frontend} positions + {n_text} tokens in "
+        f"{t_fwd:.3f} s; logits at the last {FORWARD_COMPARED} text positions vs fp32 plain: "
+        f"relative L2 max {err:.3e}")
+    if not err <= LOGITS_REL_TOL:
+        raise AssertionError(f"forward logits: relative L2 {err:.3e} > {LOGITS_REL_TOL}")
+    return dict(forward_s=t_fwd, forward_rel_l2=err)
+
+
+def ops_matmul_path(torch, smi: str, cfg, bucket: int, counts) -> tuple[int, list]:
+    """``ops.matmul`` (K1) at the contraction plan's ``q_proj`` and ``ffn_in``
+    products of one ``bucket``-token sequence, fp32 and bf16, on seeded
+    inputs: the launches of one call each (read by ``counts`` right after),
+    then each product against the plain version (fp32 within 2e-4 relative
+    to its largest value, bf16 within rtol 5e-2 / atol 5e-1) and timed, a
+    call and 20 back to back (the profiler drops one of 20 such kernels),
+    beside ``torch.matmul`` (full fp32 in fp32) and the bound."""
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import ops
+    from repro_torch.models.lowering import plan_model
+
+    plans = {p.name: p for p in plan_model(cfg, bucket, 1)}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for name in ("q_proj", "ffn_in"):
+        m, n, k = plans[name].mnk
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+            w = torch.randn(k, n, generator=g, device="cuda").to(dtype)
+            cases.append((name, plans[name].recipe.tile, x, w,
+                          ops.matmul(x, w, tile=plans[name].recipe.tile)))
+    torch.cuda.synchronize()
+    launches = counts()
+    rows = []
+    for name, tile, x, w, got in cases:
+        (m, k), n = x.shape, w.shape[1]
+        fp32 = x.dtype == torch.float32
+        want = kg.gemm_plain(x, w)
+        if fp32:
+            err = max_rel(got, want)
+            ok = err <= KERNEL_MAX_REL
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            ok = torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+        if not ok:
+            raise AssertionError(f"ops.matmul {name} {tuple(x.shape)} @ {tuple(w.shape)} "
+                                 f"{x.dtype}: error {err:.3e}")
+        flops = 2.0 * m * n * k
+        t_ops = (3 * flops / PEAK_TF32 if fp32 else flops / PEAK_BF16) * 1e3
+        t_bytes = x.element_size() * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
+        call = lambda: ops.matmul(x, w, tile=tile)  # noqa: E731
+        lib = lambda: torch.matmul(x, w)  # noqa: E731
+        row = dict(contraction=name, shape=f"{m}x{k} @ {k}x{n} {str(x.dtype)[6:]}",
+                   plan_tile=list(tile), kernel="gemm_tf32x3_kernel" if fp32 else "gemm_kernel",
+                   error=err, ms=cuda_ms(call), stream_ms=stream_ms(torch, call, n=20),
+                   plain_ms=cuda_ms(lambda: kg.gemm_plain(x, w), repeats=3),
+                   library_ms=cuda_ms(lib), library_stream_ms=stream_ms(torch, lib, n=20),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", card=smi)
+        log(f"  ops.matmul (K1) {name} {row['shape']} (plan tile {tuple(tile)}, ignored): "
+            f"{row['ms']:.4f} ms a call (back to back {row['stream_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f} (back to back "
+            f"{row['library_stream_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+            f"({'3xTF32' if fp32 else 'bf16'}); error {err:.3e}; {smi}")
+        rows.append(row)
+    return launches, rows
+
+
+def family_phase(torch, smi: str, phase: int, arch: str, *, slots: int, max_len: int,
+                 prompt_lens: tuple[int, int], n_text: int, bucket: int, reset_counts,
+                 model_counts) -> dict:
+    """Phases 11-12: ``arch`` at full width, bf16, seeded: served through
+    ``ServingEngine`` (``serve_path``: 16 requests, 32 new tokens each), then
+    ``family_forward``, then (vlm) ``ops_matmul_path``; each path's launches
+    counted from 0 and checked: K4 and K5 launched, K5's prefill (encoder
+    included) only on the tensor-core kernel and its decode steps only on the
+    decode kernel, cross-attention (audio) likewise, and the forward only on
+    the tensor-core kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    params = seeded_params(torch, cfg)
+    out = {}
+    reset_counts()
+    with PrefillPaths(M, kf) as prefill_paths, CrossPaths(L, kf) as cross:
+        served = serve_path(torch, smi, cfg, params, slots=slots, n_requests=N_REQUESTS,
+                            watched=WATCHED, seed=SEED + phase, max_len=max_len,
+                            prompt_lens=prompt_lens, bucket=bucket)
+    torch.cuda.synchronize()
+    n = model_counts()
+    decode = check_k5_paths(f"phase {phase}", n["k5"], prefill_paths.counts)
+    log(f"  launches: K4 rmsnorm {n['rmsnorm']}, K5 flash attention {n['flash_attention']} "
+        f"(K1 {n['gemm']}, K6 {n['grouped_matmul']}); cross-attention K5 {cross.counts}")
+    if cfg.family == "audio":
+        cx = cross.counts
+        if (cx["decode"]["decode"] <= 0 or any(v for k, v in cx["decode"].items() if k != "decode")
+                or cx["prefill"]["mma"] <= 0
+                or any(v for k, v in cx["prefill"].items() if k != "mma")):
+            raise AssertionError(f"phase {phase}: cross-attention should launch K5's decode "
+                                 f"kernel at decode and its mma kernel at prefill: {cx}")
+    out["serving"] = dict(rmsnorm=n["rmsnorm"], flash_attention=n["flash_attention"],
+                          k5_prefill=dict(prefill_paths.counts), k5_decode=decode,
+                          k5_cross=cross.counts, stats=served["stats"])
+    del served
+
+    reset_counts()
+    fwd = family_forward(torch, cfg, params, n_text)
+    torch.cuda.synchronize()
+    n = model_counts()
+    log(f"  launches: K4 rmsnorm {n['rmsnorm']}, K5 flash attention {n['flash_attention']} "
+        f"(by kernel {n['k5']})")
+    if n["k5"]["mma"] <= 0 or any(v for k, v in n["k5"].items() if k != "mma"):
+        raise AssertionError(f"phase {phase}: the forward should launch only the mma K5 "
+                             f"kernel: {n['k5']}")
+    out["forward"] = dict(rmsnorm=n["rmsnorm"], flash_attention=n["flash_attention"],
+                          k5=n["k5"], **fwd)
+    for path in ("serving", "forward"):
+        for k in ("rmsnorm", "flash_attention"):
+            if out[path][k] <= 0:
+                raise AssertionError(f"phase {phase}: kernel {k} was not launched on the "
+                                     f"{path} path")
+    if cfg.family == "vlm":
+        reset_counts()
+        launched, rows = ops_matmul_path(torch, smi, cfg, 2048,
+                                         lambda: model_counts()["gemm"])
+        if launched <= 0:
+            raise AssertionError(f"phase {phase}: ops.matmul launched no K1 kernel")
+        out["ops_matmul"] = dict(gemm=launched, rows=rows)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 class PrefillPaths:
     """While installed, K5's launches per kernel inside ``M.decode_step``,
     which the engine calls once per prefill bucket (and ``prefill_breakdown``
-    too); a serving phase's other K5 launches are its decode steps'
+    too), and inside ``M.encode``, the audio engine's encoder at prefill; a
+    serving phase's other K5 launches are its decode steps'
     (``decode_slots``)."""
 
     def __init__(self, M, kf):
         self.M, self.kf = M, kf
         self.counts = {k: 0 for k in kf.PATHS}
+        self.real = {}
 
-    def step(self, *args, **kw):
-        before = dict(self.kf.PATHS)
-        try:
-            return self.real(*args, **kw)
-        finally:
-            for k in self.counts:
-                self.counts[k] += self.kf.PATHS[k] - before[k]
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def call(*args, **kw):
+            before = dict(self.kf.PATHS)
+            try:
+                return real(*args, **kw)
+            finally:
+                for k in self.counts:
+                    self.counts[k] += self.kf.PATHS[k] - before[k]
+        return call
 
     def __enter__(self):
-        self.real, self.M.decode_step = self.M.decode_step, self.step
+        for name in ("decode_step", "encode"):
+            self.real[name] = getattr(self.M, name)
+            setattr(self.M, name, self._wrap(name))
         return self
 
     def __exit__(self, *exc):
-        self.M.decode_step = self.real
+        for name, real in self.real.items():
+            setattr(self.M, name, real)
+
+
+class CrossPaths:
+    """While installed, K5's launches per kernel inside the cross-attention
+    sub-blocks (``L.attention`` given ``memory``), apart for decode steps
+    (one query a slot) and prefill."""
+
+    def __init__(self, L, kf):
+        self.L, self.kf = L, kf
+        self.counts = {"prefill": {k: 0 for k in kf.PATHS}, "decode": {k: 0 for k in kf.PATHS}}
+
+    def attention(self, x, *args, memory=None, **kw):
+        if memory is None:
+            return self.real(x, *args, **kw)
+        before = dict(self.kf.PATHS)
+        try:
+            return self.real(x, *args, memory=memory, **kw)
+        finally:
+            into = self.counts["decode" if x.shape[1] == 1 else "prefill"]
+            for k in into:
+                into[k] += self.kf.PATHS[k] - before[k]
+
+    def __enter__(self):
+        self.real, self.L.attention = self.L.attention, self.attention
+        return self
+
+    def __exit__(self, *exc):
+        self.L.attention = self.real
 
 
 class GmmPaths:
@@ -2386,6 +2767,7 @@ def main(argv: list[str] | None = None) -> int:
     check_nest_kernel(torch, results)
     check_rmsnorm(torch, results)
     check_flash(torch, results)
+    check_family_kernels(torch, smi, results)
     check_grouped_matmul(torch, results)
 
     # the main path: every count starts at 0 here and is read right after
@@ -2512,6 +2894,33 @@ def main(argv: list[str] | None = None) -> int:
 
     log("phase 10: seeding and transfer on the card (the tune CLI, then Daisy.pretuned())")
     seeding_path(torch, nkm, codegen, bench_times)
+
+    families = {}
+    log(f"phase 11: main path, {LLAVA} at full width (vlm): ServingEngine (text-only, as the "
+        f"reference serves it), forward with {LLAVA_TEXT} tokens after the patch positions, "
+        "ops.matmul (K1)")
+    families["11"] = family_phase(torch, smi, 11, LLAVA, slots=8, max_len=4096,
+                                  prompt_lens=(128, 2048), n_text=LLAVA_TEXT, bucket=2048,
+                                  reset_counts=reset_counts, model_counts=model_counts)
+    log(f"phase 12: main path, {SEAMLESS} at full width (audio): ServingEngine (the encoder "
+        f"over zero frames per request, as the reference's stub), forward with {SEAMLESS_TEXT} "
+        "tokens over 4096 seeded frames")
+    families["12"] = family_phase(torch, smi, 12, SEAMLESS, slots=8, max_len=2048,
+                                  prompt_lens=(16, 512), n_text=SEAMLESS_TEXT, bucket=512,
+                                  reset_counts=reset_counts, model_counts=model_counts)
+    results["gemm"]["ops_matmul"] = families["11"]["ops_matmul"]["rows"]
+    for key, pick in (("rmsnorm", lambda p: p["rmsnorm"]),
+                      ("flash_attention", lambda p: p["flash_attention"]),
+                      ("flash_attention_decode", lambda p: p.get("k5_decode", {}).get("decode"))):
+        results[key]["launches_phases_11_12"] = {
+            f"{ph} {path}": pick(v) for ph, f in families.items()
+            for path, v in f.items() if path != "ops_matmul" and pick(v) is not None}
+    results["flash_attention"]["launches_phases_11_12_by_kernel"] = {
+        ph: {"serving prefill": f["serving"]["k5_prefill"],
+             "serving decode": f["serving"]["k5_decode"],
+             "cross-attention": f["serving"]["k5_cross"], "forward": f["forward"]["k5"]}
+        for ph, f in families.items()}
+    results["gemm"]["launches_phase_11_ops_matmul"] = families["11"]["ops_matmul"]["gemm"]
 
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]

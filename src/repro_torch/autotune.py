@@ -18,8 +18,9 @@ address) leaves the process unable to launch anything else, so it ends an
 in-process run and kills a pool worker (which the pool then treats as a
 crash) instead of being retried in the same process.
 
-The online half (``NestTelemetry``, ``SearchSupervisor``, ``SwapPolicy``)
-is not ported yet.
+Of the online half, only ``NestStat`` and ``NestTelemetry`` are ported: a
+deployment's (disabled) telemetry sink.  ``SearchSupervisor`` and
+``SwapPolicy`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import os
 import tempfile
 import time
 from collections import deque
+from dataclasses import dataclass
 from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
 from concurrent.futures.process import BrokenProcessPool
 from multiprocessing import get_context
@@ -319,3 +321,65 @@ def run_supervised(
                           f"result(s), {len(suspects)} suspect(s) to isolate, "
                           f"{len(remaining)} task(s) requeued", flush=True)
     return results, quarantined
+
+
+# ---------------------------------------------------------------------------
+# live telemetry
+# ---------------------------------------------------------------------------
+
+@dataclass
+class NestStat:
+    ema_s: float = 0.0
+    count: int = 0
+    total_s: float = 0.0
+    last_s: float = 0.0
+
+
+class NestTelemetry:
+    """Per-key EMA wall times from real deployment steps.
+
+    Keys are program fingerprints or free-form labels.  A disabled instance
+    returns from ``observe`` before touching any state, so the telemetry hook
+    in a tuner-less engine costs one predicate per step.  All methods run on
+    the observing (serving) thread; no lock is needed.
+    """
+
+    def __init__(self, alpha: float = 0.25, enabled: bool = True):
+        self.alpha = float(alpha)
+        self.enabled = bool(enabled)
+        self._stats: dict[str, NestStat] = {}
+
+    def observe(self, key: str, seconds: float) -> None:
+        if not self.enabled:
+            return
+        s = self._stats.get(key)
+        if s is None:
+            s = self._stats[key] = NestStat(ema_s=float(seconds))
+        else:
+            s.ema_s += self.alpha * (float(seconds) - s.ema_s)
+        s.count += 1
+        s.total_s += float(seconds)
+        s.last_s = float(seconds)
+
+    def ema(self, key: str) -> float | None:
+        s = self._stats.get(key)
+        return s.ema_s if s is not None else None
+
+    def count(self, key: str) -> int:
+        s = self._stats.get(key)
+        return s.count if s is not None else 0
+
+    def hottest(self, n: int = 1) -> list[tuple[str, float]]:
+        """Keys ranked by accumulated wall time (total time, not per-step
+        time, is what adaptation can win back)."""
+        ranked = sorted(self._stats.items(), key=lambda kv: -kv[1].total_s)
+        return [(k, s.total_s) for k, s in ranked[: max(0, n)]]
+
+    def reset(self, key: str) -> None:
+        """Drop a key's stats."""
+        self._stats.pop(key, None)
+
+    def snapshot(self) -> dict[str, dict]:
+        return {k: {"ema_s": s.ema_s, "count": s.count, "total_s": s.total_s,
+                    "last_s": s.last_s}
+                for k, s in self._stats.items()}

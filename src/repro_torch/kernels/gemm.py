@@ -9,8 +9,9 @@ accumulator.  The output is in the input dtype.  The block shapes are the
 kernels' own (128x64 tiles in float32), so ``gemm`` takes no tile argument:
 the reference's ``block_m/n/k`` sized TPU VMEM blocks.
 
-``gemm`` launches a kernel for CUDA tensors and takes ``gemm_plain``, the
-same product in torch with an fp32 accumulator, for CPU tensors only.
+``gemm`` launches a kernel for CUDA tensors and takes ``gemm_plain``
+(``kernels.ref.matmul``), the same product in torch with an fp32
+accumulator, for CPU tensors only.
 ``LAUNCHES`` counts kernel launches and ``PLAIN`` the plain-version runs.
 ``launch_f32`` is the float32 launch itself, which K6's float32 path shares
 with the expert as the batch axis.
@@ -24,6 +25,7 @@ import math
 import torch
 
 from .build import cuda_library
+from .ref import matmul as gemm_plain
 from .runtime import arrival_counters, on_device, raw_stream, sm_count
 
 LAUNCHES = {"gemm": 0}
@@ -42,11 +44,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"repro_gemm_f32": [_P] * 3 + [_I] * 4 + [_P] * 3,  # m, n, k, splits, ws, cnt
              "repro_gemm_batched_f32": [_P] * 3 + [_I] * 5 + [_P] * 3,  # batch first
              "repro_gemm_bf16": [_P] * 3 + [_I] * 3 + [_P]}  # x, y, out, m, n, k, stream
-
-
-def gemm_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y`` in torch with an fp32 accumulator, returned in ``x.dtype``."""
-    return (x.to(torch.float32) @ y.to(torch.float32)).to(x.dtype)
 
 
 @functools.cache

@@ -1,14 +1,16 @@
 """Public wrappers around the port's kernels (port of ``repro/kernels/ops.py``).
 
-* ``einsum2`` — the daisy codegen's hook into K1: a clean 2-operand
-  contraction -> GEMM;
+* ``matmul`` — K1 on a 2-D product; ``einsum2`` — the daisy codegen's hook
+  into K1: a clean 2-operand contraction -> GEMM;
 * ``rmsnorm`` — K4, ``attention`` — K5, ``grouped_matmul`` — K6: the model
-  stack's kernels.  On CUDA tensors they launch the kernel or raise; on CPU
-  tensors they take the plain versions of ``kernels.ref`` (attention switches
-  to the chunked one above ``CHUNKED_ATTN_THRESHOLD`` score elements, as the
-  reference's ``xla`` path does).
+  stack's kernels.
 
-``matmul`` is not ported yet.
+On CUDA tensors each launches its kernel or raises; on CPU tensors it takes
+the plain version of ``kernels.ref`` (attention switches to the chunked one
+above ``CHUNKED_ATTN_THRESHOLD`` score elements, as the reference's ``xla``
+path does).  The device decides: there is no ``backend=`` switch.  The models
+keep their projections as ``x @ w`` on cuBLAS, as the reference computes them
+outside any Pallas kernel.
 
 The classifier (``einsum2_reject_reason``) is separate from the lowering so
 the codegen can decide before any launch whether a contraction goes to the
@@ -24,6 +26,14 @@ from . import ref
 from .gemm import gemm
 from .moe_gmm import grouped_matmul  # noqa: F401
 from .rmsnorm import rmsnorm  # noqa: F401
+
+
+def matmul(x, y, *, tile=None):
+    """``x @ y`` of 2-D float32/bfloat16 tensors with an fp32 accumulator, in
+    ``x.dtype``: K1 on the card, ``kernels.ref.matmul`` on the CPU.  ``tile``
+    (a plan's TPU block shape) is accepted and ignored: K1's tiling is fixed."""
+    return gemm(x, y)
+
 
 # Above this many score elements (Sq*Skv) the CPU path switches to the
 # chunked online-softmax formulation (bounded working set).

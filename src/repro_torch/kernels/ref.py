@@ -1,7 +1,7 @@
 """Plain torch versions of the model-stack kernels (port of ``repro/kernels/ref.py``).
 
 They are what the wrappers in ``ops`` take for CPU tensors, and what
-``chip_smoke.py`` holds K4, K5 and K6 against on the card.  Same masking and the
+``chip_smoke.py`` holds K1, K4, K5 and K6 against on the card.  Same masking and the
 same fp32 arithmetic as the reference: scores and softmax in fp32, rows with
 no visible key give 0.
 
@@ -13,6 +13,11 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30  # the kernels' masked score (csrc/flash_attention.cu)
+
+
+def matmul(x, y):
+    """``x @ y`` with an fp32 accumulator, returned in ``x.dtype`` (K1's)."""
+    return (x.to(torch.float32) @ y.to(torch.float32)).to(x.dtype)
 
 
 def _repeat_kv(k, v, bhq):

@@ -1,5 +1,6 @@
 """Model building blocks of the decoder (port of ``repro/models/layers.py:80-249``):
-rope, attention, the dense SwiGLU FFN and the MoE FFN.
+rope, attention (self- and cross-attention), the dense SwiGLU FFN and the MoE
+FFN.
 
 Plain functions over dicts of tensors.  Attention goes through
 ``kernels.ops`` (K5 on the card), the MoE experts through
@@ -88,21 +89,29 @@ def attention(
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, KV, S_cache, Dh)
     write_pos: torch.Tensor | int = 0,
     attn_offset: torch.Tensor | int = 0,  # K5's q_offset: an int, or one per batch row
+    memory: torch.Tensor | None = None,  # (B, S_mem, D): cross-attention
 ):
-    """Sequence attention (cache=None) or a cached step (cache given; written
-    in place).  The cache path passes ``window=None`` to the kernel, exactly
-    as the reference does (``repro/models/layers.py:167``)."""
+    """Sequence attention (cache=None), a cached step (cache given; written
+    in place) or cross-attention (memory given, no cache).  The cache path
+    passes ``window=None`` to the kernel, exactly as the reference does
+    (``repro/models/layers.py:167``).  Cross-attention projects K and V from
+    ``memory`` on every call, applies no rope, and runs K5 non-causal with no
+    window and offset 0 (``repro/models/layers.py:134-171``)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
+    src = x if memory is None else memory
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.view(b, s, h, dh), positions, cfg.rope_theta)
-    k = rope(k.view(b, s, kv, dh), positions, cfg.rope_theta)
-    v = v.view(b, s, kv, dh)
+    q = q.view(b, s, h, dh)
+    k = k.view(b, -1, kv, dh)
+    v = v.view(b, -1, kv, dh)
+    if memory is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     # fold heads into batch: q (B*H, S, Dh); k/v (B*KV, Skv, Dh)
     qf = q.transpose(1, 2).reshape(b * h, s, dh).contiguous()
@@ -112,12 +121,12 @@ def attention(
         write_cache(cv, v.transpose(1, 2), write_pos)
         kf = ck.view(b * kv, ck.shape[2], dh)
         vf = cv.view(b * kv, cv.shape[2], dh)
-    else:
-        kf = k.transpose(1, 2).reshape(b * kv, s, dh).contiguous()
-        vf = v.transpose(1, 2).reshape(b * kv, s, dh).contiguous()
+    else:  # fresh tensors: K5 takes contiguous, 16-byte aligned operands
+        kf = k.transpose(1, 2).reshape(b * kv, k.shape[1], dh).contiguous()
+        vf = v.transpose(1, 2).reshape(b * kv, v.shape[1], dh).contiguous()
     of = ops.attention(
-        qf, kf, vf, causal=causal,
-        window=cfg.window if cache is None else None,
+        qf, kf, vf, causal=causal and memory is None,
+        window=cfg.window if (memory is None and cache is None) else None,
         q_offset=attn_offset if cache is not None else 0,
     )
     out = of.view(b, h, s, dh).transpose(1, 2).reshape(b, s, h * dh)

@@ -1,11 +1,18 @@
-"""Model assembly for the decoder (port of ``repro/models/model.py:61-471``).
+"""Model assembly (port of ``repro/models/model.py:61-471``).
 
-Ported: ``init_params``, ``forward``, ``init_decode_state`` (ring and full
-caches), ``decode_step`` (prefill s > 1 and decode s = 1),
+Ported: ``init_params``, ``forward``, ``encode``, ``init_decode_state`` (ring
+and full caches), ``decode_step`` (prefill s > 1 and decode s = 1),
 ``init_slot_states``, ``write_slot``, ``decode_slots`` and
-``decode_slots_greedy``, for the ``dense`` and ``moe`` families (a ``moe``
-block's FFN is ``layers.moe_ffn``).  The other families (vlm, audio, hybrid,
-ssm) raise ``NotImplementedError``.
+``decode_slots_greedy``, for the ``dense``, ``moe``, ``vlm`` and ``audio``
+families (a ``moe`` block's FFN is ``layers.moe_ffn``).  The ``hybrid`` and
+``ssm`` families raise ``NotImplementedError``.
+
+Frontends are stubs, as in the reference: ``vlm`` takes precomputed patch
+embeddings (``batch["embeds"]``) before the text in ``forward`` and drops
+their logits; its decode path is text-only.  ``audio`` encodes precomputed
+frame embeddings with a bidirectional encoder (``encode``); each decoder
+block adds a cross-attention sub-block over that memory, which a decode
+state carries as ``"memory"`` (one per slot on the serving path).
 
 From JAX to torch: the reference's ``lax.scan`` over stacked layers is a loop
 over a list of per-layer parameter dicts, and its ``vmap`` over serving slots
@@ -21,8 +28,9 @@ nothing is ever dropped); ``decode_slots`` dispatches all N slots in one
 call with a capacity of N per expert, which drops nothing either.
 
 State layout: ``{"len": int, "layers": (K, V)}`` with K and V of shape
-``(n_layers, B, KV, S_cache, Dh)`` for ``decode_step``; slot states have
-``"len"`` as an int32 tensor of one length per slot and B = the slot count.
+``(n_layers, B, KV, S_cache, Dh)`` for ``decode_step``, plus ``"memory"``
+``(B, frontend_len, d_model)`` for ``audio``; slot states have ``"len"`` as
+an int32 tensor of one length per slot and B = the slot count.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -69,27 +77,40 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen, device=dev)
                         / math.sqrt(cfg.d_model)).to(dt)
-    p["layers"] = [
-        {
-            "norm1": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "mixer": L.init_attention(gen, cfg, dt),
-            "norm2": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "ffn": (L.init_moe_ffn(gen, cfg, dt) if cfg.layer_is_moe(l)
-                    else L.init_dense_ffn(gen, cfg, dt)),
-        }
-        for l in range(cfg.n_layers)
-    ]
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
+
+    def block(l: int) -> Params:
+        return {"norm1": ones(), "mixer": L.init_attention(gen, cfg, dt), "norm2": ones(),
+                "ffn": (L.init_moe_ffn(gen, cfg, dt) if cfg.layer_is_moe(l)
+                        else L.init_dense_ffn(gen, cfg, dt))}
+
+    if cfg.family == "audio":
+        p["encoder"] = [block(l) for l in range(cfg.enc_layers)]
+        p["decoder"] = [dict(block(l), norm_x=ones(), cross=L.init_attention(gen, cfg, dt))
+                        for l in range(cfg.n_layers)]
+        p["enc_final_norm"] = ones()
+    else:
+        p["layers"] = [block(l) for l in range(cfg.n_layers)]
     return p
+
+
+def decoder_layers(cfg: ModelConfig, params: Params) -> list[Params]:
+    """The blocks the tokens run through: ``decoder`` for audio, else ``layers``."""
+    return params["decoder"] if cfg.family == "audio" else params["layers"]
 
 
 # ---------------------------------------------------------------------------
 # blocks, forward
 # ---------------------------------------------------------------------------
 def _apply_block(x, blk: Params, cfg: ModelConfig, positions, cache=None,
-                 write_pos=0, attn_offset=0, moe_capacity=None):
+                 write_pos=0, attn_offset=0, moe_capacity=None, causal=True, memory=None):
     normed = ops.rmsnorm(x, blk["norm1"], eps=cfg.norm_eps)
-    x = x + L.attention(normed, blk["mixer"], cfg, positions=positions, cache=cache,
-                        write_pos=write_pos, attn_offset=attn_offset)
+    x = x + L.attention(normed, blk["mixer"], cfg, positions=positions, causal=causal,
+                        cache=cache, write_pos=write_pos, attn_offset=attn_offset)
+    if memory is not None:  # cross-attention sub-block (enc-dec decoder)
+        normed_x = ops.rmsnorm(x, blk["norm_x"], eps=cfg.norm_eps)
+        x = x + L.attention(normed_x, blk["cross"], cfg, positions=positions, causal=False,
+                            memory=memory)
     normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
     if cfg.layer_is_moe(0):  # the reference's stack is homogeneous (model.py:219, 380)
         b, s, d = normed2.shape
@@ -107,15 +128,37 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """batch: tokens (B, S) -> logits (B, S, V)."""
+    """batch: tokens (B, S) [+ 'embeds' (B, Sf, D) for the vlm/audio
+    frontends] -> logits (B, S, V) of the text positions."""
     check_family(cfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    b = tokens.shape[0]
     x = params["embed"][tokens]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    for blk in params["layers"]:
-        x = _apply_block(x, blk, cfg, positions)
-    return _logits(cfg, params, x)
+    n_front, memory = 0, None
+    if cfg.frontend is not None and cfg.family == "vlm":
+        emb = batch["embeds"].to(x.dtype)  # precomputed patch embeddings
+        n_front = emb.shape[1]
+        x = torch.cat([emb, x], dim=1)
+    elif cfg.family == "audio":
+        memory = encode(cfg, params, batch["embeds"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :].expand(b, -1)
+    for blk in decoder_layers(cfg, params):
+        x = _apply_block(x, blk, cfg, positions, memory=memory)
+    logits = _logits(cfg, params, x)
+    return logits[:, n_front:] if n_front else logits
+
+
+def encode(cfg: ModelConfig, params: Params, embeds: torch.Tensor) -> torch.Tensor:
+    """Audio encoder over precomputed frame embeddings (B, Sf, D), taken in
+    the model's dtype: bidirectional (K5 non-causal), rope at 0..Sf-1."""
+    check_family(cfg)
+    b, sf, _ = embeds.shape
+    x = embeds.to(dtype_of(cfg))
+    positions = torch.arange(sf, dtype=torch.int32, device=x.device)[None, :].expand(b, sf)
+    for blk in params["encoder"]:
+        x = _apply_block(x, blk, cfg, positions, causal=False)
+    return ops.rmsnorm(x, params["enc_final_norm"], eps=cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +173,15 @@ def _cache_len(cfg: ModelConfig, s_max: int, ring: bool) -> int:
 def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
                       device: str | torch.device = "cuda") -> dict:
     check_family(cfg)
+    dt = dtype_of(cfg)
     shape = (cfg.n_layers, b, cfg.n_kv_heads, _cache_len(cfg, s_max, ring), cfg.head_dim)
-    return {"len": 0,
-            "layers": (torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-                       torch.zeros(shape, dtype=dtype_of(cfg), device=device))}
+    state = {"len": 0,
+             "layers": (torch.zeros(shape, dtype=dt, device=device),
+                        torch.zeros(shape, dtype=dt, device=device))}
+    if cfg.family == "audio":
+        state["memory"] = torch.zeros((b, cfg.frontend_len, cfg.d_model), dtype=dt,
+                                      device=device)
+    return state
 
 
 def _slots(cfg: ModelConfig, clen, s_cache: int):
@@ -150,9 +198,10 @@ def _slots(cfg: ModelConfig, clen, s_cache: int):
 
 def _run_layers(cfg, params, state, x, positions, wpos, aoff, moe_capacity=None):
     ks, vs = state["layers"]
-    for l, blk in enumerate(params["layers"]):
-        x = _apply_block(x, blk, cfg, positions, cache=(ks[l], vs[l]),
-                         write_pos=wpos, attn_offset=aoff, moe_capacity=moe_capacity)
+    memory = state.get("memory")  # audio: (B, frontend_len, D), one per batch row
+    for l, blk in enumerate(decoder_layers(cfg, params)):
+        x = _apply_block(x, blk, cfg, positions, cache=(ks[l], vs[l]), write_pos=wpos,
+                         attn_offset=aoff, moe_capacity=moe_capacity, memory=memory)
     return _logits(cfg, params, x)
 
 
@@ -187,10 +236,12 @@ def init_slot_states(cfg: ModelConfig, n_slots: int, s_max: int,
 
 def write_slot(states: dict, i: int, state: dict) -> dict:
     """Copy a single-request (b=1) decode state into slot ``i`` (a refill:
-    the new request's prefilled cache and length replace what the finished
-    request left behind).  In place; returns ``states``."""
+    the new request's prefilled cache, length and audio memory replace what
+    the finished request left behind).  In place; returns ``states``."""
     for dst, src in zip(states["layers"], state["layers"]):
         dst[:, i] = src[:, 0]
+    if "memory" in states:
+        states["memory"][i] = state["memory"][0]
     states["len"][i] = int(state["len"])
     return states
 
@@ -198,8 +249,9 @@ def write_slot(states: dict, i: int, state: dict) -> dict:
 def decode_slots(cfg: ModelConfig, params: Params, states: dict, tokens: torch.Tensor):
     """One decode step for every slot at once: tokens (N,) -> (logits (N, V),
     states).  Each slot advances at its own length: rope positions, cache
-    write rows and K5 offsets are per slot.  MoE layers dispatch the N
-    slots together with N slots per expert: nothing is dropped."""
+    write rows and K5 offsets are per slot, and an audio slot attends to its
+    own memory.  MoE layers dispatch the N slots together with N slots per
+    expert: nothing is dropped."""
     check_family(cfg)
     clen = states["len"]
     x = params["embed"][tokens][:, None, :]  # (N, 1, D)

@@ -1,8 +1,10 @@
-"""The decoder's forward pass written out in fp32: the yardstick.
+"""The model's forward pass written out in fp32: the yardstick.
 
 No cache, no batching, no kernels: ``kernels.ref`` for normalisation and
 attention and torch matmuls for the rest, every weight upcast to fp32 as it
-is used.  The tests hold it against the reference's ``forward``, and
+is used.  It covers the dense, moe, vlm (patch embeddings before the text)
+and audio (encoder, then a decoder with cross-attention) families.  The
+tests hold it against the reference's ``forward``, and
 ``chip_smoke.py`` holds the served model against it on the card at full
 width.  It applies the sliding window at every position, as the reference's
 ``forward`` does.
@@ -146,41 +148,80 @@ def moe_ffn(cfg: ModelConfig, y: torch.Tensor, m: dict, n_tokens: int | None,
                 lambda w: w.to(torch.float32))
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, moe_groups=None,
-            routing=None, stats: dict | None = None) -> torch.Tensor:
+def _attention(cfg: ModelConfig, a: dict, y: torch.Tensor, f, *, causal: bool,
+               memory: torch.Tensor | None = None) -> torch.Tensor:
+    """fp32 attention sub-block on ``y`` (S, D): self-attention with rope and
+    the window, or cross-attention over ``memory`` (no rope, no mask)."""
+    s = y.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = y if memory is None else memory
+    bq, bk, bv = (f(a[n]) if n in a else 0.0 for n in ("bq", "bk", "bv"))
+    q = (y @ f(a["wq"]) + bq).view(s, h, dh)
+    k = (src @ f(a["wk"]) + bk).view(-1, kv, dh)
+    v = (src @ f(a["wv"]) + bv).view(-1, kv, dh)
+    if memory is None:
+        q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+    attend = ref.attention_chunked if s * k.shape[0] > CHUNKED_ABOVE else ref.attention
+    o = attend(q.transpose(0, 1).contiguous(), k.transpose(0, 1).contiguous(),
+               v.transpose(0, 1).contiguous(), causal=causal and memory is None,
+               window=cfg.window if memory is None else None)
+    return o.transpose(0, 1).reshape(s, h * dh) @ f(a["wo"])
+
+
+def _ffn(y: torch.Tensor, m: dict, f) -> torch.Tensor:
+    return (F.silu(y @ f(m["wg"])) * (y @ f(m["wu"]))) @ f(m["wd"])
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None,
+            moe_groups=None, routing=None, stats: dict | None = None) -> torch.Tensor:
     """tokens (S,) -> fp32 logits (S, V) of one sequence.
 
-    ``moe_groups`` and ``routing`` as in the module docstring.  A ``stats``
-    dict receives ``near_ties`` (positions that took the engine's choice),
-    ``max_tie_gap`` and, per MoE layer, ``router_logits`` and ``experts``.
+    ``embeds`` (Sf, D): for ``vlm`` patch embeddings put before the text (their
+    logits are dropped; None: text only, as the engine serves it), for
+    ``audio`` the frame embeddings the encoder reads.  ``moe_groups`` and
+    ``routing`` as in the module docstring.  A ``stats`` dict receives
+    ``near_ties`` (positions that took the engine's choice), ``max_tie_gap``
+    and, per MoE layer, ``router_logits`` and ``experts``.
     """
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the plain forward covers the dense and moe "
-                                  f"families only (got {cfg.family!r})")
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: the plain forward covers the dense, moe, vlm "
+                                  f"and audio families only (got {cfg.family!r})")
     f = lambda w: w.to(torch.float32)  # noqa: E731
-    s = tokens.shape[0]
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attend = ref.attention_chunked if s * s > CHUNKED_ABOVE else ref.attention
     x = f(params["embed"][tokens])
+    n_front, memory = 0, None
+    if cfg.family == "vlm" and embeds is not None:
+        n_front = embeds.shape[0]
+        x = torch.cat([f(embeds), x])
+    elif cfg.family == "audio":
+        memory = encode(cfg, params, embeds)
+    s = x.shape[0]
     moe = cfg.layer_is_moe(0)
     if moe:
         gid, caps = _groups(cfg, s, moe_groups)
-    for l, blk in enumerate(params["layers"]):
-        a, m = blk["mixer"], blk["ffn"]
+    for l, blk in enumerate(params["decoder" if memory is not None else "layers"]):
         y = ref.rmsnorm(x, f(blk["norm1"]), eps=cfg.norm_eps)
-        bq, bk, bv = (f(a[n]) if n in a else 0.0 for n in ("bq", "bk", "bv"))
-        q = _rope((y @ f(a["wq"]) + bq).view(s, h, dh), cfg.rope_theta)
-        k = _rope((y @ f(a["wk"]) + bk).view(s, kv, dh), cfg.rope_theta)
-        v = (y @ f(a["wv"]) + bv).view(s, kv, dh)
-        o = attend(q.transpose(0, 1).contiguous(), k.transpose(0, 1).contiguous(),
-                   v.transpose(0, 1).contiguous(), causal=True, window=cfg.window)
-        x = x + o.transpose(0, 1).reshape(s, h * dh) @ f(a["wo"])
+        x = x + _attention(cfg, blk["mixer"], y, f, causal=True)
+        if memory is not None:
+            y = ref.rmsnorm(x, f(blk["norm_x"]), eps=cfg.norm_eps)
+            x = x + _attention(cfg, blk["cross"], y, f, causal=False, memory=memory)
         y = ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps)
         if moe:
-            x = x + _moe(cfg, y, m, gid, caps, None if routing is None else routing[l],
+            x = x + _moe(cfg, y, blk["ffn"], gid, caps, None if routing is None else routing[l],
                          stats, f)
         else:
-            x = x + (F.silu(y @ f(m["wg"])) * (y @ f(m["wu"]))) @ f(m["wd"])
-    x = ref.rmsnorm(x, f(params["final_norm"]), eps=cfg.norm_eps)
+            x = x + _ffn(y, blk["ffn"], f)
+    x = ref.rmsnorm(x[n_front:], f(params["final_norm"]), eps=cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ f(head)
+
+
+def encode(cfg: ModelConfig, params: dict, embeds: torch.Tensor) -> torch.Tensor:
+    """The audio encoder in fp32 over frame embeddings (Sf, D): bidirectional,
+    rope at 0..Sf-1, then the encoder's final norm."""
+    f = lambda w: w.to(torch.float32)  # noqa: E731
+    x = f(embeds)
+    for blk in params["encoder"]:
+        y = ref.rmsnorm(x, f(blk["norm1"]), eps=cfg.norm_eps)
+        x = x + _attention(cfg, blk["mixer"], y, f, causal=False)
+        x = x + _ffn(ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps), blk["ffn"], f)
+    return ref.rmsnorm(x, f(params["enc_final_norm"]), eps=cfg.norm_eps)

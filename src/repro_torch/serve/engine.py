@@ -22,11 +22,18 @@ Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
     whose logits go non-finite, transitions to ``FAILED`` and frees its
     slot; ``submit(..., timeout_s=)`` deadlines, ``handle.cancel()``, and
     eos refill of a finished slot from the queue, as in the reference.
+  * ``tuning_db`` (default: the shared ``models.lowering.deployment_database``)
+    and ``explain_kernels()``, the pass-pipeline and contraction-plan report
+    at the serving shape, cached under the database's uid and generation.
+  * ``audio`` (encoder-decoder): each admitted request's encoder memory is
+    computed at prefill from zero frame embeddings, as the reference's stub
+    frontend does, and kept in its slot.  ``vlm`` is served text-only, as in
+    the reference (its patch embeddings reach ``forward`` only).
 
-Not ported yet (the constructor refuses them): ``mesh``, ``tuning_db``,
-``fault_plan``, ``logit_program``/``logit_inputs``/``tuner``/
-``program_backend``; ``compile_resilient`` and ``explain_kernels`` do not
-exist; there is no jit cache to share (torch runs eagerly).
+Not ported yet (the constructor refuses them): ``mesh``, ``fault_plan``,
+``logit_program``/``logit_inputs``/``tuner``/``program_backend``;
+``compile_resilient`` does not exist; torch runs eagerly, so no step
+function is traced or shared.
 
 The engine runs on the device its parameters are on (the card unless the
 caller built them on the CPU)::
@@ -53,6 +60,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import model as M
+from ..models.lowering import deployment_context, kernel_report
 
 
 class NonFiniteLogits(RuntimeError):
@@ -207,13 +215,17 @@ class ServingEngine:
                  mesh=None, fault_plan=None, logit_program=None, logit_inputs=None,
                  tuner=None, program_backend=None):
         given = {name: value for name, value in (
-            ("tuning_db", tuning_db), ("mesh", mesh), ("fault_plan", fault_plan),
+            ("mesh", mesh), ("fault_plan", fault_plan),
             ("logit_program", logit_program), ("logit_inputs", logit_inputs),
             ("tuner", tuner), ("program_backend", program_backend)) if value is not None}
         if given:
             raise NotImplementedError(
                 f"ServingEngine: {sorted(given)} not ported yet (see ROADMAP queue 1)")
-        self.cfg, self.scfg, self.params = cfg, scfg, params
+        self.cfg, self.scfg = cfg, scfg
+        self._ctx = deployment_context(cfg, params, tuning_db=tuning_db)
+        self.params = self._ctx.params
+        self.tuning_db = self._ctx.tuning_db
+        self.telemetry = self._ctx.telemetry
         self.device = params["embed"].device
         n = scfg.batch_slots
         self._buckets = prefill_buckets(scfg.max_len, scfg.min_bucket)
@@ -343,6 +355,19 @@ class ServingEngine:
             "or RequestHandle.result()", DeprecationWarning, stacklevel=2)
         return self.drain()
 
+    def explain_kernels(self) -> str:
+        """Pass-pipeline + contraction-plan report for this engine's config
+        at its serving shape (content-cached, so repeated calls and
+        re-created engines share one pipeline run until the database
+        changes)."""
+        return self._ctx.jitted(
+            "serve.kernel_report",
+            lambda: kernel_report(self.cfg, seq=self.scfg.max_len,
+                                  batch=self.scfg.batch_slots, db=self.tuning_db),
+            self.scfg.max_len, self.scfg.batch_slots,
+            self.tuning_db.uid, self.tuning_db.generation,
+        )
+
     # -- internals -------------------------------------------------------------
     def _prefill(self, h: RequestHandle):
         """Bucket-padded prefill of one request into a fresh b=1 state;
@@ -353,6 +378,11 @@ class ServingEngine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :s] = h.prompt
         state = M.init_decode_state(cfg, 1, scfg.max_len, ring=False, device=self.device)
+        if cfg.family == "audio":
+            # stub frontend: encoder memory from zero frame embeddings
+            emb = torch.zeros((1, cfg.frontend_len, cfg.d_model), dtype=M.dtype_of(cfg),
+                              device=self.device)
+            state["memory"] = M.encode(cfg, self.params, emb)
         logits, state = M.decode_step(cfg, self.params, state,
                                       torch.as_tensor(toks, device=self.device))
         # reset to the true length: the padded cache rows beyond it are

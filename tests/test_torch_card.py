@@ -25,7 +25,10 @@ bf16, the SIMT kernel in fp32 and bf16, the split-KV decode kernel in bf16
 at decode shapes: ragged slots, a slot at offset 0, one past the cache and
 one with no key, a window, groups 1-16, several chunk sizes, bit-identical
 over repeated launches); ``test_torch_model_kernels.py`` holds the plain
-versions against the reference on the CPU.  K6 runs at ragged shapes and at
+versions against the reference on the CPU; K5 also at Seamless's
+cross-attention shapes (D = 64, group 1, non-causal over a longer memory, a
+decode step at offset 0).  ``ops.matmul`` launches K1; the reduced vlm and
+audio models run ``forward`` and the engine on the card.  K6 runs at ragged shapes and at
 each of its tile heights (C up to 32, up to 64, above), with and without
 16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync) named through
 ``_launch`` at ragged C, D and F with E = 3, the decode kernel at the decode
@@ -716,6 +719,83 @@ def test_model_and_engine_on_card(card, arch):
                np.array([2, 7, 1, 8, 2, 8, 1], np.int32)]
     out = []
     for p in (params, cpu_params):
+        eng = ServingEngine(cfg, p, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6))
+        hs = [eng.submit(pr) for pr in prompts]
+        eng.drain()
+        out.append([h.tokens for h in hs])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,sq,skv", [("mma", 300, 700), ("mma", 130, 4096),
+                                           ("decode", 1, 4096), ("decode", 1, 333)])
+def test_flash_attention_cross_attention_shapes_on_card(card, kernel, sq, skv):
+    """Seamless's cross-attention: 16 heads of 64, a GQA group of 1,
+    non-causal over a memory longer than the queries, offset 0 (8 slots at a
+    decode step); the decode kernel walks every chunk without a causal
+    bound."""
+    g = torch.Generator(device=card).manual_seed(sq + skv)
+    bh = 16 if sq > 1 else 8 * 16
+    q = torch.randn(bh, sq, 64, generator=g, device=card)
+    k = torch.randn(bh, skv, 64, generator=g, device=card)
+    v = torch.randn(bh, skv, 64, generator=g, device=card)
+    _hold_flash_kernel(kernel, q, k, v, causal=False, window=None, q_offset=0)
+    assert p_flash.choose_kernel(torch.bfloat16, sq, 64, True, 1) == kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_matmul_launches_k1_on_card(card, dtype):
+    """``ops.matmul`` on CUDA tensors launches K1 (the tile is ignored) and
+    raises for what K1 does not take."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(200, 130, generator=g, device=card).to(dtype)
+    y = torch.randn(130, 90, generator=g, device=card).to(dtype)
+    before = p_gemm.LAUNCHES["gemm"], p_gemm.PLAIN["gemm"]
+    got = ops.matmul(x, y, tile=(256, 256, 128))
+    torch.cuda.synchronize()
+    assert (p_gemm.LAUNCHES["gemm"], p_gemm.PLAIN["gemm"]) == (before[0] + 1, before[1])
+    want = p_gemm.gemm_plain(x, y)
+    if dtype == torch.float32:
+        assert max_rel(got.cpu().numpy(), want.cpu().numpy()) < MAX_REL
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-1)
+    with pytest.raises(ValueError):
+        ops.matmul(x[:, :64], y[:64])  # a strided view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "seamless-m4t-large-v2"])
+def test_family_model_and_engine_on_card(card, arch):
+    """The reduced vlm and audio models on the card: ``forward`` with
+    frontend embeddings against the fp32 plain forward, and the engine's
+    greedy tokens (audio: over each request's encoded zero frames) against
+    the same model on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, 100), generator=gen)
+    emb = torch.randn(1, cfg.frontend_len, cfg.d_model, generator=gen)
+    got = M.forward(cfg, params, {"tokens": toks.to(card), "embeds": emb.to(card)})
+    want = plain.forward(cfg, params, toks[0].to(card), embeds=emb[0].to(card))
+    torch.testing.assert_close(got[0], want, rtol=2e-3, atol=2e-3)
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return [to_cpu(v) for v in t] if isinstance(t, list) else t.cpu()
+
+    prompts = [np.array([3, 1, 4, 1, 5], np.int32), np.array([9, 8, 7], np.int32),
+               np.array([2, 7, 1, 8, 2, 8, 1], np.int32)]
+    out = []
+    for p in (params, to_cpu(params)):
         eng = ServingEngine(cfg, p, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6))
         hs = [eng.submit(pr) for pr in prompts]
         eng.drain()

@@ -27,9 +27,10 @@ def test_every_module_is_listed():
               "repro_torch.models.model", "repro_torch.models.convert",
               "repro_torch.models.plain", "repro_torch.serve", "repro_torch.serve.engine",
               "repro_torch.core.search", "repro_torch.fault", "repro_torch.autotune",
-              "repro_torch.tools.tune", "repro_torch.tools.explain"):
+              "repro_torch.tools.tune", "repro_torch.tools.explain",
+              "repro_torch.models.lowering"):
         assert m in MODULES, m
-    assert len(MODULES) >= 49
+    assert len(MODULES) >= 50
 
 
 def test_import_hygiene_subprocess():

@@ -216,7 +216,7 @@ def test_write_slot_replaces_cache_and_length(model):
     assert not states["layers"][1][:, 0].any() and not states["layers"][1][:, 2].any()
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
 def test_other_families_are_not_ported_yet(arch):
     cfg = p_config(arch).reduced()
     with pytest.raises(NotImplementedError):
