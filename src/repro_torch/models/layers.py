@@ -1,6 +1,7 @@
-"""Model building blocks of the decoder (port of ``repro/models/layers.py:80-249``):
-rope, attention (self- and cross-attention), the dense SwiGLU FFN and the MoE
-FFN.
+"""Model building blocks (port of ``repro/models/layers.py:80-533``): rope,
+attention (self- and cross-attention), the dense SwiGLU FFN, the MoE FFN, the
+Mamba block (selective SSM, chunked scan) and the xLSTM blocks (mLSTM,
+chunkwise-parallel; sLSTM, sequential).
 
 Plain functions over dicts of tensors.  Attention goes through
 ``kernels.ops`` (K5 on the card), the MoE experts through
@@ -13,6 +14,12 @@ KV caches are laid out ``(B, KV, S, Dh)`` — the reference's is
 ``(B, S, KV, Dh)`` — so that folding heads into K5's ``(B*KV, S, Dh)`` is a
 view and not a copy of the whole cache on every step.  Caches are updated
 in place.
+
+The scans have no Pallas kernel in the reference and none here: they run on
+torch ops.  The reference's ``lax.scan`` over chunks is a loop over chunks,
+its ``lax.associative_scan`` within a chunk a log-step (Hillis-Steele) scan,
+and the sLSTM's ``lax.scan`` over time a loop over time.  The recurrent blocks
+return their new state; they never write the one they were given.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ Params = dict[str, Any]
 def _dense_init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, device=gen.device) * s).to(dtype)
+    # scaled in place: a Jamba expert tensor is 12.9 GB in fp32
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(s).to(dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -218,3 +226,226 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
     y_flat = torch.cat([y.view(e * c, d), y.new_zeros((1, d))])
     contrib = y_flat[dest] * (sg * keep.to(sg.dtype))[:, None]
     return x.new_zeros((t, d)).index_add_(0, st, contrib)
+
+
+# ---------------------------------------------------------------------------
+# Mamba block (selective SSM, chunked scan)
+# ---------------------------------------------------------------------------
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d = cfg.d_model
+    din = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dt_rank = max(1, d // 16)
+    dev = gen.device
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * din), dtype),
+        "conv_w": _dense_init(gen, (cfg.mamba_d_conv, din), dtype, scale=0.5),
+        "conv_b": torch.zeros((din,), dtype=dtype, device=dev),
+        "x_proj": _dense_init(gen, (din, dt_rank + 2 * n), dtype),
+        "dt_proj": _dense_init(gen, (dt_rank, din), dtype),
+        "dt_bias": torch.full((din,), -2.0, dtype=dtype, device=dev),  # softplus -> small dt
+        # fp32 in every model, as in the reference
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+                           ).repeat(din, 1),
+        "Dskip": torch.ones((din,), dtype=dtype, device=dev),
+        "out_proj": _dense_init(gen, (din, d), dtype),
+    }
+
+
+def _mamba_scan_chunked(dt, Bm, Cm, xc, A, h0, chunk: int):
+    """Selective-SSM scan, one chunk at a time.
+
+    dt, xc: (B, S, Din) fp32; Bm, Cm: (B, S, N) fp32; A: (Din, N); h0:
+    (B, Din, N).  Returns y (B, S, Din) fp32 and the final state.  Only one
+    chunk's (B, Q, Din, N) transitions ``exp(dt*A)`` and inputs ``dt*B*x`` are
+    ever live: the carry is folded into the chunk's first input, a log-step
+    scan of the pairs (a, b) under (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)
+    gives every position's state, which is contracted with C at once.
+    """
+    b, s, din = dt.shape
+    q = min(chunk, s)
+    assert s % q == 0
+    y = torch.empty((b, s, din), dtype=torch.float32, device=dt.device)
+    h = h0
+    for c0 in range(0, s, q):
+        dtc = dt[:, c0:c0 + q, :, None]
+        a = torch.exp(dtc * A)  # (B, Q, Din, N)
+        hs = dtc * Bm[:, c0:c0 + q, None, :] * xc[:, c0:c0 + q, :, None]
+        hs[:, 0] += a[:, 0] * h
+        step = 1
+        while step < q:  # Hillis-Steele: after the step, each position holds 2*step inputs
+            hs[:, step:] = hs[:, step:] + a[:, step:] * hs[:, :-step]
+            if 2 * step < q:
+                a[:, step:] = a[:, step:] * a[:, :-step]
+            step *= 2
+        y[:, c0:c0 + q] = torch.einsum("bqdn,bqn->bqd", hs, Cm[:, c0:c0 + q])
+        h = hs[:, -1].clone()
+    return y, h
+
+
+def mamba(x: torch.Tensor, p: Params, cfg: ModelConfig,
+          state: tuple[torch.Tensor, torch.Tensor] | None = None, chunk: int = 256):
+    """x: (B, S, D) -> (out (B, S, D), (conv_buf (B, d_conv-1, Din), h (B, Din, N)
+    fp32)).  With ``state`` the causal depthwise conv continues from its
+    buffer and the scan from its h; S = 1 is one step of the recurrence."""
+    b, s, d = x.shape
+    din = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dt_rank = max(1, d // 16)
+
+    x1, z = (x @ p["in_proj"]).split(din, dim=-1)  # (B, S, Din) each
+
+    # causal depthwise conv, optionally continuing from a state buffer
+    dconv = cfg.mamba_d_conv
+    if state is not None:
+        x_pad = torch.cat([state[0], x1], dim=1)
+    else:
+        x_pad = F.pad(x1, (0, 0, dconv - 1, 0))
+    new_conv_buf = (x_pad[:, s:].clone() if dconv > 1
+                    else x1.new_zeros((b, 0, din)))
+    xc = sum(x_pad[:, i:i + s] * p["conv_w"][i] for i in range(dconv)) + p["conv_b"]
+    xc = F.silu(xc)
+
+    proj = xc @ p["x_proj"]  # (B, S, dt_rank + 2N)
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])  # model dtype
+    Bm = proj[..., dt_rank:dt_rank + n].float()
+    Cm = proj[..., dt_rank + n:].float()
+
+    A = -torch.exp(p["A_log"])  # (Din, N) fp32
+    dtf, xcf = dt.float(), xc.float()
+    h0 = (state[1] if state is not None
+          else torch.zeros((b, din, n), dtype=torch.float32, device=x.device))
+    # pad the sequence to a chunk multiple (dt = 0: the identity transition)
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        dtf, Bm, Cm, xcf = (F.pad(t, (0, 0, 0, pad)) for t in (dtf, Bm, Cm, xcf))
+    y, h_last = _mamba_scan_chunked(dtf, Bm, Cm, xcf, A, h0, q)
+    y = y[:, :s].to(x.dtype)
+    y = y + p["Dskip"] * xc
+    y = y * F.silu(z)
+    return y @ p["out_proj"], (new_conv_buf, h_last)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    dev = gen.device
+    return {
+        "wq": _dense_init(gen, (d, d), dtype),
+        "wk": _dense_init(gen, (d, d), dtype),
+        "wv": _dense_init(gen, (d, d), dtype),
+        "wi": _dense_init(gen, (d, h), dtype, scale=0.01),
+        "wf": _dense_init(gen, (d, h), dtype, scale=0.01),
+        "bi": torch.zeros((h,), dtype=dtype, device=dev),
+        "bf": torch.full((h,), 3.0, dtype=dtype, device=dev),  # forget-gate bias: long memory
+        "wo": _dense_init(gen, (d, d), dtype),
+    }
+
+
+def mlstm(x: torch.Tensor, p: Params, cfg: ModelConfig, state: tuple | None = None,
+          chunk: int = 128):
+    """Chunkwise-parallel mLSTM (matrix memory, gated linear attention), x:
+    (B, S, D) -> (out, (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)), fp32 state).
+
+    Stabilized in log space: within a chunk the decay matrix comes from the
+    cumulative log forget gates; across chunks the memory C, the normalizer n
+    and the stabilizer m are carried.  Padding to a chunk multiple takes
+    ``logi = -1e30`` (no input), and a fresh state starts at ``m = -1e30``.
+    """
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    f32 = torch.float32
+
+    def heads(w):  # (B, S, D) -> (B, H, S, Dh)
+        return w.view(b, s, h, dh).transpose(1, 2)
+
+    q = heads(x @ p["wq"]) / math.sqrt(dh)
+    k = heads(x @ p["wk"])
+    v = heads(x @ p["wv"])
+    logf = F.logsigmoid((x @ p["wf"] + p["bf"]).float()).transpose(1, 2)  # (B, H, S)
+    logi = (x @ p["wi"] + p["bi"]).float().transpose(1, 2)
+
+    qc = min(chunk, s)
+    pad = (-s) % qc
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        logf = F.pad(logf, (0, pad))
+        logi = F.pad(logi, (0, pad), value=-1e30)
+    if state is None:
+        C = torch.zeros((b, h, dh, dh), dtype=f32, device=x.device)
+        n = torch.zeros((b, h, dh), dtype=f32, device=x.device)
+        m = torch.full((b, h), -1e30, dtype=f32, device=x.device)
+    else:
+        C, n, m = state
+    tri = torch.ones((qc, qc), dtype=torch.bool, device=x.device).tril()
+    ys = torch.empty((b, h, s + pad, dh), dtype=f32, device=x.device)
+    for c0 in range(0, s + pad, qc):
+        sl = slice(c0, c0 + qc)
+        qq, kk, vv = q[:, :, sl].float(), k[:, :, sl].float(), v[:, :, sl].float()
+        f, i_ = logf[:, :, sl], logi[:, :, sl]
+        Fc = torch.cumsum(f, dim=-1)  # cumulative log-forget within the chunk
+        logd_inter = Fc + m[..., None]  # decay applied to the carried memory
+        # intra-chunk decay matrix: D[t, s] = F_t - F_s + i_s (s <= t)
+        Dm = (Fc[..., :, None] - Fc[..., None, :] + i_[..., None, :]).masked_fill(~tri, -1e30)
+        m_new = torch.maximum(logd_inter, Dm.amax(dim=-1))  # (B, H, Q) running stabilizer
+        sc_inter = torch.exp(logd_inter - m_new)
+        Pqk = torch.exp(Dm - m_new[..., None]) * (qq @ kk.transpose(-1, -2))  # (B, H, Q, Q)
+        y_inter = sc_inter[..., None] * (qq @ C)
+        norm = Pqk.sum(dim=-1) + sc_inter * (qq @ n[..., None])[..., 0]
+        denom = torch.maximum(norm.abs(), torch.exp(-m_new))
+        ys[:, :, sl] = (Pqk @ vv + y_inter) / denom[..., None]
+
+        # the chunk's final state
+        Ftot = Fc[..., -1:]  # (B, H, 1)
+        src = Ftot - Fc + i_
+        m_next = torch.maximum(Ftot[..., 0] + m, src.amax(dim=-1))
+        w_src = torch.exp(src - m_next[..., None])  # (B, H, Q)
+        decay = torch.exp(Ftot[..., 0] + m - m_next)
+        wk = w_src[..., None] * kk
+        C = decay[..., None, None] * C + wk.transpose(-1, -2) @ vv
+        n = decay[..., None] * n + wk.sum(dim=-2)
+        m = m_next
+    out = ys[:, :, :s].transpose(1, 2).reshape(b, s, d).to(x.dtype)
+    return out @ p["wo"], (C, n, m)
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d = cfg.d_model
+    return {
+        "wz": _dense_init(gen, (d, d), dtype),
+        "wi": _dense_init(gen, (d, d), dtype, scale=0.01),
+        "wf": _dense_init(gen, (d, d), dtype, scale=0.01),
+        "wo_gate": _dense_init(gen, (d, d), dtype, scale=0.01),
+        "bf": torch.full((d,), 3.0, dtype=dtype, device=gen.device),
+        "wo": _dense_init(gen, (d, d), dtype),
+    }
+
+
+def slstm(x: torch.Tensor, p: Params, cfg: ModelConfig, state: tuple | None = None):
+    """Stabilized sLSTM, a sequential scalar recurrence: a loop over time
+    carrying (c, n, m), each (B, D) fp32."""
+    b, s, d = x.shape
+    f32 = torch.float32
+    z = torch.tanh(x @ p["wz"]).float()
+    i_ = (x @ p["wi"]).float()
+    logf = F.logsigmoid((x @ p["wf"] + p["bf"]).float())
+    o_ = torch.sigmoid((x @ p["wo_gate"]).float())
+    if state is None:
+        c = torch.zeros((b, d), dtype=f32, device=x.device)
+        n = torch.zeros((b, d), dtype=f32, device=x.device)
+        m = torch.full((b, d), -1e30, dtype=f32, device=x.device)
+    else:
+        c, n, m = state
+    ys = torch.empty((b, s, d), dtype=f32, device=x.device)
+    for t in range(s):  # 13 launches a step; the output gate is applied after the loop
+        it, lfm = i_[:, t], logf[:, t] + m
+        m = torch.maximum(lfm, it)
+        fg, ig = torch.exp(lfm - m), torch.exp(it - m)
+        c = torch.addcmul(fg * c, ig, z[:, t])
+        n = torch.addcmul(ig, fg, n)
+        ys[:, t] = c / n.abs().clamp_min(1.0)
+    return (ys * o_).to(x.dtype) @ p["wo"], (c, n, m)

@@ -1,11 +1,14 @@
-"""Model assembly (port of ``repro/models/model.py:61-471``).
+"""Model assembly (port of ``repro/models/model.py:38-471``).
 
 Ported: ``init_params``, ``forward``, ``encode``, ``init_decode_state`` (ring
 and full caches), ``decode_step`` (prefill s > 1 and decode s = 1),
 ``init_slot_states``, ``write_slot``, ``decode_slots`` and
-``decode_slots_greedy``, for the ``dense``, ``moe``, ``vlm`` and ``audio``
-families (a ``moe`` block's FFN is ``layers.moe_ffn``).  The ``hybrid`` and
-``ssm`` families raise ``NotImplementedError``.
+``decode_slots_greedy``, for all six families of the reference: ``dense``,
+``moe``, ``vlm``, ``audio``, ``hybrid`` (Jamba: attention and Mamba layers,
+MoE on every second layer) and ``ssm`` (xLSTM: mLSTM and sLSTM layers, no
+FFN).  A layer's mixer is ``cfg.layer_kind(l)`` and its FFN is
+``layers.moe_ffn`` where ``cfg.layer_is_moe(l)``, ``layers.dense_ffn``
+elsewhere, and absent where ``cfg.d_ff == 0``.
 
 Frontends are stubs, as in the reference: ``vlm`` takes precomputed patch
 embeddings (``batch["embeds"]``) before the text in ``forward`` and drops
@@ -14,12 +17,15 @@ frame embeddings with a bidirectional encoder (``encode``); each decoder
 block adds a cross-attention sub-block over that memory, which a decode
 state carries as ``"memory"`` (one per slot on the serving path).
 
-From JAX to torch: the reference's ``lax.scan`` over stacked layers is a loop
-over a list of per-layer parameter dicts, and its ``vmap`` over serving slots
-is a slot dimension written out — per-slot write positions go through
-advanced indexing into the caches, per-slot rope positions and K5 offsets
-come from the per-slot ``len``.  Decode states are updated in place (a
-Danube cache of 8 slots x 4096 positions is 3 GB) and returned.
+From JAX to torch: the reference's ``lax.scan`` over stacked layers (or over
+stacked periods, for ``hybrid`` and ``ssm``) is a loop over a list of
+per-layer parameter dicts, so a model of any depth builds, a cut of part of
+a period included; its ``vmap`` over serving slots is a slot dimension
+written out — per-slot write positions go through advanced indexing into
+the caches, per-slot rope positions and K5 offsets come from the per-slot
+``len``.  Attention caches are updated in place (a Danube cache of 8 slots x
+4096 positions is 3 GB); a recurrent layer's new state replaces its old one
+in the state's list.
 
 MoE capacity: ``forward`` and ``decode_step`` dispatch the ``B * s`` tokens
 of a call together with ``moe_capacity(cfg, B * s)``, as the reference does.
@@ -27,10 +33,17 @@ The reference decodes slots one by one under ``vmap`` (T = 1, capacity 8:
 nothing is ever dropped); ``decode_slots`` dispatches all N slots in one
 call with a capacity of N per expert, which drops nothing either.
 
-State layout: ``{"len": int, "layers": (K, V)}`` with K and V of shape
-``(n_layers, B, KV, S_cache, Dh)`` for ``decode_step``, plus ``"memory"``
-``(B, frontend_len, d_model)`` for ``audio``; slot states have ``"len"`` as
+State layout: ``{"len": int, "layers": ...}``; slot states have ``"len"`` as
 an int32 tensor of one length per slot and B = the slot count.
+
+* ``dense``, ``moe``, ``vlm``, ``audio``: ``"layers"`` is ``(K, V)``, each
+  ``(n_layers, B, KV, S_cache, Dh)``, plus ``"memory"`` ``(B, frontend_len,
+  d_model)`` for ``audio``;
+* ``hybrid``, ``ssm``: ``"layers"`` is a list with one state per layer, of
+  its kind: attention ``(K, V)`` each ``(B, KV, S_cache, Dh)``; Mamba
+  ``(conv_buf (B, d_conv - 1, Din), h (B, Din, N) fp32)``; mLSTM ``(C (B, H,
+  Dh, Dh), n (B, H, Dh), m (B, H))`` and sLSTM ``(c, n, m)`` each ``(B, D)``,
+  all fp32.
 """
 from __future__ import annotations
 
@@ -51,7 +64,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+# families whose layers carry token-recurrent state (one state per layer)
+RECURRENT_FAMILIES = ("hybrid", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -80,9 +95,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
 
     def block(l: int) -> Params:
-        return {"norm1": ones(), "mixer": L.init_attention(gen, cfg, dt), "norm2": ones(),
-                "ffn": (L.init_moe_ffn(gen, cfg, dt) if cfg.layer_is_moe(l)
-                        else L.init_dense_ffn(gen, cfg, dt))}
+        p = {"norm1": ones(), "mixer": _MIXER_INIT[cfg.layer_kind(l)](gen, cfg, dt)}
+        if cfg.d_ff:
+            p["norm2"] = ones()
+            p["ffn"] = (L.init_moe_ffn(gen, cfg, dt) if cfg.layer_is_moe(l)
+                        else L.init_dense_ffn(gen, cfg, dt))
+        return p
 
     if cfg.family == "audio":
         p["encoder"] = [block(l) for l in range(cfg.enc_layers)]
@@ -94,6 +112,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return p
 
 
+_MIXER_INIT = {"attn": L.init_attention, "mamba": L.init_mamba, "mlstm": L.init_mlstm,
+               "slstm": L.init_slstm}
+_RECURRENT_MIXERS = {"mamba": L.mamba, "mlstm": L.mlstm, "slstm": L.slstm}
+
+
 def decoder_layers(cfg: ModelConfig, params: Params) -> list[Params]:
     """The blocks the tokens run through: ``decoder`` for audio, else ``layers``."""
     return params["decoder"] if cfg.family == "audio" else params["layers"]
@@ -102,23 +125,33 @@ def decoder_layers(cfg: ModelConfig, params: Params) -> list[Params]:
 # ---------------------------------------------------------------------------
 # blocks, forward
 # ---------------------------------------------------------------------------
-def _apply_block(x, blk: Params, cfg: ModelConfig, positions, cache=None,
+def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None,
                  write_pos=0, attn_offset=0, moe_capacity=None, causal=True, memory=None):
+    """Layer ``l``: (x, the layer's state after it).  An attention layer
+    writes its cache ``state`` in place and returns it; a recurrent layer
+    returns its new state."""
     normed = ops.rmsnorm(x, blk["norm1"], eps=cfg.norm_eps)
-    x = x + L.attention(normed, blk["mixer"], cfg, positions=positions, causal=causal,
-                        cache=cache, write_pos=write_pos, attn_offset=attn_offset)
-    if memory is not None:  # cross-attention sub-block (enc-dec decoder)
-        normed_x = ops.rmsnorm(x, blk["norm_x"], eps=cfg.norm_eps)
-        x = x + L.attention(normed_x, blk["cross"], cfg, positions=positions, causal=False,
-                            memory=memory)
-    normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
-    if cfg.layer_is_moe(0):  # the reference's stack is homogeneous (model.py:219, 380)
-        b, s, d = normed2.shape
-        y = L.moe_ffn(normed2.reshape(b * s, d), blk["ffn"], cfg,
-                      capacity=moe_capacity).view(b, s, d)
+    kind = cfg.layer_kind(l)
+    if kind == "attn":
+        x = x + L.attention(normed, blk["mixer"], cfg, positions=positions, causal=causal,
+                            cache=state, write_pos=write_pos, attn_offset=attn_offset)
+        if memory is not None:  # cross-attention sub-block (enc-dec decoder)
+            normed_x = ops.rmsnorm(x, blk["norm_x"], eps=cfg.norm_eps)
+            x = x + L.attention(normed_x, blk["cross"], cfg, positions=positions, causal=False,
+                                memory=memory)
     else:
-        y = L.dense_ffn(normed2, blk["ffn"])
-    return x + y
+        out, state = _RECURRENT_MIXERS[kind](normed, blk["mixer"], cfg, state=state)
+        x = x + out
+    if cfg.d_ff:
+        normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
+        if cfg.layer_is_moe(l):
+            b, s, d = normed2.shape
+            y = L.moe_ffn(normed2.reshape(b * s, d), blk["ffn"], cfg,
+                          capacity=moe_capacity).view(b, s, d)
+        else:
+            y = L.dense_ffn(normed2, blk["ffn"])
+        x = x + y
+    return x, state
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -143,8 +176,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) ->
         memory = encode(cfg, params, batch["embeds"])
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :].expand(b, -1)
-    for blk in decoder_layers(cfg, params):
-        x = _apply_block(x, blk, cfg, positions, memory=memory)
+    for l, blk in enumerate(decoder_layers(cfg, params)):
+        x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
     logits = _logits(cfg, params, x)
     return logits[:, n_front:] if n_front else logits
 
@@ -156,8 +189,8 @@ def encode(cfg: ModelConfig, params: Params, embeds: torch.Tensor) -> torch.Tens
     b, sf, _ = embeds.shape
     x = embeds.to(dtype_of(cfg))
     positions = torch.arange(sf, dtype=torch.int32, device=x.device)[None, :].expand(b, sf)
-    for blk in params["encoder"]:
-        x = _apply_block(x, blk, cfg, positions, causal=False)
+    for l, blk in enumerate(params["encoder"]):
+        x, _ = _apply_block(x, blk, cfg, l, positions, causal=False)
     return ops.rmsnorm(x, params["enc_final_norm"], eps=cfg.norm_eps)
 
 
@@ -170,11 +203,36 @@ def _cache_len(cfg: ModelConfig, s_max: int, ring: bool) -> int:
     return min(s_max, cfg.window) if (ring and cfg.window) else s_max
 
 
+def _empty_state(cfg: ModelConfig, kind: str, b: int, s_cache: int, device) -> tuple:
+    """One layer's fresh decode state (``repro/models/model.py:296-323``)."""
+    d, f32 = cfg.d_model, torch.float32
+    zeros = lambda shape, dt=f32: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+    if kind == "attn":
+        shape = (b, cfg.n_kv_heads, s_cache, cfg.head_dim)
+        return (zeros(shape, dtype_of(cfg)), zeros(shape, dtype_of(cfg)))
+    if kind == "mamba":
+        din = cfg.mamba_expand * d
+        return (zeros((b, cfg.mamba_d_conv - 1, din), dtype_of(cfg)),
+                zeros((b, din, cfg.mamba_d_state)))
+    if kind == "mlstm":
+        h = cfg.n_heads
+        dh = d // h
+        return (zeros((b, h, dh, dh)), zeros((b, h, dh)),
+                torch.full((b, h), -1e30, dtype=f32, device=device))
+    if kind == "slstm":
+        return (zeros((b, d)), zeros((b, d)), torch.full((b, d), -1e30, dtype=f32, device=device))
+    raise ValueError(kind)
+
+
 def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
                       device: str | torch.device = "cuda") -> dict:
     check_family(cfg)
     dt = dtype_of(cfg)
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, _cache_len(cfg, s_max, ring), cfg.head_dim)
+    s_cache = _cache_len(cfg, s_max, ring)
+    if cfg.family in RECURRENT_FAMILIES:
+        return {"len": 0, "layers": [_empty_state(cfg, cfg.layer_kind(l), b, s_cache, device)
+                                     for l in range(cfg.n_layers)]}
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s_cache, cfg.head_dim)
     state = {"len": 0,
              "layers": (torch.zeros(shape, dtype=dt, device=device),
                         torch.zeros(shape, dtype=dt, device=device))}
@@ -182,6 +240,14 @@ def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
         state["memory"] = torch.zeros((b, cfg.frontend_len, cfg.d_model), dtype=dt,
                                       device=device)
     return state
+
+
+def _cache_rows(cfg: ModelConfig, state: dict) -> int:
+    """Positions an attention cache of ``state`` holds (0: no attention layer)."""
+    if cfg.family in RECURRENT_FAMILIES:
+        return next((st[0].shape[2] for l, st in enumerate(state["layers"])
+                     if cfg.layer_kind(l) == "attn"), 0)
+    return state["layers"][0].shape[3]
 
 
 def _slots(cfg: ModelConfig, clen, s_cache: int):
@@ -197,11 +263,17 @@ def _slots(cfg: ModelConfig, clen, s_cache: int):
 
 
 def _run_layers(cfg, params, state, x, positions, wpos, aoff, moe_capacity=None):
+    kw = dict(write_pos=wpos, attn_offset=aoff, moe_capacity=moe_capacity)
+    if cfg.family in RECURRENT_FAMILIES:
+        layers = state["layers"]
+        for l, blk in enumerate(params["layers"]):
+            x, layers[l] = _apply_block(x, blk, cfg, l, positions, state=layers[l], **kw)
+        return _logits(cfg, params, x)
     ks, vs = state["layers"]
     memory = state.get("memory")  # audio: (B, frontend_len, D), one per batch row
     for l, blk in enumerate(decoder_layers(cfg, params)):
-        x = _apply_block(x, blk, cfg, positions, cache=(ks[l], vs[l]), write_pos=wpos,
-                         attn_offset=aoff, moe_capacity=moe_capacity, memory=memory)
+        x, _ = _apply_block(x, blk, cfg, l, positions, state=(ks[l], vs[l]), memory=memory,
+                            **kw)
     return _logits(cfg, params, x)
 
 
@@ -209,14 +281,15 @@ def decode_step(cfg: ModelConfig, params: Params, state: dict, tokens: torch.Ten
     """Decode/prefill step: tokens (B, s) -> (logits (B, s, V), state).
 
     s == 1 is a decode step; s > 1 prefills the cache (which must be a full
-    cache, not a ring).  ``state`` is updated in place and returned.
+    cache, not a ring) or, for a recurrent layer, runs its scan on from the
+    state.  ``state`` is updated in place and returned.
     """
     check_family(cfg)
     b, s = tokens.shape
     clen = int(state["len"])
     x = params["embed"][tokens]
     positions = (clen + torch.arange(s, dtype=torch.int32, device=x.device))[None, :].expand(b, s)
-    wpos, aoff = _slots(cfg, clen, state["layers"][0].shape[3])
+    wpos, aoff = _slots(cfg, clen, _cache_rows(cfg, state))
     logits = _run_layers(cfg, params, state, x, positions, wpos, aoff)
     state["len"] = clen + s
     return logits, state
@@ -236,10 +309,16 @@ def init_slot_states(cfg: ModelConfig, n_slots: int, s_max: int,
 
 def write_slot(states: dict, i: int, state: dict) -> dict:
     """Copy a single-request (b=1) decode state into slot ``i`` (a refill:
-    the new request's prefilled cache, length and audio memory replace what
-    the finished request left behind).  In place; returns ``states``."""
-    for dst, src in zip(states["layers"], state["layers"]):
-        dst[:, i] = src[:, 0]
+    the new request's prefilled caches or recurrent states, length and audio
+    memory replace what the finished request left behind).  In place;
+    returns ``states``."""
+    if isinstance(states["layers"], list):  # one state per layer, batch first
+        for dst, src in zip(states["layers"], state["layers"]):
+            for d, t in zip(dst, src):
+                d[i] = t[0]
+    else:  # (K, V) stacked over layers
+        for dst, src in zip(states["layers"], state["layers"]):
+            dst[:, i] = src[:, 0]
     if "memory" in states:
         states["memory"][i] = state["memory"][0]
     states["len"][i] = int(state["len"])
@@ -249,13 +328,14 @@ def write_slot(states: dict, i: int, state: dict) -> dict:
 def decode_slots(cfg: ModelConfig, params: Params, states: dict, tokens: torch.Tensor):
     """One decode step for every slot at once: tokens (N,) -> (logits (N, V),
     states).  Each slot advances at its own length: rope positions, cache
-    write rows and K5 offsets are per slot, and an audio slot attends to its
-    own memory.  MoE layers dispatch the N slots together with N slots per
-    expert: nothing is dropped."""
+    write rows and K5 offsets are per slot, an audio slot attends to its own
+    memory, and a recurrent layer steps each slot's own state.  MoE layers
+    dispatch the N slots together with N slots per expert: nothing is
+    dropped."""
     check_family(cfg)
     clen = states["len"]
     x = params["embed"][tokens][:, None, :]  # (N, 1, D)
-    wpos, aoff = _slots(cfg, clen, states["layers"][0].shape[3])
+    wpos, aoff = _slots(cfg, clen, _cache_rows(cfg, states))
     # one K5 offset per q row (slot x head), expanded once for every layer
     aoff = expand_offsets(aoff, x.shape[0] * cfg.n_heads, x.device)
     logits = _run_layers(cfg, params, states, x, clen[:, None], wpos, aoff,

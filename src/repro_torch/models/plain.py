@@ -2,12 +2,20 @@
 
 No cache, no batching, no kernels: ``kernels.ref`` for normalisation and
 attention and torch matmuls for the rest, every weight upcast to fp32 as it
-is used.  It covers the dense, moe, vlm (patch embeddings before the text)
-and audio (encoder, then a decoder with cross-attention) families.  The
-tests hold it against the reference's ``forward``, and
+is used.  It covers every family: dense, moe, vlm (patch embeddings before
+the text), audio (encoder, then a decoder with cross-attention), hybrid
+(attention and Mamba layers, MoE on some) and ssm (mLSTM and sLSTM layers).
+The tests hold it against the reference's ``forward``, and
 ``chip_smoke.py`` holds the served model against it on the card at full
 width.  It applies the sliding window at every position, as the reference's
 ``forward`` does.
+
+The recurrent mixers share no code with ``layers``: Mamba is the plain
+per-position recurrence ``h = exp(dt A) h + dt B x, y = C h`` (the engine's
+is a chunked log-step scan, another association); the mLSTM is its
+recurrent stabilized form, one position at a time (the engine's is
+chunkwise-parallel), the normalizer carried as the memory of a constant 1
+value; the sLSTM is the recurrence as written.
 
 An MoE layer computes, per expert, only the tokens routed to it.  Two
 optional arguments let it follow how the engine dispatched a sequence:
@@ -17,7 +25,8 @@ optional arguments let it follow how the engine dispatched a sequence:
   (``None``: nothing dropped).  A served request is its prompt,
   ``(0, p_len, bucket)``, then one no-drop span per decoded token.  Default:
   one group of all S tokens, the reference's ``forward``.
-* ``routing`` — the engine's experts per layer, ``(S, top_k)`` each.  Where
+* ``routing`` — the engine's experts per MoE layer, in layer order,
+  ``(S, top_k)`` each.  Where
   they differ from this forward's own fp32 top-k, the engine's choice is taken
   only if each of its experts' fp32 logit lies within ``ROUTER_MARGIN`` of the
   own k-th largest (a near-tie from bf16 rounding); any other difference
@@ -27,12 +36,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ref
 
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 # above this many score elements per head, attention runs in tiles
 CHUNKED_ABOVE = 1 << 22
 # How far (in fp32 router logit) an engine-chosen expert may lie below this
@@ -172,6 +183,95 @@ def _ffn(y: torch.Tensor, m: dict, f) -> torch.Tensor:
     return (F.silu(y @ f(m["wg"])) * (y @ f(m["wu"]))) @ f(m["wd"])
 
 
+# positions whose Mamba transitions are formed at once (a (256, Din, N) block)
+MAMBA_BLOCK = 256
+
+
+def _mamba(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:
+    """fp32 Mamba mixer on ``y`` (S, D): causal depthwise conv, then the
+    selective SSM one position at a time."""
+    s = y.shape[0]
+    din, n = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    r = max(1, cfg.d_model // 16)
+    xz = y @ f(mx["in_proj"])
+    xin, z = xz[:, :din], xz[:, din:]
+    k, w = cfg.mamba_d_conv, f(mx["conv_w"])
+    xp = torch.cat([xin.new_zeros((k - 1, din)), xin])
+    u = F.silu(sum(w[j] * xp[j:j + s] for j in range(k)) + f(mx["conv_b"]))
+    proj = u @ f(mx["x_proj"])
+    dt = F.softplus(proj[:, :r] @ f(mx["dt_proj"]) + f(mx["dt_bias"]))  # (S, Din)
+    Bm, Cm = proj[:, r:r + n], proj[:, r + n:]
+    A = -torch.exp(f(mx["A_log"]))  # (Din, N)
+    h = y.new_zeros((din, n))
+    out = y.new_empty((s, din))
+    for t0 in range(0, s, MAMBA_BLOCK):
+        t1 = min(s, t0 + MAMBA_BLOCK)
+        decay = torch.exp(dt[t0:t1, :, None] * A)
+        inp = (dt[t0:t1] * u[t0:t1])[:, :, None] * Bm[t0:t1, None, :]
+        hs = torch.empty_like(decay)
+        for t in range(t1 - t0):
+            h = decay[t] * h + inp[t]
+            hs[t] = h
+        out[t0:t1] = torch.einsum("tdn,tn->td", hs, Cm[t0:t1])
+    return ((out + f(mx["Dskip"]) * u) * F.silu(z)) @ f(mx["out_proj"])
+
+
+def _mlstm(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:
+    """fp32 mLSTM mixer on ``y`` (S, D), recurrent: per head, the stabilizer
+    ``m_t = max(logf_t + m_{t-1}, logi_t)`` (from -1e30; on the host in
+    float64), then ``C_t = exp(logf_t + m_{t-1} - m_t) C_{t-1} + exp(logi_t -
+    m_t) k_t [v_t, 1]``, whose last column is the normalizer, and
+    ``h_t = q_t C_t[:, :Dh] / max(|q_t C_t[:, Dh]|, exp(-m_t))``."""
+    s, d = y.shape
+    h = cfg.n_heads
+    dh = d // h
+    q = (y @ f(mx["wq"])).view(s, h, dh) / math.sqrt(dh)
+    k = (y @ f(mx["wk"])).view(s, h, dh)
+    v = (y @ f(mx["wv"])).view(s, h, dh)
+    logf = F.logsigmoid(y @ f(mx["wf"]) + f(mx["bf"])).double().cpu().numpy()  # (S, H)
+    logi = (y @ f(mx["wi"]) + f(mx["bi"])).double().cpu().numpy()
+    m, ms = np.full(h, -1e30), np.empty((s, h))
+    fg, ig = np.empty((s, h)), np.empty((s, h))
+    for t in range(s):
+        m_new = np.maximum(logf[t] + m, logi[t])
+        fg[t], ig[t] = np.exp(logf[t] + m - m_new), np.exp(logi[t] - m_new)
+        ms[t] = m = m_new
+    dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=y.device)  # noqa: E731
+    fg, ig, ms = dev(fg)[:, :, None, None], dev(ig), dev(ms)
+    kin = (ig[..., None] * k)[..., None]  # (S, H, Dh, 1)
+    v1 = torch.cat([v, v.new_ones((s, h, 1))], dim=-1)[:, :, None, :]  # (S, H, 1, Dh + 1)
+    mem = y.new_zeros((h, dh, dh + 1))
+    read = y.new_empty((s, h, 1, dh + 1))
+    for t in range(s):
+        mem.mul_(fg[t]).baddbmm_(kin[t], v1[t])
+        torch.bmm(q[t, :, None, :], mem, out=read[t])
+    read = read[:, :, 0]
+    den = torch.maximum(read[..., dh].abs(), torch.exp(-ms))
+    return (read[..., :dh] / den[..., None]).reshape(s, d) @ f(mx["wo"])
+
+
+def _slstm(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:
+    """fp32 sLSTM mixer on ``y`` (S, D): the stabilized recurrence over time."""
+    s, d = y.shape
+    z = torch.tanh(y @ f(mx["wz"]))
+    gi = y @ f(mx["wi"])
+    lf = F.logsigmoid(y @ f(mx["wf"]) + f(mx["bf"]))
+    o = torch.sigmoid(y @ f(mx["wo_gate"]))
+    c, n, m = y.new_zeros(d), y.new_zeros(d), y.new_full((d,), -1e30)
+    out = y.new_empty((s, d))
+    for t in range(s):
+        m_new = torch.maximum(lf[t] + m, gi[t])
+        fgt, igt = torch.exp(lf[t] + m - m_new), torch.exp(gi[t] - m_new)
+        c = fgt * c + igt * z[t]
+        n = fgt * n + igt
+        out[t] = o[t] * c / torch.clamp(n.abs(), min=1.0)
+        m = m_new
+    return out @ f(mx["wo"])
+
+
+_MIXERS = {"mamba": _mamba, "mlstm": _mlstm, "slstm": _slstm}
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None,
             moe_groups=None, routing=None, stats: dict | None = None) -> torch.Tensor:
     """tokens (S,) -> fp32 logits (S, V) of one sequence.
@@ -183,9 +283,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None
     ``near_ties`` (positions that took the engine's choice), ``max_tie_gap``
     and, per MoE layer, ``router_logits`` and ``experts``.
     """
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(f"{cfg.name}: the plain forward covers the dense, moe, vlm "
-                                  f"and audio families only (got {cfg.family!r})")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the plain forward covers the "
+                                  f"{', '.join(FAMILIES)} families (got {cfg.family!r})")
     f = lambda w: w.to(torch.float32)  # noqa: E731
     x = f(params["embed"][tokens])
     n_front, memory = 0, None
@@ -195,24 +295,48 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None
     elif cfg.family == "audio":
         memory = encode(cfg, params, embeds)
     s = x.shape[0]
-    moe = cfg.layer_is_moe(0)
-    if moe:
+    if any(cfg.layer_is_moe(l) for l in range(cfg.n_layers)):
         gid, caps = _groups(cfg, s, moe_groups)
+    n_moe = 0
     for l, blk in enumerate(params["decoder" if memory is not None else "layers"]):
         y = ref.rmsnorm(x, f(blk["norm1"]), eps=cfg.norm_eps)
-        x = x + _attention(cfg, blk["mixer"], y, f, causal=True)
+        kind = cfg.layer_kind(l)
+        if kind == "attn":
+            x = x + _attention(cfg, blk["mixer"], y, f, causal=True)
+        else:
+            x = x + _MIXERS[kind](cfg, blk["mixer"], y, f)
         if memory is not None:
             y = ref.rmsnorm(x, f(blk["norm_x"]), eps=cfg.norm_eps)
             x = x + _attention(cfg, blk["cross"], y, f, causal=False, memory=memory)
+        if not cfg.d_ff:
+            continue
         y = ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps)
-        if moe:
-            x = x + _moe(cfg, y, blk["ffn"], gid, caps, None if routing is None else routing[l],
-                         stats, f)
+        if cfg.layer_is_moe(l):
+            x = x + _moe(cfg, y, blk["ffn"], gid, caps,
+                         None if routing is None else routing[n_moe], stats, f)
+            n_moe += 1
         else:
             x = x + _ffn(y, blk["ffn"], f)
     x = ref.rmsnorm(x[n_front:], f(params["final_norm"]), eps=cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ f(head)
+
+
+def layer(cfg: ModelConfig, blk: dict, l: int, x: torch.Tensor) -> torch.Tensor:
+    """Decoder layer ``l`` alone in fp32 on the residual stream ``x`` (S, D) of
+    one sequence, as ``forward`` applies it: for a layer without MoE and
+    without cross-attention."""
+    if cfg.layer_is_moe(l) or "cross" in blk:
+        raise ValueError(f"layer {l}: MoE and cross-attention layers need forward's context")
+    f = lambda w: w.to(torch.float32)  # noqa: E731
+    x = f(x)
+    y = ref.rmsnorm(x, f(blk["norm1"]), eps=cfg.norm_eps)
+    kind = cfg.layer_kind(l)
+    x = x + (_attention(cfg, blk["mixer"], y, f, causal=True) if kind == "attn"
+             else _MIXERS[kind](cfg, blk["mixer"], y, f))
+    if cfg.d_ff:
+        x = x + _ffn(ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps), blk["ffn"], f)
+    return x
 
 
 def encode(cfg: ModelConfig, params: dict, embeds: torch.Tensor) -> torch.Tensor:

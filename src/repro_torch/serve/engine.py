@@ -12,7 +12,9 @@ Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
     length, so a freshly admitted request coexists with half-finished ones.
   * **bucketed prefill**: prompts are right-padded to power-of-two buckets;
     the padded cache rows are causally masked (the slot's ``len`` is reset
-    to the true prompt length) and overwritten as decode proceeds.
+    to the true prompt length) and overwritten as decode proceeds.  The
+    ``hybrid`` and ``ssm`` families prefill at the exact length
+    (``_bucket_for``): a padded token would enter their recurrent states.
   * **pipelined greedy dispatch**: the argmax is taken on the device and the
     sampled tokens feed the next step directly; their copy to the host is
     started at dispatch and waited for only at harvest, ``pipeline_depth``
@@ -369,12 +371,19 @@ class ServingEngine:
         )
 
     # -- internals -------------------------------------------------------------
+    def _bucket_for(self, n: int) -> int:
+        # token-recurrent families can't mask a padded prompt token out of
+        # the carried state, so they prefill at exact length
+        if self.cfg.family in M.RECURRENT_FAMILIES:
+            return n
+        return next(b for b in self._buckets if b >= n)
+
     def _prefill(self, h: RequestHandle):
         """Bucket-padded prefill of one request into a fresh b=1 state;
         returns (last-valid-position logits (V,), state)."""
         cfg, scfg = self.cfg, self.scfg
         s = int(h.prompt.size)
-        bucket = next(b for b in self._buckets if b >= s)
+        bucket = self._bucket_for(s)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :s] = h.prompt
         state = M.init_decode_state(cfg, 1, scfg.max_len, ring=False, device=self.device)

@@ -27,8 +27,8 @@ one with no key, a window, groups 1-16, several chunk sizes, bit-identical
 over repeated launches); ``test_torch_model_kernels.py`` holds the plain
 versions against the reference on the CPU; K5 also at Seamless's
 cross-attention shapes (D = 64, group 1, non-causal over a longer memory, a
-decode step at offset 0).  ``ops.matmul`` launches K1; the reduced vlm and
-audio models run ``forward`` and the engine on the card.  K6 runs at ragged shapes and at
+decode step at offset 0).  ``ops.matmul`` launches K1; the reduced vlm,
+audio, hybrid and ssm models run ``forward`` and the engine on the card.  K6 runs at ragged shapes and at
 each of its tile heights (C up to 32, up to 64, above), with and without
 16-byte loads, each bf16 kernel (wgmma/TMA and mma.sync) named through
 ``_launch`` at ragged C, D and F with E = 3, the decode kernel at the decode
@@ -786,6 +786,51 @@ def test_family_model_and_engine_on_card(card, arch):
     got = M.forward(cfg, params, {"tokens": toks.to(card), "embeds": emb.to(card)})
     want = plain.forward(cfg, params, toks[0].to(card), embeds=emb[0].to(card))
     torch.testing.assert_close(got[0], want, rtol=2e-3, atol=2e-3)
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return [to_cpu(v) for v in t] if isinstance(t, list) else t.cpu()
+
+    prompts = [np.array([3, 1, 4, 1, 5], np.int32), np.array([9, 8, 7], np.int32),
+               np.array([2, 7, 1, 8, 2, 8, 1], np.int32)]
+    out = []
+    for p in (params, to_cpu(params)):
+        eng = ServingEngine(cfg, p, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6))
+        hs = [eng.submit(pr) for pr in prompts]
+        eng.drain()
+        out.append([h.tokens for h in hs])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_recurrent_model_and_engine_on_card(card, arch):
+    """The reduced hybrid and ssm models (xLSTM with an sLSTM layer) on the
+    card: ``forward`` and a stepwise decode against the fp32 plain forward,
+    and the engine's greedy tokens (exact-length prefill) against the same
+    model on the CPU."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = get_config(arch).reduced()
+    if cfg.family == "ssm":
+        cfg = replace(cfg, block_pattern=("m", "s"), n_layers=4)
+    params = M.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (1, 40), generator=torch.Generator().manual_seed(1))
+    got = M.forward(cfg, params, {"tokens": toks.to(card)})
+    want = plain.forward(cfg, params, toks[0].to(card))
+    torch.testing.assert_close(got[0], want, rtol=2e-3, atol=2e-3)
+    state = M.init_decode_state(cfg, 1, 64, ring=False, device=card)
+    steps = []
+    for t in range(toks.shape[1]):
+        logits, state = M.decode_step(cfg, params, state, toks[:, t:t + 1].to(card))
+        steps.append(logits[0, 0])
+    torch.testing.assert_close(torch.stack(steps), want, rtol=2e-3, atol=2e-3)
 
     def to_cpu(t):
         if isinstance(t, dict):

@@ -8,6 +8,7 @@ tests/test_models.py's tolerance (2e-3).  H2O-Danube's reduced window is 64,
 so sequences of 100 make the window mask in ``forward``.
 """
 import functools
+from dataclasses import replace
 from functools import partial
 
 import jax
@@ -218,13 +219,19 @@ def test_write_slot_replaces_cache_and_length(model):
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
 def test_other_families_are_not_ported_yet(arch):
+    """The ssm and hybrid families were the last of the reference's to be
+    ported (tests/test_torch_ssm.py, tests/test_torch_hybrid.py); a family
+    the reference does not have is still refused everywhere."""
     cfg = p_config(arch).reduced()
+    PM.check_family(cfg)
+    assert set(PM.PORTED_FAMILIES) == {"dense", "moe", "vlm", "audio", "hybrid", "ssm"}
+    other = replace(cfg, family="diffusion")
     with pytest.raises(NotImplementedError):
-        PM.init_params(cfg, torch.Generator().manual_seed(0))
+        PM.init_params(other, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        PM.init_decode_state(cfg, 1, 8, device="cpu")
+        PM.init_decode_state(other, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
-        plain.forward(cfg, {}, torch.zeros(4, dtype=torch.int64))
+        plain.forward(other, {}, torch.zeros(4, dtype=torch.int64))
 
 
 def test_qkv_bias_matches_reference():
