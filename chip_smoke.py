@@ -149,7 +149,29 @@ Phases, in order (any failure exits nonzero):
    logits' distance from the plain forward is printed and not held: each
    mLSTM layer amplifies bf16's rounding (``layer_gate``'s comment), so the
    bf16 model is held one layer at a time on ``forward``'s 4096 tokens;
-   K4 launched, K5 and K6 not (the family has neither attention nor an FFN).
+   K4 launched, K5 and K6 not (the family has neither attention nor an FFN);
+15. online tuning inside serving, run right after phase 8 on phase 7's
+   Danube weights: (a) the same kind of traffic (16 requests of 128-2048
+   tokens, 32 new, 8 slots) served with the logit program
+   (``autotune.logit_pipeline_program``, 32,000 x 8, B ~ N(0, 0.5), S 1.1,
+   G 0.9, floor -1e9, cap 1e9) seeded to ``pallas_nest``: K2 launched once a
+   decode step, in the flattened form; tokens not all equal; at one decode
+   step ``Y`` bit-identical to K2's plain version and the torch-lowered
+   program, K2 timed (graph and a call) beside its byte bound, the plain
+   version and the torch-lowered program; the decode step's host and device
+   ms without and with the program, in turns; the same traffic with
+   ``program_backend="torch"`` token for token; (b) a sync
+   ``SearchSupervisor`` from a stale ``vectorize`` entry (check every 4
+   steps, margin 0.05, 1 iteration, population 4): every measured
+   candidate, at least one swap, its generation and rollback watch, tokens
+   equal to (a)'s, ``fold_back`` into a temporary file; (c) the same in
+   ``mode="thread"`` (tokens equal, the thread ends, nothing quarantined);
+   (d) a seeded fault plan on the greedy path (a NaN at one prefill, a failed
+   step) and the sync path (temperature 1e-7, errors at one request's decode
+   and another's logits): only the scheduled requests fail and the others
+   generate (a)'s tokens; ``compile_resilient`` under an injected
+   ``daisy.compile`` fault on ``cuda`` degrades to ``torch`` and is recorded,
+   and without it stays on ``cuda``.
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -2333,6 +2355,7 @@ KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
                  "K5 flash_attention": ("flash_kernel", "flash_mma_kernel", "flash_decode_kernel"),
                  "K4 rmsnorm": ("rmsnorm",),
+                 "K2/K3 nest kernel": ("nest_kernel", "nest_split"),
                  "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
 
 
@@ -2539,6 +2562,390 @@ def forward_path(torch, cfg, params) -> None:
         f"[{cfg.window}, 8192) vs fp32 plain: relative L2 max {err:.3e}")
     if not err <= LOGITS_REL_TOL:
         raise AssertionError(f"forward logits: relative L2 {err:.3e} > {LOGITS_REL_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: online tuning inside serving, on phase 7's H2O-Danube3-4B weights.
+# The engine runs the logit program (``autotune.logit_pipeline_program``: six
+# pointwise stages over the step's vocab-major (32000, 8) logits against six
+# per-vocab vectors) in every decode step.  (a) with the logit nest seeded to
+# ``pallas_nest`` it is one K2 launch a step, in the flattened form; (b) and
+# (c) start from a stale ``vectorize`` entry (the reference's stale
+# ``sequential`` is a Python loop over the vocabulary, seconds a call at this
+# width) and close the online loop: telemetry, search, validation, hot swap,
+# the rollback watch, fold-back; (d) injects faults.
+# ---------------------------------------------------------------------------
+ONLINE_SLOTS = 8
+ONLINE_NEW = 32
+ONLINE_STALE = {"kind": "vectorize"}
+# (d)'s sync path samples on the host at this temperature: every token but
+# the largest gets probability exp(-gap / T), which is 0 in float32 for any
+# gap above 1e-5, so sampling is greedy and no draw depends on which
+# requests failed before it.
+ONLINE_SYNC_T = 1e-7
+
+
+def logit_operands(cfg) -> dict:
+    """The logit program's operands as tests/test_autotune.py gives them:
+    B ~ N(0, 0.5) seeded, S = 1.1, G = 0.9, a floor of -1e9 and a cap of 1e9
+    (C zero-filled by the engine)."""
+    import numpy as np
+
+    v = cfg.vocab
+    return {"B": np.random.default_rng(SEED + 15).normal(0, 0.5, v).astype(np.float32),
+            "S": np.full(v, 1.1, np.float32), "G": np.full(v, 0.9, np.float32),
+            "F": np.full(v, -1e9, np.float32), "K": np.full(v, 1e9, np.float32)}
+
+
+def logit_db(prog, **recipe):
+    """A database holding one exact recipe for the logit program's nest."""
+    from repro_torch.core import Daisy, Recipe, TuningDatabase, fingerprint
+    from repro_torch.core.embedding import embed_nest
+
+    p = Daisy(device="cuda")._normalized(prog)
+    db = TuningDatabase()
+    for nest in p.body:
+        db.add(fingerprint(nest), embed_nest(p, nest), Recipe(**recipe), provenance="chip_smoke")
+    db.meta["backend"] = "cuda"
+    return db
+
+
+def serve_online(torch, cfg, params, prompts, prog, **kw):
+    """Serve ``prompts`` (all at once) through ``ServingEngine`` with the
+    logit program; returns (engine, handles, wall seconds)."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    scfg = ServeConfig(batch_slots=ONLINE_SLOTS, max_len=4096, max_new_tokens=ONLINE_NEW,
+                       temperature=kw.pop("temperature", 0.0))
+    eng = ServingEngine(cfg, params, scfg, logit_program=prog, logit_inputs=logit_operands(cfg),
+                        **kw)
+    t0 = time.perf_counter()
+    handles = [eng.submit(p) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    return eng, handles, time.perf_counter() - t0
+
+
+def all_completed(label: str, handles) -> list:
+    bad = [(h.rid, h.state.value, repr(h.error)) for h in handles
+           if h.state.value != "completed" or len(h.tokens) != ONLINE_NEW]
+    if bad:
+        raise AssertionError(f"phase 15 {label}: requests that did not complete: {bad}")
+    return [list(h.tokens) for h in handles]
+
+
+class CandidateLog:
+    """Records every recipe the search measures, with its time: the name is
+    wrapped in both modules that hold it (the search's ``evolve_recipe`` and
+    the scheduler's ``_measure_item``)."""
+
+    def __init__(self):
+        from repro_torch.core import scheduler, search
+
+        self.mods, self.real, self.rows = (search, scheduler), search.measure_recipe, []
+
+    def __enter__(self):
+        def logged(nprog, inputs, recipe, *a, **kw):
+            us = self.real(nprog, inputs, recipe, *a, **kw)
+            self.rows.append((recipe.kind, recipe.vec_budget, recipe.tile, recipe.unroll, us))
+            return us
+
+        for m in self.mods:
+            m.measure_recipe = logged
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.measure_recipe = self.real
+
+
+def logit_step_ab(torch, cfg, params, states, tokens, with_program) -> dict:
+    """The batched decode step without the logit program (phase 7's step) and
+    with it (the engine's composite), in turns (without, with, without,
+    with) on the same slot states: host-clock ms a step over 10 synchronized
+    steps, and the device ms a step by kernel group over 5 under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    fns = {"without": lambda p, s, t: M.decode_slots_greedy(cfg, p, s, t),
+           "with": with_program}
+
+    def steps(fn, n):
+        nonlocal states, tokens
+        for _ in range(n):
+            tokens, states = fn(params, states, tokens)
+        torch.cuda.synchronize()
+
+    out: dict = {}
+    for name in ("without", "with", "without", "with"):
+        steps(fns[name], 2)
+        t0 = time.perf_counter()
+        steps(fns[name], 10)
+        host = (time.perf_counter() - t0) / 10 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps(fns[name], 5)
+        per_step, counts, n_ops = device_groups(torch, prof, 5)
+        device = sum(per_step.values())
+        out.setdefault(name, []).append(dict(host_ms=host, device_ms=device, ops=n_ops,
+                                             **{k: v for k, v in per_step.items() if v}))
+        log(f"    decode step {name} the logit program: {host:.3f} ms on the host clock, device "
+            f"{device:.3f} ms ({n_ops:.0f} device ops; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per_step.items() if v) + ")")
+    return out
+
+
+def check_logit_nest(torch, cfg, params, states, tokens, prog, k2_db) -> dict:
+    """At one decode step of the engine's slot states: the program's ``Y``
+    through K2 against K2's plain version and the torch-lowered program on
+    the same ``X``, bit for bit; then K2 timed alone (a CUDA graph and a
+    call) beside the plain version, the whole program under each backend
+    (the torch-lowered one is the library column) and the byte bound."""
+    from repro_torch.core import Daisy, Recipe
+    from repro_torch.core.search import schedule_from_recipe
+    from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.models import model as M
+
+    logits, _ = M.decode_slots(cfg, params, states, tokens)
+    inputs = {k: torch.as_tensor(v, device="cuda") for k, v in logit_operands(cfg).items()}
+    v, n = cfg.vocab, ONLINE_SLOTS
+    inputs["C"] = torch.zeros(v, device="cuda")
+    inputs["Y"] = torch.zeros((v, n), device="cuda")
+    inputs["X"] = logits.T
+    k2_fn, plan = Daisy(db=k2_db, backend="cuda", device="cuda").compile(prog)
+    torch_fn, _ = Daisy(db=k2_db, backend="torch", device="cuda").compile(prog)
+    if [np_.recipe.kind for np_ in plan.nests] != ["pallas_nest"]:
+        raise AssertionError(f"phase 15: the logit nest planned {plan.nests}")
+    y_k2 = k2_fn(inputs)["Y"]
+    y_torch = torch_fn(inputs)["Y"]
+    p = plan.program
+    nk = nkm.plan_nest(p, p.body[0], schedule_from_recipe(Recipe(kind="pallas_nest")))
+    env = {a.name: (inputs[a.name].float().contiguous().clone() if a.name in inputs
+                    else torch.zeros(a.shape, device="cuda")) for a in p.arrays}
+    plain_env = {k: t.clone() for k, t in env.items()}
+    nkm.nest_plain(nk, plain_env)
+    err = float((y_k2 - plain_env["Y"]).abs().max())
+    if not (torch.equal(y_k2, plain_env["Y"]) and torch.equal(y_k2, y_torch)):
+        raise AssertionError(f"phase 15: Y through K2 differs from the plain version "
+                             f"(max |diff| {err}) or from the torch-lowered program")
+    if not bool(torch.isfinite(y_k2).all()) or tuple(y_k2.shape) != (v, n):
+        raise AssertionError(f"phase 15: Y {tuple(y_k2.shape)} or non-finite")
+    args, _, flat = nkm.launch_args(nk, env)
+    nbytes = 4 * (v * n + 6 * v) + 4 * 6 * v * n  # X and six vectors read; T1-T5, Y written
+    row = dict(shape=[v, n], flat=flat, max_abs_err=err, bytes=nbytes,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               graph_ms=graph_ms(torch, lambda: nkm.run_nest(nk, env)),
+               ms=cuda_ms(lambda: nkm.run_nest(nk, env)),
+               plain_ms=cuda_ms(lambda: nkm.nest_plain(nk, env)),
+               program_ms=cuda_ms(lambda: k2_fn(inputs)),
+               program_stream_ms=stream_ms(torch, lambda: k2_fn(inputs)),
+               library_ms=cuda_ms(lambda: torch_fn(inputs)),
+               library_stream_ms=stream_ms(torch, lambda: torch_fn(inputs)),
+               library="the torch-lowered program (Daisy backend 'torch', vectorize)")
+    log(f"  K2 at the logit nest ({v} x {n}, {'flattened' if flat else 'tiled'}): Y bit-identical "
+        f"to the plain version and the torch-lowered program; graph {row['graph_ms']:.4f} ms, a "
+        f"call {row['ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB); plain "
+        f"{row['plain_ms']:.4f} ms; the whole program a call {row['program_ms']:.4f} ms (back "
+        f"to back {row['program_stream_ms']:.4f}) against the torch-lowered program's "
+        f"{row['library_ms']:.4f} ms (back to back {row['library_stream_ms']:.4f})")
+    return row
+
+
+def online_phase(torch, smi: str, cfg, params) -> dict:
+    """Phase 15 (a)-(d) on ``cfg``/``params`` (phase 7's Danube); returns the
+    numbers and K2's launches in (a)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.autotune import SearchSupervisor, SwapPolicy, logit_pipeline_program
+    from repro_torch.core import TuningDatabase
+    from repro_torch.fault import Fault, FaultInjected, FaultPlan
+    from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.models import model as M
+    from repro_torch.serve import NonFiniteLogits
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    lens = rng.integers(128, 2049, N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    prog = logit_pipeline_program(cfg.vocab, ONLINE_SLOTS)
+    out: dict = {}
+
+    # (a) served through K2: one flattened launch a decode step
+    k2_db = logit_db(prog, kind="pallas_nest")
+    steps = [0]
+    real_slots = M.decode_slots
+
+    def counted(*args):
+        steps[0] += 1
+        return real_slots(*args)
+
+    for k in nkm.EMITTED:
+        nkm.EMITTED[k] = 0
+    nkm.FLAT["pallas_nest"] = 0
+    M.decode_slots = counted
+    try:
+        eng, hs, wall = serve_online(torch, cfg, params, prompts, prog, tuning_db=k2_db)
+    finally:
+        M.decode_slots = real_slots
+    launches, flat = nkm.EMITTED["pallas_nest"], nkm.FLAT["pallas_nest"]
+    tokens = all_completed("(a)", hs)
+    log(f"  (a) served {N_REQUESTS} requests (prompts {int(lens.min())}-{int(lens.max())} tokens, "
+        f"{ONLINE_NEW} new each, {ONLINE_SLOTS} slots) with the logit program on K2 in {wall:.2f} "
+        f"s: {steps[0]} decode steps, K2 {launches} launches ({flat} flattened), K3 "
+        f"{nkm.EMITTED['pallas_reduce']}; {len({t for ts in tokens for t in ts})} distinct tokens")
+    if not (launches == flat == steps[0] > 0) or nkm.EMITTED["pallas_reduce"]:
+        raise AssertionError(f"phase 15: K2 should launch once a decode step, flattened: "
+                             f"{launches} launches, {flat} flattened, {steps[0]} steps")
+    if len({t for ts in tokens for t in ts}) < 2:
+        raise AssertionError("phase 15: every served token is the same")
+    if eng.degradations:
+        raise AssertionError(f"phase 15: degradations nobody injected: {eng.degradations}")
+    out.update(a_wall_s=wall, a_steps=steps[0], k2_launches=launches, k2_flat=flat)
+    out["k2"] = check_logit_nest(torch, cfg, params, eng._states, eng._tokens, prog, k2_db)
+    out["k2"].update(launches=launches, flat_runs=flat)
+    out["step_ab"] = logit_step_ab(torch, cfg, params, eng._states, eng._tokens,
+                                   eng._dispatch_greedy)
+    res = eng.compile_resilient(prog)
+    if res.backend != "cuda" or eng.degradations:
+        raise AssertionError(f"phase 15: compile_resilient without a fault went to "
+                             f"{res.backend}: {eng.degradations}")
+    del eng
+    eng, hs, wall = serve_online(torch, cfg, params, prompts, prog, tuning_db=k2_db,
+                                 program_backend="torch")
+    if all_completed("(a) torch", hs) != tokens:
+        raise AssertionError("phase 15: program_backend='torch' served other tokens than K2")
+    log(f"  (a) the same traffic with program_backend='torch' in {wall:.2f} s: the same tokens")
+    del eng
+
+    # (b), (c): the online loop from a stale entry, sync then on a thread
+    def supervisor(mode):
+        return SearchSupervisor(logit_db(prog, **ONLINE_STALE), backend="cuda", mode=mode,
+                                check_every=4, iterations=1, population=4, repeats=3,
+                                deadline_s=30.0,
+                                policy=SwapPolicy(margin=0.05, min_observations=2),
+                                device="cuda")
+
+    for label, mode in (("(b)", "sync"), ("(c)", "thread")):
+        sup = supervisor(mode)
+        gen0 = sup.db.generation
+        with CandidateLog() as cands:
+            eng, hs, wall = serve_online(torch, cfg, params, prompts, prog, tuner=sup)
+            if sup._thread is not None:
+                sup._thread.join(timeout=300)
+            alive = sup.busy
+            late = sup.poll(engine=eng)
+        got = all_completed(label, hs)
+        log(f"  {label} {mode} tuner from a stale {ONLINE_STALE} entry: served in {wall:.2f} s, "
+            f"{eng._step_count} steps, telemetry {sup.telemetry.snapshot()}")
+        for kind, budget, tile, unroll, us in cands.rows:
+            log(f"    measured {kind} (vec_budget {budget}, tile {tile}, unroll {unroll}): "
+                f"{us:.1f} us")
+        for s in sup.swaps:
+            log(f"    swap {s.old_recipe.kind if s.old_recipe else None} -> {s.new_recipe.kind}: "
+                f"candidate {s.candidate_us:.1f} us, incumbent {s.incumbent_us:.1f} us, generation "
+                f"{gen0} -> {s.generation}, degraded to {s.degraded_to}, rolled back "
+                f"{s.rolled_back}")
+        for r in sup.rejected:
+            log(f"    rejected: {r['reason']}")
+        if got != tokens:
+            raise AssertionError(f"phase 15 {label}: the tuned engine served other tokens than (a)")
+        if alive or sup.quarantined or sup.degradations or eng.degradations:
+            raise AssertionError(f"phase 15 {label}: search thread alive {alive}, quarantined "
+                                 f"{sup.quarantined}, degradations {sup.degradations} "
+                                 f"{eng.degradations}")
+        row = dict(wall_s=wall, steps=eng._step_count, late_swaps=len(late),
+                   candidates=[[*r[:4], r[4] if math.isfinite(r[4]) else None]
+                               for r in cands.rows],
+                   swaps=[dict(old=s.old_recipe.kind if s.old_recipe else None,
+                               new=s.new_recipe.kind, candidate_us=s.candidate_us,
+                               incumbent_us=s.incumbent_us, generation=s.generation,
+                               rolled_back=s.rolled_back) for s in sup.swaps],
+                   rejected=[r["reason"] for r in sup.rejected])
+        if mode == "sync":
+            if not sup.swaps:
+                raise AssertionError(f"phase 15 (b): no swap landed: {sup.rejected}")
+            with tempfile.TemporaryDirectory(prefix="repro-fleet-") as tmp:
+                fleet = Path(tmp) / "fleet.json"
+                report = sup.fold_back(fleet)
+                disk = TuningDatabase.load(fleet)
+                kinds = [e.recipe.kind for e in disk.entries]
+            log(f"    fold_back: {report}; the fleet file holds {kinds}, online_swaps "
+                f"{disk.meta.get('online_swaps')}")
+            live = [e.recipe.kind for e in sup.db.entries]
+            if kinds != live or report["added"] != len(live):
+                raise AssertionError(f"phase 15 (b): fold_back wrote {kinds}, live {live}")
+            row["fold_back"] = dict(report=report, kinds=kinds)
+        out[label.strip("()")] = row
+        del eng
+
+    # (d) injected faults: the greedy path (a NaN at one prefill, a failed
+    # step), then the sync path (an error at one request's decode, another's
+    # logits); the survivors must generate (a)'s tokens
+    class StepFault(FaultPlan):
+        """``FaultPlan`` that also fails the ``at``-th ``serve.step``."""
+
+        def __init__(self, faults, at):
+            super().__init__(faults)
+            self.at, self.steps = at, 0
+
+        def fire(self, site, key=None):
+            if site == "serve.step":
+                self.steps += 1
+                if self.steps == self.at:
+                    self.fired.append((site, key, "error"))
+                    return Fault(site, "error", key=key, times=0)
+            return super().fire(site, key)
+
+    runs = {"greedy": (StepFault([Fault("serve.prefill", "nan", key=3)], at=12), 0.0),
+            "sync": (FaultPlan([Fault("serve.decode", "error", key=5),
+                                Fault("serve.logits", "error", key=9)]), ONLINE_SYNC_T)}
+    out["d"] = {}
+    for name, (plan, temp) in runs.items():
+        eng, hs, wall = serve_online(torch, cfg, params, prompts, prog, tuning_db=k2_db,
+                                     fault_plan=plan, temperature=temp)
+        failed = {h.rid: h.error for h in hs if h.failed}
+        by_site = {}
+        for rid, e in failed.items():
+            site = ("nan" if isinstance(e, NonFiniteLogits) else
+                    str(e).split(" at ")[1].split(" ")[0] if isinstance(e, FaultInjected) else
+                    repr(e))
+            by_site.setdefault(site, []).append(rid)
+        log(f"  (d) {name}: fired {plan.fired}; failed by cause {by_site}; served in {wall:.2f} s")
+        want = ({"nan": [3]} if name == "greedy" else
+                {"serve.decode": [5], "serve.logits": [9]})
+        if name == "greedy":
+            stepped = by_site.pop("serve.step", [])
+            if not 1 <= len(stepped) <= ONLINE_SLOTS or 3 in stepped:
+                raise AssertionError(f"phase 15 (d): the failed step failed {stepped}")
+            want = {"nan": [3]}
+        if by_site != want:
+            raise AssertionError(f"phase 15 (d) {name}: failures {by_site}, scheduled {want}")
+        bad = [(h.rid, h.tokens, tokens[h.rid]) for h in hs
+               if not h.failed and (h.state.value != "completed" or h.tokens != tokens[h.rid])]
+        if bad or eng.degradations:
+            raise AssertionError(f"phase 15 (d) {name}: survivors differ from (a): {bad[:2]}; "
+                                 f"degradations {eng.degradations}")
+        out["d"][name] = dict(failed=sorted(failed), survivors=len(hs) - len(failed),
+                              fired=[list(f) for f in plan.fired], wall_s=wall)
+        del eng
+    eng = serve_online(torch, cfg, params, [], prog, tuning_db=k2_db,
+                       fault_plan=FaultPlan([Fault("daisy.compile", "error", key="cuda")]))[0]
+    res = eng.compile_resilient(prog)
+    log(f"  (d) compile_resilient under an injected daisy.compile fault on 'cuda': backend "
+        f"{res.backend}, errors {[(b, type(e).__name__) for b, e in res.errors]}, degradations "
+        f"{eng.degradations}")
+    if res.backend != "torch" or eng.degradations != [(prog.name, "cuda", "torch")]:
+        raise AssertionError(f"phase 15 (d): compile_resilient did not degrade to torch: "
+                             f"{res.backend}, {eng.degradations}")
+    out["d"]["compile_resilient"] = dict(backend=res.backend, degradations=eng.degradations)
+    del eng
+    gc.collect()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {out['seconds']:.1f} s; {smi}")
+    return out
 
 
 # Phases 11-12: the vlm and audio families at full width.  LLaVA-NeXT's
@@ -3252,6 +3659,11 @@ def main(argv: list[str] | None = None) -> int:
         raise AssertionError(f"the forward should launch only the mma K5 kernel: "
                              f"{fwd_launches['k5']}")
     k5_paths["forward"] = fwd_launches["k5"]
+
+    log(f"phase 15: online tuning inside serving on {DANUBE} (phase 7's weights): the logit "
+        "program on K2 in every decode step, the online loop (sync, then on a thread), faults")
+    reset_counts()
+    online = online_phase(torch, smi, served["cfg"], served["params"])
     del served
     gc.collect()
     torch.cuda.empty_cache()
@@ -3366,6 +3778,10 @@ def main(argv: list[str] | None = None) -> int:
             row["split_launches"] = split_runs
         if key == "pallas_nest":
             row["flat_runs"] = flat_runs
+            row["launches_phase_15"] = online["k2"]["launches"]
+            row["flat_runs_phase_15"] = online["k2"]["flat_runs"]
+            row["logit_nest"] = online["k2"]
+            row["online_phase_15"] = {k: v for k, v in online.items() if k != "k2"}
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -895,7 +895,9 @@ def compile_torch(
     ``per_nest`` is one ``Schedule`` per top-level nest (the daisy scheduler
     resolves one recipe per canonical nest); a single ``Schedule`` is
     broadcast to every nest.  Inputs (numpy arrays or tensors) are copied to
-    float32 tensors on ``device``; temps start as float32 zeros.
+    contiguous float32 tensors on ``device`` (a transposed or sliced input
+    reaches the nest kernels in the row-major layout their launches take);
+    temps start as float32 zeros.
     """
     dev = check_device(device)
     if isinstance(per_nest, Schedule):
@@ -916,7 +918,8 @@ def compile_torch(
                 torch.zeros(a.shape, dtype=torch.float32, device=dev)
                 if a.name in program.temps
                 else torch.as_tensor(inputs[a.name]).to(
-                    device=dev, dtype=torch.float32, copy=True)
+                    device=dev, dtype=torch.float32, copy=True,
+                    memory_format=torch.contiguous_format)
             )
             for a in program.arrays
         }

@@ -240,14 +240,17 @@ class Daisy:
 
     def _epoch1_item(
         self, item: "_SeedItem", search: bool, iterations: int,
-        population: int, repeats: int,
+        population: int, repeats: int, deadline_s: float | None = None,
     ) -> tuple[Recipe, float, str]:
         """Epoch-1 recipe for one nest: BLAS-3 takes the library-call recipe
-        directly (paper §4), everything else runs the evolutionary search."""
+        directly (paper §4), everything else runs the evolutionary search.
+        ``deadline_s`` bounds the search's wall clock (the single BLAS-3
+        measurement is not worth budgeting)."""
         if item.idiom == "blas3":
             t = self._measure_item(item, item.seed_recipe, repeats)
             return item.seed_recipe, t, f"{item.source}:idiom"
-        return self._search_item(item, search, iterations, population, repeats)
+        return self._search_item(item, search, iterations, population, repeats,
+                                 deadline_s=deadline_s)
 
     def _add_measured(self, item: "_SeedItem", recipe: Recipe,
                       provenance: str, t: float) -> None:
@@ -260,7 +263,7 @@ class Daisy:
 
     def _search_item(
         self, item: "_SeedItem", search: bool, iterations: int,
-        population: int, repeats: int,
+        population: int, repeats: int, deadline_s: float | None = None,
     ) -> tuple[Recipe, float, str]:
         if not search:
             t = self._measure_item(item, item.seed_recipe, repeats)
@@ -273,7 +276,7 @@ class Daisy:
             iterations=iterations, population=population,
             rng_seed=nest_rng_seed(item.fingerprint),
             resolve=self._backend_recipe,
-            device=self.device, repeats=repeats)
+            device=self.device, repeats=repeats, deadline_s=deadline_s)
         # store what was measured: under 'torch' a kernel-kind winner was
         # timed (and will compile) as its degradation
         return self._backend_recipe(best), t, f"{item.source}:search"
@@ -311,6 +314,7 @@ class Daisy:
         population: int = 4,
         repeats: int = 3,
         source: str = "",
+        deadline_s: float | None = None,
     ) -> tuple[str, np.ndarray, Recipe, float, str]:
         """Epoch-1 seeding of one canonical nest of a *normalized* program.
 
@@ -320,11 +324,13 @@ class Daisy:
         Daisy's backend.  Does not touch the database — returns
         ``(fingerprint, embedding, recipe, measured_us, provenance)`` so
         callers (``seed``, the tune CLI's pool workers) add or merge the
-        result themselves.
+        result themselves.  ``deadline_s`` bounds the search's wall clock:
+        when it expires the best recipe measured so far is returned.
         """
         item = self._prepare_nest(p, nest, source or p.name)
         recipe, t, prov = self._epoch1_item(
-            item, search, search_iterations, population, repeats)
+            item, search, search_iterations, population, repeats,
+            deadline_s=deadline_s)
         return item.fingerprint, item.embedding, recipe, t, prov
 
     def seed(

@@ -1,23 +1,30 @@
-"""Bounded restarts and deterministic fault injection for the tuning pool.
+"""Bounded restarts, deterministic fault injection and the backend
+degradation chain.
 
-Port of the part of ``repro/fault.py`` that the supervised tuning pool
-(``repro_torch.autotune.run_supervised``) needs: ``RestartPolicy``,
-``FaultInjected``, ``Fault`` and ``FaultPlan``, copied with import roots
-changed.  A seeded :class:`FaultPlan` names *where* (site), *what* (kind)
-and *when* (key / firing count) a fault strikes, so tests replay the exact
-same failure schedule every run::
+Port of ``repro/fault.py``: ``RestartPolicy``, ``FaultInjected``, ``Fault``
+and ``FaultPlan`` (copied with import roots changed), ``truncate_file``,
+``DegradedCompile`` and ``compile_with_degradation`` (``:225-297``), whose
+ladder is ``cuda -> torch`` and whose every rung runs once on the card
+before it is accepted.  A seeded :class:`FaultPlan` names *where* (site),
+*what* (kind) and *when* (key / firing count) a fault strikes, so tests
+replay the exact same failure schedule every run::
 
     from repro_torch.fault import Fault, FaultPlan
 
     plan = FaultPlan([Fault("tune.worker", "crash", key=fingerprint, times=2)])
     tune(..., jobs=2, fault_plan=plan)   # that nest's worker dies twice
     assert plan.fired                    # the log of (site, key, kind) strikes
+
+The trainer's ``Heartbeat`` and ``StragglerMonitor`` come with the trainer
+(ROADMAP queue 5); ``compile_with_degradation``'s ``mesh`` and
+``shard_axis`` with partitioning (queue 6).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, replace
-from typing import Any
+from dataclasses import dataclass, field, replace
+from pathlib import Path
+from typing import Any, Callable
 
 import numpy as np
 
@@ -106,3 +113,85 @@ class FaultPlan:
 
     def count(self, site: str | None = None) -> int:
         return sum(1 for s, _, _ in self.fired if site is None or s == site)
+
+
+def truncate_file(path: str | Path, keep_fraction: float = 0.5) -> None:
+    """Clip a file to a prefix — the ``truncate`` fault: what a crash or a
+    full disk leaves behind when a writer was not atomic."""
+    p = Path(path)
+    data = p.read_bytes()
+    p.write_bytes(data[: max(0, int(len(data) * keep_fraction))])
+
+
+# ---------------------------------------------------------------------------
+# backend degradation chain
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DegradedCompile:
+    """Result of :func:`compile_with_degradation`: the compiled fn, its
+    plan, which backend finally succeeded, and the per-backend errors the
+    chain absorbed on the way (empty = first choice worked)."""
+
+    fn: Callable
+    plan: Any
+    backend: str
+    errors: list[tuple[str, Exception]] = field(default_factory=list)
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.errors)
+
+
+def compile_with_degradation(
+    program,
+    backends: tuple[str, ...] = ("cuda", "torch"),
+    db=None,
+    mesh=None,
+    shard_axis: str | None = None,
+    fault_plan: FaultPlan | None = None,
+    validate: bool = True,
+    device="cuda",
+) -> DegradedCompile:
+    """Compile a canonical program, degrading across backends on failure.
+
+    Tries each backend in order through a fresh ``Daisy`` on ``device`` —
+    under ``'torch'`` the kernel recipes map onto their torch equivalents
+    (``Daisy._backend_recipe``), so a nest kernel that fails to build still
+    serves through the torch lowering.  Triton compiles a kernel at its
+    first launch, so a compile that "succeeds" can still fail at its first
+    call: each rung is *validated* by running once on random inputs and
+    synchronizing the device (never promote a function that has not run).
+    Raises the *first* backend's error (with the rest chained) only when
+    every rung fails.  Injection site ``daisy.compile`` (key = backend)
+    simulates compile failures per rung.  The ladder is taken only when a
+    whole compile or its validation run fails, never around a live launch.
+    """
+    import torch
+
+    from .core.scheduler import Daisy, random_inputs
+
+    if mesh is not None or shard_axis is not None:
+        raise NotImplementedError("compile_with_degradation: mesh and shard_axis are not "
+                                  "ported yet (see ROADMAP queue 6)")
+    if not backends:
+        raise ValueError("compile_with_degradation needs at least one backend")
+    errors: list[tuple[str, Exception]] = []
+    for b in backends:
+        try:
+            if fault_plan is not None:
+                fault_plan.maybe_raise("daisy.compile", key=b)
+            d = Daisy(db=db, backend=b, device=device)
+            fn, plan = d.compile(program)
+            if validate:
+                fn(random_inputs(program))
+                if d.device.type == "cuda":
+                    torch.cuda.synchronize(d.device)  # the run's errors surface here
+            return DegradedCompile(fn, plan, b, errors)
+        except Exception as e:  # noqa: BLE001 — every rung failure degrades
+            errors.append((b, e))
+    raise RuntimeError(
+        f"all backends failed compiling {getattr(program, 'name', program)!r}: "
+        + "; ".join(f"{b}: {e}" for b, e in errors)
+    ) from errors[0][1]

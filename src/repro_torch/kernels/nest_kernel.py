@@ -22,12 +22,13 @@ source, one module per distinct source text:
   or a guard whose unselected lanes a later computation reads from the
   slab), and a computation that also reads its write index uses that load.
   A nest whose accesses are all the identity over arrays of the domain's
-  shape (``flat_nest``) runs, on contiguous arrays, over one flattened
-  range, one program a ``FLAT_BLOCK``-element block, so a row length that
-  is not a multiple of 16 elements does not stop 128-bit accesses; every
-  block but the last runs an unmasked body.  The other nests (broadcasts,
-  guards, halos) and strided arrays keep the tiled form, every access
-  masked;
+  shape, reads over its leading axes aside (``flat_nest``: a vector over
+  the outer axis, read at the flat offset divided by the inner trips), runs,
+  on contiguous arrays, over one flattened range, one program a
+  ``FLAT_BLOCK``-element block, so a row length that is not a multiple of
+  16 elements does not stop 128-bit accesses; every block but the last
+  runs an unmasked body.  The other nests (other broadcasts, guards, halos)
+  and strided arrays keep the tiled form, every access masked;
 * K3 (``pallas_reduce``): one accumulating computation.  The TPU's
   sequential reduction grid axis becomes a loop inside the program over
   reduction tiles, with ``unroll`` chunks per tile combined in order into an
@@ -167,8 +168,16 @@ class NestKernel:
 
     @functools.cached_property
     def flat_elems(self) -> int:
-        """Elements of the flattened range (every array's size)."""
+        """Elements of the flattened range (every written array's size)."""
         return math.prod(a.trip for a in self.plan.axes)
+
+    @functools.cached_property
+    def group_elems(self) -> tuple[int, ...]:
+        """Elements of each parameter group's arrays when the flattened form
+        applies: the trips of the leading axes they cover."""
+        trips = [a.trip for a in self.plan.axes]
+        return tuple(math.prod(trips[:len(self.program.array(self.arrays[m[0]]).shape)])
+                     for m in self.groups)
 
     @functools.cached_property
     def source(self) -> str:
@@ -215,25 +224,42 @@ def needs_old(plan: TilePlan, ci: int) -> bool:
     return False
 
 
+def flat_rank(program: Program, plan: TilePlan, a: Access) -> int | None:
+    """The rank ``r`` when access ``a`` is the identity over the first ``r``
+    axes of the domain (dimension d subscripted by axis d, offset 0) of an
+    array of those axes' shape, else None.  Over a flattened range of the
+    whole domain such an array's element is the flat offset divided by the
+    trip counts of the other axes."""
+    axes = plan.axes
+    dims = plan.access_dims(a)
+    r = len(dims)
+    if not 1 <= r <= len(axes):
+        return None
+    if tuple(program.array(a.array).shape) != tuple(ax.stop for ax in axes[:r]):
+        return None
+    if [(d.iterator, d.const) for d in dims] != [(ax.name, 0) for ax in axes[:r]]:
+        return None
+    return r
+
+
 def flat_nest(program: Program, plan: TilePlan) -> bool:
     """Whether a parallel nest can run over one flattened range: no guard,
-    every axis starting at 0, and every access the identity (dimension d
-    subscripted by axis d, offset 0) of an array of the domain's shape — so
-    each array is covered whole, element for element, and a contiguous one
-    is a single range.  A pointwise nest: its results do not depend on the
-    blocking."""
+    every axis starting at 0, every write and every read of an array the
+    domain's shape the identity access (``flat_rank``), and every other read
+    the identity over leading axes (a vector over the outer axis broadcast
+    along the inner one, say) — so each written array is covered whole,
+    element for element, and a contiguous one is a single range.  A
+    pointwise nest: its results do not depend on the blocking."""
     if plan.kind != "parallel" or any(c.guards for c in plan.comps):
         return False
     if any(a.start != 0 for a in plan.axes):
         return False
-    shape = tuple(a.stop for a in plan.axes)
-    ident = [(a.name, 0) for a in plan.axes]
+    n = len(plan.axes)
     for c in plan.comps:
-        for a in (c.write,) + c.reads:
-            if tuple(program.array(a.array).shape) != shape:
-                return False
-            if [(d.iterator, d.const) for d in plan.access_dims(a)] != ident:
-                return False
+        if flat_rank(program, plan, c.write) != n:
+            return False
+        if any(flat_rank(program, plan, r) is None for r in c.reads):
+            return False
     return True
 
 
@@ -347,7 +373,7 @@ def launch_args(nk: NestKernel, env: dict[str, torch.Tensor]) -> tuple[list, tor
                              f"want float32 on {dev}")
     args: list[Any] = list(ts)
     flat = nk.flat
-    for members in nk.groups:
+    for members, elems in zip(nk.groups, nk.group_elems):
         first = ts[members[0]]
         shape, stride = first.shape, first.stride()
         for k in members[1:]:
@@ -358,7 +384,7 @@ def launch_args(nk: NestKernel, env: dict[str, torch.Tensor]) -> tuple[list, tor
                     f"{tuple(shape)} and {stride}")
         args.extend(shape)
         args.extend(stride)
-        flat = flat and first.is_contiguous() and first.numel() == nk.flat_elems
+        flat = flat and first.is_contiguous() and first.numel() == elems
     args.extend(nk.bounds)
     return args, dev, flat
 
@@ -631,13 +657,21 @@ def triton_source(nk: NestKernel, split: bool = False) -> str:
                  + parallel_body(lambda a: access_src(a, n_axes), True, block_shape))
         if nk.flat:
             # one program a block; only the last block of the range is ragged
-            g = grp[nk.arrays[0]]
+            g = grp[nk.plan.comps[0].write.array]
             size = " * ".join(f"n{g}_{d}" for d in range(n_axes))
-            flat_ptr = lambda a: f"p{arr_ix[a.array]} + offs"  # noqa: E731
+            # a read over the leading r axes: its element is the flat offset
+            # over the trips of the other axes
+            ranks = {a.array: len(plan.access_dims(a)) for c in plan.comps for a in c.reads}
+            outer = sorted({r for r in ranks.values() if r < n_axes})
+            quot = [f"q{r} = offs // ({' * '.join(f'n{g}_{d}' for d in range(r, n_axes))})"
+                    for r in outer]
+            flat_ptr = lambda a: (f"p{arr_ix[a.array]} + "  # noqa: E731
+                                  + ("offs" if ranks.get(a.array, n_axes) == n_axes
+                                     else f"q{ranks[a.array]}"))
             body = (["if FLAT:"]
                     + indent([f"nflat = {size}",
-                              "offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
-                              "if tl.program_id(0) * BLOCK + BLOCK <= nflat:"]
+                              "offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)"] + quot
+                             + ["if tl.program_id(0) * BLOCK + BLOCK <= nflat:"]
                              + indent(parallel_body(lambda a: (flat_ptr(a), None), False,
                                                     "[BLOCK]"))
                              + ["else:", "    fm = offs < nflat"]

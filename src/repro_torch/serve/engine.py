@@ -31,11 +31,26 @@ Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
     computed at prefill from zero frame embeddings, as the reference's stub
     frontend does, and kept in its slot.  ``vlm`` is served text-only, as in
     the reference (its patch embeddings reach ``forward`` only).
+  * a tuned **logit program** (``logit_program``, e.g.
+    ``repro_torch.autotune.logit_pipeline_program``) runs inside every
+    decode step: the step's ``(N, V)`` logits enter its ``X`` vocab-major as
+    ``(V, N)``, sampling reads its ``Y``.  It is lowered by ``Daisy`` under
+    ``program_backend`` (``'cuda'``: its canonical nest on the nest kernel,
+    K2) against ``tuning_db``; a database commit (a new generation)
+    hot-swaps it at the next ``step()``, and the compiled program is cached
+    by the recipes it resolves, so a rollback is a cache hit.
+    ``tuner`` attaches a ``repro_torch.autotune.SearchSupervisor``: busy
+    steps are timed into its telemetry and it is driven every
+    ``check_every`` steps — the online tuning loop.
+  * ``compile_resilient``: a tuned program compiled and run once per
+    backend (``cuda`` -> ``torch``), degradations recorded on
+    ``degradations``; ``fault_plan`` (a seeded ``repro_torch.fault.
+    FaultPlan``) poisons exactly the scheduled requests at the sites
+    ``serve.prefill`` / ``serve.decode`` / ``serve.logits`` /
+    ``serve.step``, as in the reference.
 
-Not ported yet (the constructor refuses them): ``mesh``, ``fault_plan``,
-``logit_program``/``logit_inputs``/``tuner``/``program_backend``;
-``compile_resilient`` does not exist; torch runs eagerly, so no step
-function is traced or shared.
+Not ported yet (the constructor refuses it): ``mesh`` (ROADMAP queue 6).
+torch runs eagerly, so no step function is traced.
 
 The engine runs on the device its parameters are on (the card unless the
 caller built them on the CPU)::
@@ -61,6 +76,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..fault import FaultPlan
 from ..models import model as M
 from ..models.lowering import deployment_context, kernel_report
 
@@ -214,21 +230,62 @@ class ServingEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, tuning_db=None,
-                 mesh=None, fault_plan=None, logit_program=None, logit_inputs=None,
-                 tuner=None, program_backend=None):
-        given = {name: value for name, value in (
-            ("mesh", mesh), ("fault_plan", fault_plan),
-            ("logit_program", logit_program), ("logit_inputs", logit_inputs),
-            ("tuner", tuner), ("program_backend", program_backend)) if value is not None}
-        if given:
+                 mesh=None, fault_plan: FaultPlan | None = None, logit_program=None,
+                 logit_inputs=None, tuner=None, program_backend: str = "cuda"):
+        """``fault_plan`` arms deterministic fault injection.  ``logit_program``
+        (a canonical loop-nest ``Program`` with ``X`` and ``Y`` of shape
+        ``(vocab, batch_slots)``) runs in every decode step, lowered under
+        ``program_backend`` against ``tuning_db``; ``logit_inputs`` supplies
+        its other input arrays (missing ones are zero-filled).  ``tuner`` (a
+        ``SearchSupervisor`` over the same database) registers the program,
+        receives per-step telemetry and is driven every
+        ``tuner.check_every`` steps."""
+        if mesh is not None:
             raise NotImplementedError(
-                f"ServingEngine: {sorted(given)} not ported yet (see ROADMAP queue 1)")
+                "ServingEngine: mesh is not ported yet (see ROADMAP queue 6)")
         self.cfg, self.scfg = cfg, scfg
-        self._ctx = deployment_context(cfg, params, tuning_db=tuning_db)
+        if tuner is not None:
+            if tuning_db is None:
+                tuning_db = tuner.db
+            elif tuning_db is not tuner.db:
+                raise ValueError(
+                    "tuner.db and tuning_db are different databases; the "
+                    "supervisor must commit swaps into the database the "
+                    "engine resolves recipes from")
+        self._ctx = deployment_context(
+            cfg, params, tuning_db=tuning_db,
+            telemetry=tuner.telemetry if tuner is not None else None)
         self.params = self._ctx.params
         self.tuning_db = self._ctx.tuning_db
         self.telemetry = self._ctx.telemetry
         self.device = params["embed"].device
+        self.fault_plan = fault_plan
+        self.tuner = tuner
+        self._step_count = 0
+        # (program name, from backend, to backend) of every compile that
+        # degraded down the backend chain (compile_resilient, the tuner's
+        # validations)
+        self.degradations: list[tuple[str, str, str]] = []
+        self.logit_program = logit_program
+        if logit_program is not None:
+            from ..core import Daisy, program_fingerprint
+
+            self.program_backend = program_backend
+            self._daisy = Daisy(db=self.tuning_db, backend=program_backend, device=self.device)
+            self._prog_key = program_fingerprint(logit_program)
+            self._prog_aux = self._build_aux(logit_inputs or {})
+            self._telemetry_key = self._prog_key
+            if tuner is not None:
+                tuner.register(logit_program)
+            self._prog_gen: int | None = None
+            self._resolve_step_fns()
+        else:
+            from ..core.cache import fingerprint_obj
+
+            self._telemetry_key = f"serve.step:{fingerprint_obj(cfg)[:12]}"
+            # looked up at call time, so a wrapped model function is seen
+            self._dispatch_greedy = lambda p, s, t: M.decode_slots_greedy(cfg, p, s, t)
+            self._dispatch_logits = lambda p, s, t: M.decode_slots(cfg, p, s, t)
         n = scfg.batch_slots
         self._buckets = prefill_buckets(scfg.max_len, scfg.min_bucket)
         self._states = M.init_slot_states(cfg, n, scfg.max_len, device=self.device)
@@ -296,7 +353,26 @@ class ServingEngine:
         """One scheduling iteration: admit queued requests into free slots,
         dispatch one batched decode over the occupied slots, harvest the
         steps that are due.  Returns the number of occupied slots at dispatch
-        (0 = idle: queue empty, nothing in flight)."""
+        (0 = idle: queue empty, nothing in flight).
+
+        Instrumented for online tuning: busy steps are timed on the host
+        clock into the telemetry sink (a no-op predicate when disabled), and
+        an attached tuner is driven every ``tuner.check_every`` steps —
+        launches searches on the hottest nests and applies or rolls back
+        swaps at the poll point."""
+        if self.logit_program is not None:
+            self._resolve_step_fns()  # picks up database commits (hot swap)
+        t0 = time.perf_counter()
+        n = self._step_impl()
+        if n:
+            self.telemetry.observe(self._telemetry_key, time.perf_counter() - t0)
+        self._step_count += 1
+        if self.tuner is not None and self._step_count % self.tuner.check_every == 0:
+            self.tuner.maybe_launch()
+            self.tuner.poll(engine=self)
+        return n
+
+    def _step_impl(self) -> int:
         scfg = self.scfg
         sync = scfg.temperature > 0.0
         depth = 0 if sync else max(0, scfg.pipeline_depth)
@@ -308,15 +384,17 @@ class ServingEngine:
                 self._harvest_one()
             return 0
         try:
+            if self.fault_plan is not None:
+                self.fault_plan.maybe_raise("serve.step")
             if sync:
-                logits, self._states = M.decode_slots(
-                    self.cfg, self.params, self._states, self._tokens)
+                logits, self._states = self._dispatch_logits(
+                    self.params, self._states, self._tokens)
                 self._pending.append((_start_copy(logits.float()), live))
             else:
                 # pipelined: the sampled tokens stay on the device and feed
                 # the next dispatch; the host reads them `depth` steps later
-                next_tok, self._states = M.decode_slots_greedy(
-                    self.cfg, self.params, self._states, self._tokens)
+                next_tok, self._states = self._dispatch_greedy(
+                    self.params, self._states, self._tokens)
                 self._tokens = next_tok
                 self._pending.append((_start_copy(next_tok), live))
         except Exception as e:  # noqa: BLE001 — batch-level dispatch failure
@@ -324,7 +402,7 @@ class ServingEngine:
             # recycle them, and keep the engine serviceable for the queue
             for i, h in live.items():
                 self._fail(h, e, slot=i)
-            return self.step() if self._queue or self._pending else 0
+            return self._step_impl() if self._queue or self._pending else 0
         while len(self._pending) > depth:
             self._harvest_one()
         return len(live)
@@ -357,6 +435,25 @@ class ServingEngine:
             "or RequestHandle.result()", DeprecationWarning, stacklevel=2)
         return self.drain()
 
+    def compile_resilient(self, program, backends: tuple[str, ...] = ("cuda", "torch")):
+        """Hot-swap guardrail: compile (and validate) a tuned canonical
+        program for this engine, degrading across ``backends`` in order.
+
+        Each rung builds through a fresh ``Daisy`` on this engine's device
+        (under ``'torch'`` the kernel recipes map onto torch ops) and runs
+        once on random inputs before it is accepted; a failing rung falls
+        through to the next, and each degradation is recorded on
+        ``self.degradations``.  Returns a ``repro_torch.fault.DegradedCompile``.
+        """
+        from ..fault import compile_with_degradation
+
+        res = compile_with_degradation(
+            program, backends=backends, db=self.tuning_db,
+            fault_plan=self.fault_plan, device=self.device)
+        for b, _err in res.errors:
+            self.degradations.append((getattr(program, "name", "?"), b, res.backend))
+        return res
+
     def explain_kernels(self) -> str:
         """Pass-pipeline + contraction-plan report for this engine's config
         at its serving shape (content-cached, so repeated calls and
@@ -369,6 +466,80 @@ class ServingEngine:
             self.scfg.max_len, self.scfg.batch_slots,
             self.tuning_db.uid, self.tuning_db.generation,
         )
+
+    # -- tuned logit-program composite -----------------------------------------
+    def _build_aux(self, given: dict) -> dict:
+        """Validate and stage the logit program's deployment operands.
+
+        The engine owns ``X`` (the step's vocab-major logits) and reads
+        ``Y``; every other input array of the *normalized* program is a
+        deployment operand — taken from ``logit_inputs`` when given
+        (shape-checked), zero-filled otherwise.  Unknown names are errors:
+        a misspelt operand silently zero-filled would corrupt served tokens.
+        """
+        prog = self._daisy._normalized(self.logit_program)
+        shapes = {a.name: tuple(a.shape) for a in prog.input_arrays}
+        v, n = self.cfg.vocab, self.scfg.batch_slots
+        for io in ("X", "Y"):
+            if shapes.get(io) != (v, n):
+                raise ValueError(
+                    f"logit program must carry {io} of shape (vocab, "
+                    f"batch_slots) = ({v}, {n}), got "
+                    f"{shapes.get(io)} in {self.logit_program.name!r}")
+        unknown = sorted(set(given) - set(shapes))
+        if unknown:
+            raise ValueError(
+                f"logit_inputs name(s) {unknown} are not input arrays of "
+                f"{self.logit_program.name!r} (has {sorted(shapes)})")
+        aux: dict[str, torch.Tensor] = {}
+        for name, shape in shapes.items():
+            if name == "X":
+                continue
+            if name in given:
+                arr = torch.as_tensor(given[name]).to(self.device, torch.float32)
+                if tuple(arr.shape) != shape:
+                    raise ValueError(
+                        f"logit_inputs[{name!r}] has shape {tuple(arr.shape)}"
+                        f", program expects {shape}")
+            else:
+                arr = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            aux[name] = arr.contiguous()
+        return aux
+
+    def _resolve_step_fns(self) -> None:
+        """(Re)build the decode + logit-program composites when the tuning
+        database's generation has moved — this IS the hot swap: a supervisor
+        commit or rollback resolves a fresh composite on the next step.  The
+        compiled program is cached under the program fingerprint and the
+        recipes the generation resolves for its nests (with the backend and
+        device it is lowered for), so a rollback, which restores the old
+        recipe under a new generation, is a cache hit; the reference keys on
+        the generation itself and rebuilds."""
+        gen = self.tuning_db.generation
+        if gen == self._prog_gen:
+            return
+        self._prog_gen = gen
+        cfg, daisy, prog, aux = self.cfg, self._daisy, self.logit_program, self._prog_aux
+        recipes = tuple(repr(n.recipe) for n in daisy.plan(prog).nests)
+        pfn = self._ctx.jitted(
+            "serve.logit_program", lambda: daisy.compile(prog)[0],
+            self._prog_key, recipes, self.program_backend, str(self.device))
+
+        def composite(sample_greedy: bool):
+            def stepfn(params, states, tokens):
+                logits, states = M.decode_slots(cfg, params, states, tokens)
+                env = dict(aux)
+                # (N, V) -> vocab-major (V, N); the program copies it into a
+                # contiguous float32 tensor, the layout the nest kernel takes
+                env["X"] = logits.T
+                out = pfn(env)["Y"]
+                if sample_greedy:
+                    return torch.argmax(out, dim=0).to(torch.int32), states
+                return out.T, states  # back to (N, V) for host sampling
+            return stepfn
+
+        self._dispatch_greedy = composite(True)
+        self._dispatch_logits = composite(False)
 
     # -- internals -------------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -459,8 +630,12 @@ class ServingEngine:
                 self._timeout(h)
                 continue
             try:
+                fault = None if self.fault_plan is None else \
+                    self.fault_plan.maybe_raise("serve.prefill", key=h.rid)
                 last_logits, state = self._prefill(h)
                 lf = last_logits.float().cpu().numpy()
+                if fault is not None and fault.kind == "nan":
+                    lf = np.full_like(lf, np.nan)
                 self._check_finite(lf, h)
                 t0 = self._sample_from(lf)
                 h.state = RequestState.RUNNING
@@ -491,10 +666,17 @@ class ServingEngine:
                 self._timeout(h, slot=i)
                 continue
             try:
+                fault = None if self.fault_plan is None else \
+                    self.fault_plan.maybe_raise("serve.decode", key=h.rid)
                 if arr.ndim == 1:  # greedy path: sampled tokens (N,)
                     tok = int(arr[i])
                 else:  # sync path: logits (N, V), sample on the host
                     lf = arr[i]
+                    lfault = self.fault_plan.maybe_raise(
+                        "serve.logits", key=h.rid) if self.fault_plan else None
+                    if (fault is not None and fault.kind == "nan") or (
+                            lfault is not None and lfault.kind == "nan"):
+                        lf = np.full_like(lf, np.nan)
                     self._check_finite(lf, h)
                     tok = self._sample_from(lf)
                     self._tokens[i] = tok

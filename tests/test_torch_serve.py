@@ -161,8 +161,7 @@ def test_submit_rejects_bad_prompts(setup):
         eng.submit(np.array([2], np.int32), rid=5)
 
 
-@pytest.mark.parametrize("option", ["mesh", "fault_plan", "logit_program",
-                                    "logit_inputs", "tuner", "program_backend"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_options_not_ported_are_refused(setup, option):
     _, _, pcfg, pparams = setup
     with pytest.raises(NotImplementedError, match=option):
