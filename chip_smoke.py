@@ -171,7 +171,37 @@ Phases, in order (any failure exits nonzero):
    and another's logits): only the scheduled requests fail and the others
    generate (a)'s tokens; ``compile_resilient`` under an injected
    ``daisy.compile`` fault on ``cuda`` degrades to ``torch`` and is recorded,
-   and without it stays on ``cuda``.
+   and without it stays on ``cuda``;
+16. training, last: MiniCPM-2B (40 layers, every width, 2.72 B parameters)
+   trains whole on the card through ``repro_torch.train.Trainer``, its
+   forward on K4 and K5 (the tensor-core kernel, writing each row's
+   log-sum-exp), its backward on K4-bwd and K5-bwd.  (a) K4-bwd in fp32 and
+   bf16 at 8192 x 2304 (a microbatch) and 2048 rows at 3840, 4096, 8192 and
+   1024, and K5-bwd at tests/test_kernels.py's sweep x D {64, 120, 128},
+   MiniCPM's (144, 2048, 64), Danube's heads (D 120, group 4) at 2048 and at
+   8192 with its 4096 window, and Mixtral's D 128: each gradient against the
+   plain version's fp32 autograd gradients (bf16 relative L2 1e-2 per
+   tensor, fp32 K4-bwd max-relative 1e-4), bit-identical over two launches,
+   timed (a call and a CUDA graph) beside the bound, the plain version and
+   the library's backward (``F.rms_norm``, SDPA) through autograd; (b) the
+   whole model at 1 x 1024 tokens in bf16 on the kernels (block remat)
+   against ``models/plain.py``'s fp32 forward and autograd on the same
+   parameters: loss within 1e-2 relative, the global gradient within 5e-2
+   relative L2, the five worst tensors printed; (c) six ``Trainer`` steps
+   (WSD from the training CLI's 3e-4, one warm-up step, 8 x 2048 tokens in
+   two microbatches): losses finite and no step skipped, every step's K4 /
+   K5 / K4-bwd / K5-bwd launches exactly what the model implies (per
+   microbatch 161 / 80 / 81 / 40), no plain version run, host ms a step, one
+   step profiled (device ms by kernel group, idle share), tokens/s, peak
+   memory, model FLOP/s as a share of 989 TFLOP/s, and
+   ``explain_kernels()``; then six more steps of a fresh trainer at 3e-5,
+   whose last loss must be below its first (at 3e-4 AdamW's first steps
+   are too large for these widths: TRAIN_LR's comment); (d) four of its
+   layers at full width:
+   ``run_resilient(5, fail_at=3)`` with checkpoints every two steps against
+   an uninterrupted run, losses, parameters and moments bit-identical
+   (under ``torch.use_deterministic_algorithms``), the checkpoint's size
+   and its save and restore seconds.
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -190,6 +220,9 @@ encoder and cross-attention at D = 64 and a GQA group of 1, in a bucket and
 at a decode step, its self-attention decode step, LLaVA-NeXT's
 4096-position causal forward, K4 at width 1024) and times each on the
 device beside SDPA (``F.rms_norm``) and its bound.
+
+Phase 16's K4-bwd and K5-bwd rows join the kernels' JSON line; their
+``launches`` are (c)'s six steps.
 
 Output: progress lines, then a JSON line with every kernel's numbers, the
 ``nvidia-smi`` line with the card's name and power limit, and last
@@ -2354,6 +2387,8 @@ KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
                  "K6 grouped_matmul decode": ("moe_gmm_decode",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
                  "K5 flash_attention": ("flash_kernel", "flash_mma_kernel", "flash_decode_kernel"),
+                 "K5-bwd flash_attention_bwd": ("flash_bwd",),
+                 "K4-bwd rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dgamma"),
                  "K4 rmsnorm": ("rmsnorm",),
                  "K2/K3 nest kernel": ("nest_kernel", "nest_split"),
                  "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "cutlass", "sm90_xmma", "matmul")}
@@ -3363,6 +3398,528 @@ def recurrent_phase(torch, smi: str, phase: int, cfg, *, bucket: int, reset_coun
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training.  MiniCPM-2B (arXiv:2404.06395: 40 layers, d_model 2304,
+# 36 heads of 64, d_ff 5760, vocab 122,753, tied embeddings; 2.72 B
+# parameters) trains whole on one card through ``repro_torch.train.Trainer``:
+# bf16 parameters and gradients (5.4 GB each), fp32 AdamW moments (21.8 GB),
+# the fp32 gradient sum of two microbatches (10.9 GB), block remat.  Its
+# forward runs K4 and K5 (the tensor-core kernel, writing the log-sum-exp),
+# its backward K4-bwd and K5-bwd.
+# ---------------------------------------------------------------------------
+MINICPM = "minicpm-2b"
+# bf16 gradients against the plain version's fp32 autograd gradients of the
+# same bf16 inputs, relative L2 per tensor; fp32 K4-bwd max-relative
+# (tests/test_torch_train_kernels.py states why; set from the first reading
+# on the card, PERF.md)
+BF16_GRAD_REL_L2 = 1e-2
+F32_RMS_GRAD_MAX_REL = 1e-4
+# (b): the bf16 model on the kernels against the fp32 plain forward + autograd
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2  # the serving gate's limit, on the global gradient
+GATE_TOKENS = 1024
+# K4-bwd's timed shapes: a MiniCPM microbatch (4 x 2048 tokens) and 2048 rows
+# at the serving widths (Danube, Mixtral and LLaVA, Jamba, Seamless)
+K4_BWD_SHAPES = [(8192, 2304), (2048, 3840), (2048, 4096), (2048, 8192), (2048, 1024)]
+# K5-bwd's timed shapes: (label, BHq, BHkv, Sq = Skv, D, window); causal
+K5_BWD_SHAPES = [("MiniCPM-2B microbatch", 144, 144, 2048, 64, None),
+                 ("Danube heads, 2048", 32, 8, 2048, 120, 4096),
+                 ("Danube heads, 8192, window 4096", 32, 8, 8192, 120, 4096),
+                 ("Mixtral heads, 2048", 32, 8, 2048, 128, None)]
+TRAIN_STEPS = 6
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 2048, 8, 2
+# (c) runs at the training CLI's learning rate (`launch/train.py`, 3e-4 with
+# WSD and one warm-up step for 6 steps), timed and profiled.  There AdamW's
+# first steps (each weight moved by about lr, the sign of its gradient) are
+# too large for MiniCPM's 2304-wide layers: on an H100 the loss went 11.86,
+# 12.24, 20.39, 8.26, 19.07, 13.12 (PERF.md), and the reference does the
+# same on the CPU at width 2304 (8 layers, vocab 8192: 9.62 -> 15.38 ->
+# 10.39).  That the model learns is held at LEARN_LR, where the reference's
+# loss falls at width 2304 (8 layers) and at depth 40 (width 1024).
+TRAIN_LR, LEARN_LR = 3e-4, 3e-5
+RESILIENT_LAYERS = 4  # (d): a full-width checkpoint of all 40 layers is ~27 GB of npz
+
+
+def bwd_timing(torch, call, plain, library) -> dict:
+    """A backward's times: one call (CUDA events), a CUDA graph of calls,
+    the plain version's call and the library's backward through autograd."""
+    return dict(ms=cuda_ms(call), graph_ms=graph_ms(torch, call, n=5),
+                plain_ms=cuda_ms(plain, repeats=3),
+                library_ms=cuda_ms(library) if library is not None else None)
+
+
+def check_rmsnorm_bwd(torch, smi: str) -> dict:
+    """K4-bwd against its plain version (fp32 autograd of ``ref.rmsnorm`` on
+    the same inputs) in fp32 and bf16 at K4_BWD_SHAPES, bit-identical over
+    two launches, then timed in bf16 beside the bound (bytes: x and dy read,
+    dx written), the plain version and ``F.rms_norm``'s backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as kr
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_abs = 0.0
+    rows_out = []
+    for rows, d in K4_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+            dy = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+            gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).to(dtype)
+            dx, dg = kr.rmsnorm_bwd(x, gamma, dy)
+            dx2, dg2 = kr.rmsnorm_bwd(x, gamma, dy)
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, dx2) and torch.equal(dg, dg2)):
+                raise AssertionError(f"K4-bwd {rows}x{d} {dtype}: two launches differ")
+            want = ref.rmsnorm_grad(x.float(), gamma.float(), dy.float())
+            for name, got, w in (("dx", dx, want[0]), ("dgamma", dg, want[1])):
+                if dtype == torch.float32:
+                    err = float((got - w).abs().max() / w.abs().max())
+                    limit = F32_RMS_GRAD_MAX_REL
+                else:
+                    err = float((got.float() - w).norm() / w.norm())
+                    limit = BF16_GRAD_REL_L2
+                    worst_abs = max(worst_abs, float((got.float() - w).abs().max()))
+                worst[dtype] = max(worst[dtype], err)
+                if err > limit:
+                    raise AssertionError(f"K4-bwd {rows}x{d} {dtype} {name}: {err:.3e} > {limit}")
+            if dtype != torch.bfloat16:
+                continue
+            xr, gr = x.clone().requires_grad_(), gamma.clone().requires_grad_()
+            lib_out = F.rms_norm(xr, (d,), gr, 1e-6) if hasattr(F, "rms_norm") else None
+            library = (lambda: torch.autograd.grad(lib_out, (xr, gr), dy, retain_graph=True)) \
+                if lib_out is not None else None
+            t = bwd_timing(torch, lambda: kr.rmsnorm_bwd(x, gamma, dy),
+                           lambda: ref.rmsnorm_grad(x, gamma, dy), library)
+            nbytes = 2.0 * (3 * rows * d + 2 * d)
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10.0 * rows * d / PEAK_FP32 * 1e3
+            row = dict(shape=f"{rows}x{d} bf16", bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations", **t)
+            log(f"  K4-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
+                f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; "
+                f"F.rms_norm backward {fmt_ms(t['library_ms'])} ({smi})")
+            rows_out.append(row)
+    log(f"  K4-bwd against fp32 autograd: fp32 max-relative {worst[torch.float32]:.3e} "
+        f"(limit {F32_RMS_GRAD_MAX_REL}), bf16 relative L2 {worst[torch.bfloat16]:.3e} (limit "
+        f"{BF16_GRAD_REL_L2}); bit-identical over two launches at every shape")
+    main = rows_out[0]
+    return dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm.py:41 (its gradient: the TPU kernel has "
+                         "none, the reference trains on XLA's gradient of kernels/ref.py)",
+                max_abs_err=worst_abs, max_rel_l2_bf16=worst[torch.bfloat16],
+                max_rel_f32=worst[torch.float32], **main,
+                other_shapes=rows_out[1:])
+
+
+def check_flash_bwd(torch, smi: str) -> dict:
+    """K5-bwd against its plain version (fp32 autograd of ``ref.attention``
+    on the same bf16 inputs, given the forward's own output and log-sum-exp)
+    at tests/test_kernels.py's sweep x D {64, 120, 128} and at K5_BWD_SHAPES,
+    bit-identical over two launches; each K5_BWD_SHAPES shape timed (a call,
+    a CUDA graph) beside its bound (2.5x the forward's operations at 989
+    TFLOP/s, or its bytes), the plain version and SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    worst, worst_abs = 0.0, 0.0
+
+    def check(label, bhq, bhkv, sq, skv, d, causal, window, off):
+        nonlocal worst, worst_abs
+        q = torch.randn(bhq, sq, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(bhkv, skv, d, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        do = torch.randn(bhq, sq, d, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window, q_offset=off)
+        out, lse = kf.flash_attention_fwd(q, k, v, **kw)
+        got = kf.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        again = kf.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        want = ref.attention_grad(q.float(), k.float(), v.float(), do.float(), **kw)
+        errs = []
+        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K5-bwd {label}: {name} differs over two launches")
+            err = float((a.float() - w).norm() / w.norm().clamp_min(1e-30))
+            worst_abs = max(worst_abs, float((a.float() - w).abs().max()))
+            errs.append(err)
+            if err > BF16_GRAD_REL_L2:
+                raise AssertionError(f"K5-bwd {label} {name}: relative L2 {err:.3e} > "
+                                     f"{BF16_GRAD_REL_L2}")
+        worst = max(worst, *errs)
+        del want
+        return (q, k, v, out, do, lse, kw), errs
+
+    n = 0
+    for d in (64, 120, 128):
+        for bhq, bhkv, sq, skv, causal, window, off in ATTN_SWEEP:
+            check(f"sweep {bhq}/{bhkv} {sq}x{skv} D {d}", bhq, bhkv, sq, skv, d, causal, window,
+                  off)
+            n += 1
+    log(f"  K5-bwd at tests/test_kernels.py's sweep x D {{64, 120, 128}} ({n} cases): within "
+        f"{BF16_GRAD_REL_L2} relative L2 of fp32 autograd, bit-identical over two launches")
+    rows_out = []
+    for label, bhq, bhkv, s, d, window in K5_BWD_SHAPES:
+        (q, k, v, out, do, lse, kw), errs = check(label, bhq, bhkv, s, s, d, True, window, 0)
+        # SDPA's backward through autograd on the same bf16 inputs (the GQA
+        # group spelled out; the window as a boolean mask)
+        group = bhq // bhkv
+        ql = q.view(1, bhq, s, d).clone().requires_grad_()
+        kl = k.repeat_interleave(group, 0).view(1, bhq, s, d).clone().requires_grad_()
+        vl = v.repeat_interleave(group, 0).view(1, bhq, s, d).clone().requires_grad_()
+        if window is not None and window < s:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        else:
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        dol = do.view(1, bhq, s, d)
+        t = bwd_timing(
+            torch, lambda: kf.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+            lambda: ref.attention_grad(q, k, v, do, **kw),
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True))
+        t_ops, t_bytes = _attn_bound(torch, q, k, 0, True, window)
+        t_ops *= 2.5          # five products over the visible pairs, the forward's two
+        t_bytes *= 2.0        # q, k, v, out, dout read; dq, dk, dv written
+        row = dict(shape=f"{label}: q ({bhq}, {s}, {d}), kv ({bhkv}, {s}, {d}), causal"
+                         + (f", window {window}" if window else ""),
+                   rel_l2=dict(zip(("dq", "dk", "dv"), errs)),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", **t)
+        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; SDPA "
+            f"backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
+            + "/".join(f"{e:.2e}" for e in errs) + f" ({smi})")
+        rows_out.append(row)
+        del q, k, v, out, do, lse, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    main = rows_out[0]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:117 (its gradient: :14 names a "
+                         "custom_vjp backward the reference does not have; it trains on XLA's "
+                         "gradient of kernels/ref.py)",
+                max_abs_err=worst_abs, max_rel_l2=worst, **main, other_shapes=rows_out[1:])
+
+
+def _named_leaves(tree, prefix=""):
+    """(name, leaf) of a parameter tree, depth first in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree) for x in _named_leaves(t, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def gradient_gate(torch, cfg) -> dict:
+    """(b): MiniCPM-2B whole, seeded, one batch of 1 x GATE_TOKENS tokens: the
+    bf16 model on K4/K5 and their backward kernels (block remat) against
+    ``models/plain.py``'s fp32 forward and autograd on the same parameters
+    (an fp32 copy; the bf16 parameters are freed before it runs)."""
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.models import plain
+    from repro_torch.optim.adamw import tree_unflatten
+    from repro_torch.train import train_loop as T
+
+    params = seeded_params(torch, cfg)
+    named = _named_leaves(params)
+    for _, t in named:
+        t.requires_grad_(True)
+    raw = LMDataPipeline(DataConfig(seq_len=GATE_TOKENS, global_batch=1, vocab=cfg.vocab,
+                                    seed=SEED)).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    t0 = time.perf_counter()
+    loss = T.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    loss = float(loss.detach())
+    torch.cuda.synchronize()
+    t_kernels = time.perf_counter() - t0
+    p32 = [t.detach().float().requires_grad_() for _, t in named]
+    tree32 = tree_unflatten(params, p32)  # the order _named_leaves walks
+    names = [n for n, _ in named]
+    del params, named
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logits = plain.forward(cfg, tree32, batch["tokens"][0])
+    loss32 = T.cross_entropy(logits[None], batch["labels"])
+    del logits
+    grads32 = torch.autograd.grad(loss32, p32)
+    loss32 = float(loss32.detach())
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    loss_err = abs(loss - loss32) / abs(loss32)
+    per = []
+    num = den = 0.0
+    for name, gk, g32 in zip(names, grads, grads32):
+        diff = float((gk.float() - g32).norm()) ** 2
+        ref_sq = float(g32.norm()) ** 2
+        num, den = num + diff, den + ref_sq
+        per.append((math.sqrt(diff / max(ref_sq, 1e-60)), name))
+    glob = math.sqrt(num / den)
+    worst = sorted(per, reverse=True)[:5]
+    log(f"  (b) gradient gate, {cfg.name} whole, 1 x {GATE_TOKENS} tokens: loss {loss:.6f} "
+        f"(bf16, kernels, remat {cfg.remat!r}) vs {loss32:.6f} (fp32 plain), relative "
+        f"{loss_err:.3e} (limit {TRAIN_LOSS_REL}); global gradient relative L2 {glob:.3e} "
+        f"(limit {TRAIN_GRAD_REL_L2}); worst tensors "
+        + ", ".join(f"{n} {e:.3e}" for e, n in worst)
+        + f"; {t_kernels:.2f} s (kernels) and {t_plain:.2f} s (plain); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out = dict(loss=loss, loss_plain=loss32, loss_rel=loss_err, grad_rel_l2=glob,
+               worst_tensors=[(n, e) for e, n in worst])
+    del grads, p32, tree32, grads32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if loss_err > TRAIN_LOSS_REL or not glob <= TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"phase 16 (b): loss {loss_err:.3e} or gradient {glob:.3e} beyond "
+                             f"{TRAIN_LOSS_REL} / {TRAIN_GRAD_REL_L2}")
+    return out
+
+
+def train_counts(kr, kf) -> dict:
+    return {"K4": kr.LAUNCHES["rmsnorm"], "K4-bwd": kr.LAUNCHES["rmsnorm_bwd"],
+            "K5": kf.LAUNCHES["flash_attention"], "K5-bwd": kf.LAUNCHES["flash_attention_bwd"],
+            "K5 kernels": dict(kf.PATHS), "K5-bwd kernels": dict(kf.BWD_PATHS),
+            "plain": {"K4": kr.PLAIN["rmsnorm"], "K4-bwd": kr.PLAIN["rmsnorm_bwd"],
+                      "K5": kf.PLAIN["flash_attention"], "K5-bwd": kf.PLAIN["flash_attention_bwd"]}}
+
+
+def reset_train_counts(kr, kf) -> None:
+    for d in (kr.LAUNCHES, kr.PLAIN, kf.LAUNCHES, kf.PLAIN, kf.PATHS, kf.BWD_PATHS):
+        for k in d:
+            d[k] = 0
+
+
+def model_flops(cfg, tokens: int, seq: int) -> dict:
+    """A step's model operations: 6 N T (N every parameter, the tied head
+    included), attention's two products over the causal pairs forward and
+    2.5x that backward, and block remat's recompute (the blocks' forward
+    again) apart."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    block = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f + 2 * d
+    n = cfg.vocab * d + L * block + d
+    pairs = seq * (seq + 1) / 2 * h * (tokens // seq)
+    attn_fwd = 4.0 * pairs * hd * L
+    return dict(params=n, model=6.0 * n * tokens + 3.5 * attn_fwd,
+                recompute=2.0 * L * block * tokens + attn_fwd)
+
+
+def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
+                 measure: bool = True) -> dict:
+    """(c): ``Trainer`` on MiniCPM-2B whole, TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens in TRAIN_ACCUM microbatches, WSD from ``lr`` with one
+    warm-up step; every step's launches checked against the counts the model
+    implies, no plain version run, losses finite and no step skipped, its
+    host ms; with ``measure``, one step profiled for device ms and the idle
+    share, and ``explain_kernels()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import rmsnorm as kr
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, AdamWConfig(schedule="wsd", lr=lr, total_steps=TRAIN_STEPS,
+                                  warmup_steps=1),
+                 DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab,
+                            seed=SEED),
+                 TrainerConfig(ckpt_dir=str(tmp / "c"), accum_steps=TRAIN_ACCUM, ckpt_every=100),
+                 seed=SEED)
+    torch.cuda.synchronize()
+    log(f"  (c) Trainer built in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (bf16 parameters, fp32 moments)")
+    L = cfg.n_layers
+    per_mb = {"K4": 4 * L + 1, "K4-bwd": 2 * L + 1, "K5": 2 * L, "K5-bwd": L}
+    want = {k: n * TRAIN_ACCUM for k, n in per_mb.items()}
+    reset_train_counts(kr, kf)
+    steps, total = [], {k: 0 for k in want}
+    profiled = 3 if measure else -1
+    for s in range(TRAIN_STEPS):
+        before = train_counts(kr, kf)
+        if s == profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_p = time.perf_counter()
+                tr.run(1)
+                torch.cuda.synchronize()
+                t_p = time.perf_counter() - t_p
+        else:
+            tr.run(1)
+        torch.cuda.synchronize()
+        after = train_counts(kr, kf)
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            raise AssertionError(f"phase 16 (c) step {s + 1}: launches {moved}, the model "
+                                 f"implies {want}")
+        for k in want:
+            total[k] += moved[k]
+        rec = dict(tr.history[-1])
+        steps.append(rec)
+        log(f"  (c) step {rec['step']}: loss {rec['loss']:.4f}, lr {rec['lr']:.3e}, "
+            f"{rec['dt'] * 1e3:.1f} host ms, launches {moved}")
+    counts = train_counts(kr, kf)
+    if any(counts["plain"].values()):
+        raise AssertionError(f"phase 16 (c): a plain version ran on the card: {counts['plain']}")
+    if set(k for k, n in counts["K5 kernels"].items() if n) != {"mma"}:
+        raise AssertionError(f"phase 16 (c): K5 launched {counts['K5 kernels']}, want mma only")
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in steps):
+        raise AssertionError(f"phase 16 (c): losses {losses}")
+    if not measure:
+        log(f"  (c) lr {lr:g}: losses {' '.join(f'{x:.4f}' for x in losses)}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(lr=lr, losses=losses, launches=total)
+    per_group, group_launches, n_ops = device_groups(torch, prof, 1)
+    device_ms = sum(per_group.values())
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    host_ms = sorted(r["dt"] * 1e3 for r in steps[1:])
+    med_ms = host_ms[len(host_ms) // 2]
+    fl = model_flops(cfg, tokens, TRAIN_SEQ)
+    out = dict(
+        lr=lr, losses=losses, host_ms=[r["dt"] * 1e3 for r in steps], median_host_ms=med_ms,
+        profiled_step=profiled + 1, profiled_host_ms=t_p * 1e3, device_ms=device_ms,
+        device_ms_by_group=per_group, launches_by_group=group_launches, device_ops=n_ops,
+        idle_share=1 - device_ms / (t_p * 1e3), tokens_per_s=tokens / (med_ms / 1e3),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, params=fl["params"],
+        model_flops=fl["model"], recompute_flops=fl["recompute"],
+        model_flops_share=fl["model"] / (med_ms / 1e3) / PEAK_BF16,
+        with_recompute_share=(fl["model"] + fl["recompute"]) / (med_ms / 1e3) / PEAK_BF16,
+        launches=total, launches_per_step=want, card=smi)
+    log(f"  (c) {TRAIN_STEPS} steps, losses {' '.join(f'{x:.4f}' for x in losses)}; median host "
+        f"{med_ms:.1f} ms a step (steps 2-{TRAIN_STEPS}), {out['tokens_per_s']:.0f} tokens/s; "
+        f"step {profiled + 1} profiled: {t_p * 1e3:.1f} host ms, {device_ms:.1f} device ms "
+        f"(idle {out['idle_share']:.1%}), by group "
+        + ", ".join(f"{k} {v:.1f} ms ({group_launches[k]:.0f})" for k, v in per_group.items())
+        + f"; peak memory {out['peak_memory_gb']:.2f} GB; {fl['params'] / 1e9:.3f} B parameters, "
+        f"model FLOP/s {out['model_flops_share']:.1%} of 989 TFLOP/s (6NT + attention; "
+        f"{out['with_recompute_share']:.1%} with remat's recompute) ({smi})")
+    log("  (c) Trainer.explain_kernels():")
+    for line in tr.explain_kernels().splitlines():
+        log(f"    {line}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilience_path(torch, cfg, tmp: Path) -> dict:
+    """(d): RESILIENT_LAYERS of MiniCPM-2B's layers at full width: a run with
+    checkpoints every 2 steps that fails at step 3 and restores, against an
+    uninterrupted run of as many steps: losses and final parameters and
+    moments bit-identical.  Should the run differ in torch's default mode,
+    it is repeated under ``torch.use_deterministic_algorithms`` (this check
+    only), with the ops torch flags printed, and must be bit-identical
+    there."""
+    import warnings
+
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import Trainer, TrainerConfig
+
+    c4 = replace(cfg, n_layers=RESILIENT_LAYERS)
+    ocfg = AdamWConfig(schedule="wsd", lr=3e-4, total_steps=5, warmup_steps=1)
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=4, vocab=cfg.vocab, seed=SEED + 16)
+
+    def attempt(tag: str) -> dict:
+        timed = {}
+
+        def timing(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timed[name] = time.perf_counter() - t0
+                return out
+            return call
+
+        plain_run = Trainer(c4, ocfg, dcfg, TrainerConfig(ckpt_dir=str(tmp / f"{tag}0"),
+                                                          ckpt_every=100), seed=SEED)
+        plain_run.run(5)
+        tr = Trainer(c4, ocfg, dcfg, TrainerConfig(ckpt_dir=str(tmp / f"{tag}1"), ckpt_every=2),
+                     seed=SEED)
+        tr.save, tr.try_restore = timing("save", tr.save), timing("restore", tr.try_restore)
+        tr.run_resilient(5, fail_at=3)
+        torch.cuda.synchronize()
+        want = [r["loss"] for r in plain_run.history]
+        got = [r["loss"] for r in tr.history]
+        same = (got[:3] == want[:3] and got[3:] == want[2:]
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.params),
+                                                          tree_leaves(plain_run.params)))
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.opt_state),
+                                                          tree_leaves(plain_run.opt_state))))
+        size = sum(f.stat().st_size for f in tr.ckpt._step_dir(2).iterdir())
+        log(f"  (d) {tag}: {RESILIENT_LAYERS} of {cfg.n_layers} layers, full width: "
+            f"run_resilient(5, fail_at=3) with checkpoints every 2 steps, losses "
+            f"{' '.join(f'{x:.6f}' for x in got)} (restored at step 2, steps 3-5 again); "
+            f"uninterrupted {' '.join(f'{x:.6f}' for x in want)}; losses, parameters and "
+            f"moments {'bit-identical' if same else 'DIFFER'}; checkpoint {size / 1e9:.2f} GB, "
+            f"save {timed.get('save', float('nan')):.2f} s, restore "
+            f"{timed.get('restore', float('nan')):.2f} s")
+        out = dict(losses=got, uninterrupted=want, bit_identical=same,
+                   checkpoint_gb=size / 1e9, save_s=timed.get("save"),
+                   restore_s=timed.get("restore"))
+        del tr, plain_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    out = attempt("default")
+    if not out["bit_identical"]:  # find the op that is not deterministic
+        was = torch.are_deterministic_algorithms_enabled()
+        try:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = dict(attempt("deterministic"), default_mode=out)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        out["flagged"] = sorted({str(w.message).split(".")[0][:160] for w in caught
+                                 if "determinis" in str(w.message)})
+        log(f"  (d) ops torch flags as without a deterministic implementation: "
+            f"{out['flagged'] or 'none'}")
+    if not out["bit_identical"]:
+        raise AssertionError(f"phase 16 (d): the resumed run differs: {out['losses']} vs "
+                             f"{out['uninterrupted']}")
+    return out
+
+
+def training_phase(torch, smi: str) -> dict:
+    """Phase 16 (a)-(d); returns the backward kernels' rows and the training
+    numbers.  Temporary checkpoints go under the system's temporary
+    directory and are removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MINICPM)
+    log("  (a) the backward kernels against their plain versions")
+    rows = {"rmsnorm_bwd": check_rmsnorm_bwd(torch, smi),
+            "flash_attention_bwd": check_flash_bwd(torch, smi)}
+    gate = gradient_gate(torch, cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="repro_train_"))
+    try:
+        train = trainer_path(torch, smi, cfg, tmp)
+        learn = trainer_path(torch, smi, cfg, tmp, lr=LEARN_LR, measure=False)
+        resilient = resilience_path(torch, cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not learn["losses"][-1] < learn["losses"][0]:
+        raise AssertionError(f"phase 16 (c): at lr {LEARN_LR:g} the loss did not fall: "
+                             f"{learn['losses']}")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=rows, gate=gate, train=train, learn=learn, resilient=resilient)
+
+
 class PrefillPaths:
     """While installed, K5's launches per kernel inside ``M.decode_step``,
     which the engine calls once per prefill bucket (and ``prefill_breakdown``
@@ -3761,13 +4318,29 @@ def main(argv: list[str] | None = None) -> int:
     results["grouped_matmul_decode"]["launches_phases_13_14"] = {
         "13 serving": j["grouped_matmul_decode"]}
 
+    del recurrent
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16: training {MINICPM} whole (40 layers, every width) through "
+        "repro_torch.train.Trainer on K4/K5 and their backward kernels")
+    training = training_phase(torch, smi)
+    results.update(training["rows"])
+    trained = training["train"]["launches"]
+    launches["rmsnorm_bwd"] = trained["K4-bwd"]
+    launches["flash_attention_bwd"] = trained["K5-bwd"]
+    results["rmsnorm"]["launches_phase_16"] = trained["K4"]
+    results["flash_attention"]["launches_phase_16"] = trained["K5"]
+    results["flash_attention_bwd"]["phase_16"] = {k: v for k, v in training.items()
+                                                  if k != "rows"}
+
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]
                                           + k5_paths["MoE serving decode"]["decode"])
     launches["grouped_matmul_decode"] = sum(n.get("decode", 0) for n in k6_paths.values())
     kernels = []
     for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
-                "flash_attention_decode", "grouped_matmul", "grouped_matmul_decode"):
+                "flash_attention_decode", "grouped_matmul", "grouped_matmul_decode",
+                "rmsnorm_bwd", "flash_attention_bwd"):
         row = dict(results[key])
         row["launches"] = launches[key]
         if key == "flash_attention":

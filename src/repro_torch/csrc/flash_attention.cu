@@ -1,4 +1,5 @@
-// K5: hand-written forward flash attention for Hopper (sm_90a): three kernels.
+// K5: hand-written flash attention for Hopper (sm_90a): three forward kernels
+// and K5-bwd, the backward's three.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (the Pallas TPU
 // kernel, pl.pallas_call at flash_attention.py:117, body _flash_kernel at
@@ -109,12 +110,42 @@
 // It takes bf16 with D % 8 == 0, D <= 128, a group of at most 16 and
 // 16-byte aligned pointers; everything else stays on flash_kernel.
 //
+// Training.  flash_mma_kernel also writes each row's log-sum-exp of its
+// scaled scores, m ln 2 + ln l from its log2-domain m, when given an fp32
+// (BHq, Sq) buffer (Params::lse; +inf for a row that sees no key, so its
+// backward P is 0).  Serving passes null: its launches do not change.
+//
+// K5-bwd (no TPU kernel: repro/kernels/flash_attention.py:14 names a
+// custom_vjp backward that the reference does not have; it trains on XLA's
+// gradient of its plain version).  FlashAttention-2's two-pass form, three
+// kernels, no atomics:
+// * flash_bwd_delta_kernel: delta = rowsum(dO * O) in fp32, a warp a row;
+// * flash_bwd_dkdv_kernel: a block per (KV head, 64 keys) holds K and V,
+//   walks every q head of its GQA group and, 64 rows at a time, the rows that
+//   can see its keys (the forward's range rule for causal, window and
+//   q_offset), recomputes P = exp(S scale - lse) and dP = dO V^T, and sums
+//   dV += P^T dO and dK += scale dS^T Q with dS = P (dP - delta);
+// * flash_bwd_dq_kernel: a block per (q head, 64 rows) walks the union of
+//   its rows' visible keys, 64 at a time, and sums dQ += scale dS K.
+// Bound: operations.  Five products over the visible (q, k) pairs against
+// the forward's two: at MiniCPM-2B's 144 heads of 64 over a causal 2048 that
+// is 2.5 x 77 GFLOP, 0.20 ms at 989 TFLOP/s.  This first version runs them
+// on the CUDA cores: bf16 tiles widened to fp32 in shared memory (row stride
+// DP + 1 floats, DP = 64 or 128, so a warp's reads fall in distinct banks),
+// 256 threads in a 16 x 16 grid, each with a 4 x 4 block of a 64 x 64 score
+// tile and a 4 x DP/16 block of its output, fp32 FMA (67 TFLOP/s at most on
+// an H100).  Each output element is summed by one thread in a fixed order,
+// so the gradients are bit-identical run to run.  Tensor cores are later
+// work.  It takes bf16 with D % 8 == 0, D <= 128, Skv >= Sq and 16-byte
+// aligned pointers; kernels/flash_attention.py raises on anything else.
+//
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
 // it is nonzero.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -149,6 +180,7 @@ struct Params {
   int bhq, bhkv, sq, skv, d;
   int causal, has_window, window;
   float scale;
+  float* lse = nullptr;  // flash_mma_kernel: each row's log-sum-exp (BHq, Sq), or null
 };
 
 struct Row {
@@ -388,6 +420,7 @@ constexpr int MMA_BM = 4 * 16 * MMA_MT;  // q rows per block: 4 warps x 32
 constexpr int MMA_BN = 64;               // keys per K/V tile
 constexpr int MMA_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DP>
 __host__ __device__ constexpr int mma_stride() {  // rows 16 bytes apart mod 128: no bank conflict
@@ -672,6 +705,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const int r = row0 + (warp * MMA_MT + i) * 16 + lane / 4 + h * 8;
       if (r >= p.sq) continue;
+      if (p.lse != nullptr && lane % 4 == 0)  // natural log: m is log2-scaled
+        p.lse[static_cast<size_t>(head) * p.sq + r] =
+            lt == 0.f ? INFINITY : m[i][h] * LN2 + logf(lt);
       const float safe = lt == 0.f ? 1.f : lt;
       __nv_bfloat16* orow = out + (static_cast<size_t>(head) * p.sq + r) * d;
 #pragma unroll
@@ -1142,6 +1178,325 @@ int run_decode(const void* q, const void* k, const void* v, void* out, const Par
   return launch_decode_g<16>(q, k, v, out, p, chunk, ws, cnt, s);
 }
 
+// ---------------------------------------------------------------------------
+// K5-bwd: the backward of attention, FlashAttention-2's two-pass form on the
+// CUDA cores (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int BWD_BQ = 64;       // q rows per tile
+constexpr int BWD_BK = 64;       // keys per tile
+constexpr int BWD_THREADS = 256;  // a 16 x 16 grid: thread (ty, tx)
+constexpr int BWD_SP = BWD_BK + 1;  // row stride of the P and dS tiles (floats)
+
+template <int DP>
+constexpr int bwd_smem_bytes() {  // four (64, DP + 1) tiles, P and dS, lse and delta
+  return (4 * 64 * (DP + 1) + 2 * BWD_BQ * BWD_SP + 2 * BWD_BQ) * 4;
+}
+
+// rows [row0, row0 + 64) of a (rows, d) bf16 matrix into a fp32 tile of
+// stride DP + 1, zero past nrows and past d
+template <int DP>
+__device__ __forceinline__ void load_tile_f32(float* dst, const __nv_bfloat16* src, int row0,
+                                              int nrows, int d) {
+  for (int idx = threadIdx.x; idx < 64 * DP; idx += BWD_THREADS) {
+    const int r = idx / DP, c = idx % DP;
+    const bool in = row0 + r < nrows && c < d;
+    dst[r * (DP + 1) + c] =
+        in ? __bfloat162float(src[static_cast<size_t>(row0 + r) * d + c]) : 0.f;
+  }
+}
+
+// visible keys [lo, hi) of a q row at absolute position pos
+__device__ __forceinline__ void key_range(const Params& p, int pos, int& lo, int& hi) {
+  hi = p.causal ? min(p.skv, pos + 1) : p.skv;
+  lo = p.has_window ? max(0, pos - p.window + 1) : 0;
+}
+
+// S = Q.K^T and dP = dO.V^T for this thread's 4 x 4 (row ty + 16i, key
+// tx + 16j) of a 64 x 64 tile, then P = exp(S scale - lse) where the key is
+// visible (else 0) and dS = P (dP - delta), both stored to their tiles.
+template <int DP>
+__device__ __forceinline__ void bwd_scores(const float* qs, const float* dos, const float* ks,
+                                           const float* vs, const float* lse_s,
+                                           const float* del_s, float* ps, float* dss,
+                                           const Params& p, int off, int q0, int k0) {
+  constexpr int SD = DP + 1;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < DP; ++c) {
+    float a[4], o[4], b[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = qs[(ty + 16 * i) * SD + c];
+      o[i] = dos[(ty + 16 * i) * SD + c];
+      b[i] = ks[(tx + 16 * i) * SD + c];
+      w[i] = vs[(tx + 16 * i) * SD + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        dp[i][j] = fmaf(o[i], w[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, row = q0 + r;
+    int lo = 1, hi = 0;
+    if (row < p.sq) key_range(p, off + row, lo, hi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const float pv = key >= lo && key < hi ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
+      ps[r * BWD_SP + tx + 16 * j] = pv;
+      dss[r * BWD_SP + tx + 16 * j] = pv * (dp[i][j] - del_s[r]);
+    }
+  }
+}
+
+// lse and delta of rows [q0, q0 + 64) of one head; rows past Sq see nothing
+__device__ __forceinline__ void load_rows(float* lse_s, float* del_s, const float* lse,
+                                          const float* delta, size_t base, int q0, int sq) {
+  for (int r = threadIdx.x; r < BWD_BQ; r += BWD_THREADS) {
+    const bool in = q0 + r < sq;
+    lse_s[r] = in ? lse[base + q0 + r] : INFINITY;
+    del_s[r] = in ? delta[base + q0 + r] : 0.f;
+  }
+}
+
+// delta = rowsum(dO * O) in fp32: one warp a row
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       float* __restrict__ delta, int rows, int d) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const __nv_bfloat16* orow = o + static_cast<size_t>(row) * d;
+  const __nv_bfloat16* drow = dout + static_cast<size_t>(row) * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(drow[c]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+// dK and dV of 64 keys of one KV head: every q row of its GQA group that sees
+// them, 64 rows at a time
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Params p) {
+  constexpr int SD = DP + 1;
+  extern __shared__ float bsm[];
+  float* ks = bsm;
+  float* vs = ks + 64 * SD;
+  float* qs = vs + 64 * SD;
+  float* dos = qs + 64 * SD;
+  float* ps = dos + 64 * SD;
+  float* dss = ps + BWD_BQ * BWD_SP;
+  float* lse_s = dss + BWD_BQ * BWD_SP;
+  float* del_s = lse_s + BWD_BQ;
+  const int bkv = blockIdx.x, k0 = blockIdx.y * BWD_BK;
+  const int group = p.bhq / p.bhkv, d = p.d;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int kend = min(k0 + BWD_BK, p.skv);
+
+  load_tile_f32<DP>(ks, k + static_cast<size_t>(bkv) * p.skv * d, k0, p.skv, d);
+  load_tile_f32<DP>(vs, v + static_cast<size_t>(bkv) * p.skv * d, k0, p.skv, d);
+  float acc_k[4][DP / 16], acc_v[4][DP / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DP / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int head = bkv * group + gi;
+    const int off = p.offs ? p.offs[head] : p.off0;
+    // the rows i of this head that can see a key of [k0, kend): causal needs
+    // off + i >= k0, a window off + i - window + 1 < kend
+    const int i_lo = p.causal ? max(0, k0 - off) : 0;
+    const int i_hi = p.has_window ? min(p.sq, kend + p.window - 1 - off) : p.sq;
+    const size_t base = static_cast<size_t>(head) * p.sq;
+    for (int q0 = i_lo / BWD_BQ * BWD_BQ; q0 < i_hi; q0 += BWD_BQ) {
+      __syncthreads();  // every thread is done with the last tile
+      load_tile_f32<DP>(qs, q + base * d, q0, p.sq, d);
+      load_tile_f32<DP>(dos, dout + base * d, q0, p.sq, d);
+      load_rows(lse_s, del_s, lse, delta, base, q0, p.sq);
+      __syncthreads();
+      bwd_scores<DP>(qs, dos, ks, vs, lse_s, del_s, ps, dss, p, off, q0, k0);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q over the tile's 64 rows, in row order
+#pragma unroll 4
+      for (int r = 0; r < BWD_BQ; ++r) {
+        float pa[4], sa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = ps[r * BWD_SP + ty + 16 * i];
+          sa[i] = dss[r * BWD_SP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DP / 16; ++j) {
+          const float ob = dos[r * SD + tx + 16 * j], qb = qs[r * SD + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc_v[i][j] = fmaf(pa[i], ob, acc_v[i][j]);
+            acc_k[i][j] = fmaf(sa[i], qb, acc_k[i][j]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= p.skv) continue;
+    const size_t at = (static_cast<size_t>(bkv) * p.skv + key) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 16; ++j) {
+      const int c = tx + 16 * j;
+      if (c < d) {
+        dk[at + c] = __float2bfloat16(acc_k[i][j] * p.scale);
+        dv[at + c] = __float2bfloat16(acc_v[i][j]);
+      }
+    }
+  }
+}
+
+// dQ of 64 rows of one q head over their visible keys, 64 at a time
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, Params p) {
+  constexpr int SD = DP + 1;
+  extern __shared__ float bsm[];
+  float* ks = bsm;
+  float* vs = ks + 64 * SD;
+  float* qs = vs + 64 * SD;
+  float* dos = qs + 64 * SD;
+  float* ps = dos + 64 * SD;
+  float* dss = ps + BWD_BQ * BWD_SP;
+  float* lse_s = dss + BWD_BQ * BWD_SP;
+  float* del_s = lse_s + BWD_BQ;
+  const int head = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;  // the causal heaviest tile first
+  const int group = p.bhq / p.bhkv, d = p.d;
+  const int bkv = head / group;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int off = p.offs ? p.offs[head] : p.off0;
+  const size_t base = static_cast<size_t>(head) * p.sq;
+
+  load_tile_f32<DP>(qs, q + base * d, q0, p.sq, d);
+  load_tile_f32<DP>(dos, dout + base * d, q0, p.sq, d);
+  load_rows(lse_s, del_s, lse, delta, base, q0, p.sq);
+  // the union of the tile's rows' visible keys
+  const int last = min(q0 + BWD_BQ, p.sq) - 1;
+  int lo_b, hi_b, unused;
+  key_range(p, off + q0, lo_b, unused);  // a window's lower end rises with the row
+  key_range(p, off + last, unused, hi_b);  // the causal upper end too
+  float acc[4][DP / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
+
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bkv) * p.skv * d;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bkv) * p.skv * d;
+  for (int k0 = lo_b / BWD_BK * BWD_BK; k0 < hi_b; k0 += BWD_BK) {
+    __syncthreads();  // every thread is done with the last K/V tile
+    load_tile_f32<DP>(ks, kb, k0, p.skv, d);
+    load_tile_f32<DP>(vs, vb, k0, p.skv, d);
+    __syncthreads();
+    bwd_scores<DP>(qs, dos, ks, vs, lse_s, del_s, ps, dss, p, off, q0, k0);
+    __syncthreads();
+    // dQ += dS K over the tile's 64 keys, in key order
+#pragma unroll 4
+    for (int kk = 0; kk < BWD_BK; ++kk) {
+      float sa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i] = dss[(ty + 16 * i) * BWD_SP + kk];
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j) {
+        const float kv = ks[kk * SD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(sa[i], kv, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.sq) continue;
+    const size_t at = (base + row) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 16; ++j) {
+      const int c = tx + 16 * j;
+      if (c < d) dq[at + c] = __float2bfloat16(acc[i][j] * p.scale);
+    }
+  }
+}
+
+template <int DP>
+int launch_bwd_dp(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                  const float* delta, void* dq, void* dk, void* dv, const Params& p,
+                  cudaStream_t stream) {
+  constexpr int bytes = bwd_smem_bytes<DP>();
+  static bool configured = false;  // above 48 KB only after this attribute is set
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  using bf = __nv_bfloat16;
+  const auto* qp = static_cast<const bf*>(q);
+  const auto* kp = static_cast<const bf*>(k);
+  const auto* vp = static_cast<const bf*>(v);
+  const auto* dop = static_cast<const bf*>(dout);
+  const dim3 kv_grid(p.bhkv, (p.skv + BWD_BK - 1) / BWD_BK);
+  flash_bwd_dkdv_kernel<DP><<<kv_grid, BWD_THREADS, bytes, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid(p.bhq, (p.sq + BWD_BQ - 1) / BWD_BQ);
+  flash_bwd_dq_kernel<DP><<<q_grid, BWD_THREADS, bytes, stream>>>(qp, kp, vp, dop, lse, delta,
+                                                                   static_cast<bf*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+            const float* lse, void* dq, void* dk, void* dv, float* delta, const Params& p,
+            void* stream) {
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+  if (p.d < 8 || p.d > 128 || p.d % 8 != 0 || !aligned || p.bhkv < 1 || p.bhkv > 65535 ||
+      p.bhq % p.bhkv != 0 || p.bhq > 65535 || p.sq < 1 || p.skv < p.sq ||
+      (p.skv + BWD_BK - 1) / BWD_BK > 65535 || (p.sq + BWD_BQ - 1) / BWD_BQ > 65535 ||
+      lse == nullptr || delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int rows = p.bhq * p.sq;
+  flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, rows,
+      p.d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return p.d <= 64 ? launch_bwd_dp<64>(q, k, v, dout, lse, delta, dq, dk, dv, p, s)
+                   : launch_bwd_dp<128>(q, k, v, dout, lse, delta, dq, dk, dv, p, s);
+}
+
 }  // namespace
 
 extern "C" int repro_flash_f32(const void* q, const void* k, const void* v, void* out,
@@ -1160,11 +1515,14 @@ extern "C" int repro_flash_bf16(const void* q, const void* k, const void* v, voi
              scale, nwarps, stream);
 }
 
+// lse: null (serving), or fp32 (BHq, Sq) to receive each row's log-sum-exp of its scaled
+// scores (+inf for a row that sees no key), what the backward needs.
 extern "C" int repro_flash_mma_bf16(const void* q, const void* k, const void* v, void* out,
                                     const int* offs, int off0, int bhq, int bhkv, int sq, int skv,
                                     int d, int causal, int has_window, int window, float scale,
-                                    void* stream) {
-  const Params p{offs, off0, bhq, bhkv, sq, skv, d, causal, has_window, window, scale};
+                                    void* lse, void* stream) {
+  const Params p{offs,       off0,   bhq,    bhkv, sq, skv, d, causal, has_window,
+                 window,     scale,  static_cast<float*>(lse)};
   return run_mma(q, k, v, out, p, stream);
 }
 
@@ -1179,4 +1537,17 @@ extern "C" int repro_flash_decode_bf16(const void* q, const void* k, const void*
   const Params p{offs, off0, bhq, bhkv, 1, skv, d, causal, has_window, window, scale};
   return run_decode(q, k, v, out, p, chunk, static_cast<float*>(ws), static_cast<int*>(cnt),
                     stream);
+}
+
+// K5-bwd: q (BHq, Sq, D), k and v (BHkv, Skv, D), the forward's out and lse, the output
+// gradient dout -> dq, dk, dv (bf16); delta is an fp32 (BHq, Sq) workspace.  bf16 with
+// D % 8 == 0, D <= 128, Skv >= Sq and 16-byte aligned q, k, v, out and dout.
+extern "C" int repro_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+                                    const void* dout, const void* lse, void* dq, void* dk,
+                                    void* dv, void* delta, const int* offs, int off0, int bhq,
+                                    int bhkv, int sq, int skv, int d, int causal, int has_window,
+                                    int window, float scale, void* stream) {
+  const Params p{offs, off0, bhq, bhkv, sq, skv, d, causal, has_window, window, scale};
+  return run_bwd(q, k, v, out, dout, static_cast<const float*>(lse), dq, dk, dv,
+                 static_cast<float*>(delta), p, stream);
 }

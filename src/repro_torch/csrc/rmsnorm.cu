@@ -34,6 +34,26 @@
 // launch() picks the kernel and the block size before launch from D, the
 // dtype and the pointers' alignment.
 //
+// K4-bwd, the gradient (no TPU kernel: the reference trains on XLA's gradient
+// of its plain version, repro/kernels/ref.py; the card needs one for
+// loss.backward()).  With r = rsqrt(mean(x^2) + eps) recomputed per row:
+//   dx     = r * (gamma * dy) - x * r^3 * mean(x * gamma * dy)
+//   dgamma = sum over rows of dy * x * r
+// Bound: memory.  x and dy are read once and dx written once (MiniCPM-2B's
+// 8192 x 2304 bf16 microbatch: 113 MB, 34 us at 3.35 TB/s); gamma and dgamma
+// are one row each.
+// rmsnorm_bwd_kernel: a block of T threads (a multiple of 32, T * 8 >= D)
+// walks rows blockIdx.x, + gridDim.x, ...; thread t holds columns t + k * T
+// (k < 8) of x, dy and gamma in registers, the two row sums (x^2 and
+// x * gamma * dy) go through the same fixed-order block reduction as the
+// forward, and its dgamma columns are summed in registers over the block's
+// rows, in row order.  Each block then stores its partial dgamma row to an
+// fp32 workspace, and rmsnorm_dgamma_kernel adds the partials of each column
+// in block order and writes dgamma in gamma's type: the sum has one order for
+// a given shape and SM count, so dgamma is bit-identical run to run, and no
+// float atomics are used.  It takes any D <= 8 * 1024 = 8192 (the model
+// widths: 1024-8192) and any alignment.
+//
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
 // it is nonzero.
@@ -188,7 +208,128 @@ int launch(const void* x, const void* gamma, void* out, int rows, int d, float e
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int BWD_COLS = 8;          // columns of the row a thread holds (K4-bwd)
+constexpr int BWD_MAX_THREADS = 1024;
+
+// The block's sums of a and b, in the fixed order of block_sum.
+__device__ __forceinline__ float2 block_sum2(float a, float b) {
+  __shared__ float2 part[BWD_MAX_THREADS / 32];
+  __shared__ float2 total;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  if (lane == 0) part[warp] = make_float2(a, b);
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x / 32;
+    float sa = lane < warps ? part[lane].x : 0.f;
+    float sb = lane < warps ? part[lane].y : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sa += __shfl_down_sync(0xffffffffu, sa, o);
+      sb += __shfl_down_sync(0xffffffffu, sb, o);
+    }
+    if (lane == 0) total = make_float2(sa, sb);
+  }
+  __syncthreads();
+  const float2 t = total;
+  __syncthreads();  // total is read by every thread before the next row overwrites it
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ part, int rows, int d, float eps) {
+  float g[BWD_COLS], acc[BWD_COLS];
+#pragma unroll
+  for (int k = 0; k < BWD_COLS; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    g[k] = c < d ? to_f32(gamma[c]) : 0.f;
+    acc[k] = 0.f;
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (size_t row = blockIdx.x; row < static_cast<size_t>(rows); row += gridDim.x) {
+    const T* xr = x + row * d;
+    const T* dyr = dy + row * d;
+    float xv[BWD_COLS], dv[BWD_COLS];
+    float ss = 0.f, sd = 0.f;
+#pragma unroll
+    for (int k = 0; k < BWD_COLS; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      xv[k] = c < d ? to_f32(xr[c]) : 0.f;
+      dv[k] = c < d ? to_f32(dyr[c]) : 0.f;
+      ss = fmaf(xv[k], xv[k], ss);
+      sd = fmaf(xv[k] * g[k], dv[k], sd);
+    }
+    const float2 tot = block_sum2(ss, sd);
+    const float r = rsqrtf(tot.x * inv_d + eps);
+    const float c3 = r * r * r * (tot.y * inv_d);
+    T* dxr = dx + row * d;
+#pragma unroll
+    for (int k = 0; k < BWD_COLS; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      if (c < d) {
+        dxr[c] = from_f32<T>(r * (g[k] * dv[k]) - xv[k] * c3);
+        acc[k] = fmaf(dv[k], xv[k] * r, acc[k]);
+      }
+    }
+  }
+  float* pr = part + static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int k = 0; k < BWD_COLS; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < d) pr[c] = acc[k];
+  }
+}
+
+// dgamma[c] = the blocks' partials of column c, added in block order
+template <typename T>
+__global__ void rmsnorm_dgamma_kernel(const float* __restrict__ part, T* __restrict__ dgamma,
+                                      int blocks, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += part[static_cast<size_t>(b) * d + c];
+  dgamma[c] = from_f32<T>(s);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* gamma, const void* dy, void* dx, void* dgamma,
+               void* part, int rows, int d, int blocks, float eps, void* stream) {
+  if (d < 1 || d > BWD_COLS * BWD_MAX_THREADS || rows < 1 || blocks < 1 || blocks > rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = (d + BWD_COLS - 1) / BWD_COLS;
+  const int threads = (per + 31) / 32 * 32;
+  rmsnorm_bwd_kernel<T><<<blocks, threads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(part), rows, d, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dgamma_kernel<T><<<(d + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part),
+                                                           static_cast<T*>(dgamma), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K4-bwd: x, gamma, dy -> dx, dgamma; part is an fp32 workspace of blocks x d
+// (kernels/rmsnorm.py allocates it), blocks <= rows.
+extern "C" int repro_rmsnorm_bwd_f32(const void* x, const void* g, const void* dy, void* dx,
+                                     void* dg, void* part, int rows, int d, int blocks,
+                                     float eps, void* stream) {
+  return launch_bwd<float>(x, g, dy, dx, dg, part, rows, d, blocks, eps, stream);
+}
+
+extern "C" int repro_rmsnorm_bwd_bf16(const void* x, const void* g, const void* dy, void* dx,
+                                      void* dg, void* part, int rows, int d, int blocks,
+                                      float eps, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, g, dy, dx, dg, part, rows, d, blocks, eps, stream);
+}
 
 extern "C" int repro_rmsnorm_f32(const void* x, const void* g, void* out, int rows, int d,
                                  float eps, void* stream) {

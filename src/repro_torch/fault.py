@@ -1,8 +1,9 @@
-"""Bounded restarts, deterministic fault injection and the backend
-degradation chain.
+"""Heartbeats, stragglers, bounded restarts, deterministic fault injection
+and the backend degradation chain.
 
-Port of ``repro/fault.py``: ``RestartPolicy``, ``FaultInjected``, ``Fault``
-and ``FaultPlan`` (copied with import roots changed), ``truncate_file``,
+Port of ``repro/fault.py``: ``Heartbeat``, ``StragglerMonitor``,
+``RestartPolicy``, ``FaultInjected``, ``Fault`` and ``FaultPlan`` (copied
+with import roots changed), ``truncate_file``,
 ``DegradedCompile`` and ``compile_with_degradation`` (``:225-297``), whose
 ladder is ``cuda -> torch`` and whose every rung runs once on the card
 before it is accepted.  A seeded :class:`FaultPlan` names *where* (site),
@@ -15,12 +16,15 @@ replay the exact same failure schedule every run::
     tune(..., jobs=2, fault_plan=plan)   # that nest's worker dies twice
     assert plan.fired                    # the log of (site, key, kind) strikes
 
-The trainer's ``Heartbeat`` and ``StragglerMonitor`` come with the trainer
-(ROADMAP queue 5); ``compile_with_degradation``'s ``mesh`` and
-``shard_axis`` with partitioning (queue 6).
+``Heartbeat`` and ``StragglerMonitor`` (``:68-128``) are the trainer's
+(``train.Trainer``); ``compile_with_degradation``'s ``mesh`` and
+``shard_axis`` come with partitioning (ROADMAP queue 6).
 """
 from __future__ import annotations
 
+import json
+import os
+import threading
 import time
 from dataclasses import dataclass, field, replace
 from pathlib import Path
@@ -29,9 +33,72 @@ from typing import Any, Callable
 import numpy as np
 
 
+class Heartbeat:
+    """Background thread stamping a file; a supervisor (or test) detects a
+    dead/stuck process by file age.  Stamps are written atomically (tmp +
+    ``os.replace``) so a reader can never parse a half-written file and
+    mistake a live process for a dead one."""
+
+    def __init__(self, path: str | Path, interval: float = 1.0):
+        self.path = Path(path)
+        self.interval = interval
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _stamp(self) -> None:
+        tmp = self.path.with_name(f".{self.path.name}.{os.getpid()}.tmp")
+        tmp.write_text(json.dumps({"t": time.time(), "pid": os.getpid()}))
+        os.replace(tmp, self.path)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self._stamp()
+            self._stop.wait(self.interval)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2.0)
+
+    @staticmethod
+    def age(path: str | Path) -> float | None:
+        p = Path(path)
+        if not p.exists():
+            return None
+        try:
+            return time.time() - json.loads(p.read_text())["t"]
+        except Exception:
+            return None
+
+
+@dataclass
+class StragglerMonitor:
+    """EMA step-time tracker; flags steps slower than ``threshold`` x EMA."""
+
+    threshold: float = 3.0
+    alpha: float = 0.1
+    ema: float | None = None
+    flagged: list[tuple[int, float]] = field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        is_straggler = self.ema is not None and dt > self.threshold * self.ema
+        if is_straggler:
+            self.flagged.append((step, dt))
+        # don't fold outliers into the EMA
+        if not is_straggler:
+            self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
+        return is_straggler
+
+
 @dataclass
 class RestartPolicy:
-    """Bounded retry-with-backoff loop (the tune pool's per-task retries)."""
+    """Bounded retry-with-backoff loop: ``Trainer.run_resilient``
+    (restore-from-checkpoint) and the tune pool's per-task retries."""
 
     max_restarts: int = 3
     backoff_s: float = 0.0

@@ -24,10 +24,32 @@ the pointers' alignment alone, before any launch.
 expanded here to one offset per q row.  Each row then walks only the keys it
 can see.
 
-``flash_attention`` launches a kernel for CUDA tensors and takes
-``kernels.ref.attention`` for CPU tensors only.  ``LAUNCHES`` counts kernel
-launches (both kernels), ``PATHS`` the launches of each, and ``PLAIN`` the
-plain-version runs.
+Training (``flash_attention_fwd`` / ``flash_attention_bwd``, through
+``ops.attention``'s autograd function): the tensor-core kernel also writes
+each q row's log-sum-exp of its scaled scores (fp32, ``(BHq, Sq)``; ``+inf``
+for a row that sees no key) when it is given somewhere to put it, which only
+a forward under grad does.  K5-bwd is FlashAttention-2's backward in three
+kernels of ``csrc/flash_attention.cu`` (no TPU kernel: the reference trains
+on XLA's gradient of its plain version):
+
+* ``"delta"`` — ``flash_bwd_delta_kernel``: ``delta = rowsum(dO * O)`` in fp32;
+* ``"dkdv"`` — ``flash_bwd_dkdv_kernel``: a block per (KV head, 64 keys)
+  walks the q rows of its GQA group that see those keys, recomputes
+  ``P = exp(S scale - lse)`` and sums ``dV += P^T dO`` and
+  ``dK += scale dS^T Q`` with ``dS = P (dO V^T - delta)``;
+* ``"dq"`` — ``flash_bwd_dq_kernel``: a block per (q head, 64 rows) walks
+  its visible keys and sums ``dQ += scale dS K``.
+
+Each output element is summed by one block in a fixed order: no atomics, and
+the gradients are bit-identical run to run.  The products run on the CUDA
+cores (fp32 FMA from shared memory), bf16 in and out.
+
+``flash_attention`` and ``flash_attention_bwd`` launch kernels for CUDA
+tensors and take ``kernels.ref.attention`` / ``kernels.ref.attention_grad``
+for CPU tensors only.  ``LAUNCHES`` counts kernel launches (the forward's
+kernels under ``flash_attention``, a backward call of three kernels once
+under ``flash_attention_bwd``), ``PATHS`` the forward's launches of each
+kernel, ``BWD_PATHS`` the backward's, and ``PLAIN`` the plain-version runs.
 """
 from __future__ import annotations
 
@@ -40,9 +62,10 @@ from . import ref
 from .build import cuda_library
 from .runtime import arrival_counters, on_device, raw_stream, sm_count
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 PATHS = {"mma": 0, "decode": 0, "simt": 0}
-PLAIN = {"flash_attention": 0}
+BWD_PATHS = {"delta": 0, "dkdv": 0, "dq": 0}
+PLAIN = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _SIMT_ENTRIES = {torch.float32: "repro_flash_f32", torch.bfloat16: "repro_flash_bf16"}
 MAX_HEAD = 256      # csrc/flash_attention.cu: DMAX (flash_kernel)
@@ -125,9 +148,13 @@ def _mma_takes(dtype: torch.dtype, d: int, aligned: bool) -> bool:
 
 @functools.cache
 def _entry(kernel: str, dtype: torch.dtype):
-    if kernel == "mma":
+    if kernel == "mma":  # the lse pointer (null: not written) before the stream
         fn = cuda_library("flash_attention").repro_flash_mma_bf16
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    elif kernel == "bwd":  # q k v o do lse dq dk dv delta offs, off0 + 8 ints, scale
+        fn = cuda_library("flash_attention").repro_flash_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     elif kernel == "decode":  # no Sq; the chunk, the workspace and the counters
         fn = cuda_library("flash_attention").repro_flash_decode_bf16
@@ -169,14 +196,84 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return _launch(None, q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0):
+    """``(out, lse)``: the attention and each q row's log-sum-exp of its
+    scaled scores (fp32 ``(BHq, Sq)``, ``+inf`` where a row sees no key),
+    what the backward needs.  On the card only the tensor-core kernel writes
+    the log-sum-exp, so anything it does not take raises."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        PLAIN["flash_attention"] += 1
+        off = expand_offsets(q_offset, q.shape[0], q.device)
+        return (ref.attention(q, k, v, causal=causal, window=window, q_offset=off),
+                ref.attention_lse(q, k, causal=causal, window=window, q_offset=off))
+    if q.shape[1] < 2:
+        raise ValueError("flash_attention_fwd: the log-sum-exp comes from the tensor-core "
+                         f"kernel, which takes Sq > 1, not Sq = {q.shape[1]}")
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch("mma", q, k, v, causal=causal, window=window, q_offset=q_offset,
+                   lse=lse), lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True, window=None, q_offset=0):
+    """K5-bwd: ``(dq, dk, dv)`` of attention for the output gradient ``dout``,
+    given the forward's ``out`` and ``lse`` (``flash_attention_fwd``).  On the
+    card: bf16, ``D <= 128``, ``D % 8 == 0``, 16-byte aligned contiguous
+    tensors, ``Skv >= Sq``; anything else raises."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:2]:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        PLAIN["flash_attention_bwd"] += 1
+        off = expand_offsets(q_offset, q.shape[0], q.device)
+        return ref.attention_grad(q, k, v, dout, causal=causal, window=window, q_offset=off)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    dout = dout.contiguous()
+    tensors = (q, k, v, out, dout, lse)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_bwd: q, k, v, out and lse must be contiguous")
+    if not (q.dtype == out.dtype == dout.dtype == torch.bfloat16 and lse.dtype == torch.float32):
+        raise TypeError(f"flash_attention_bwd: the backward kernels take bf16 q, k, v, out and "
+                        f"dout and an fp32 lse, not {q.dtype}, {out.dtype}, {dout.dtype}, "
+                        f"{lse.dtype}")
+    if d > MMA_MAX_HEAD or d % 8 or not _aligned(q, k, v, out, dout):
+        raise ValueError(f"flash_attention_bwd: the backward kernels take D <= {MMA_MAX_HEAD}, "
+                         f"D % 8 == 0 and 16-byte aligned tensors, not D = {d}")
+    if skv < sq:
+        raise ValueError(f"flash_attention_bwd: Skv = {skv} < Sq = {sq}")
+    off = expand_offsets(q_offset, bhq, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    offs_ptr, off0 = (off.data_ptr(), 0) if isinstance(off, torch.Tensor) else (None, off)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            offs_ptr, off0, bhq, bhkv, sq, skv, d, int(bool(causal)), int(window is not None),
+            int(window or 0), float(1.0 / d ** 0.5)]
+    with on_device(q.device):
+        err = _entry("bwd", q.dtype)(*args, raw_stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed with CUDA error {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    for name in BWD_PATHS:
+        BWD_PATHS[name] += 1
+    return dq, dk, dv
+
+
 def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0,
-            chunk: int | None = None):
+            chunk: int | None = None, lse: torch.Tensor | None = None):
     """Launch the named kernel (``"mma"``, ``"decode"`` or ``"simt"``;
     ``None``: ``choose_kernel``'s pick) on CUDA tensors, or raise if it does
     not take them.  ``flash_attention`` goes through here with ``None``; the
     card tests and ``chip_smoke.py`` name a kernel to hold each against the
     plain version, and may name the decode kernel's ``chunk`` (None:
-    ``decode_chunk``'s pick)."""
+    ``decode_chunk``'s pick).  ``lse`` (fp32 ``(BHq, Sq)``; the tensor-core
+    kernel only) receives each row's log-sum-exp."""
     if kernel is not None and kernel not in PATHS:
         raise ValueError(f"flash_attention: no kernel {kernel!r}")
     _check(q, k, v)
@@ -198,6 +295,10 @@ def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0
     elif kernel == "decode" and (sq != 1 or group > DECODE_MAX_GROUP):
         raise ValueError(f"flash_attention: the decode kernel takes Sq == 1 and a group of at "
                          f"most {DECODE_MAX_GROUP}, not Sq = {sq}, group = {group}")
+    if lse is not None and (kernel != "mma" or lse.shape != (bhq, sq)
+                            or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: the {kernel} kernel writes no log-sum-exp, or lse "
+                         f"{tuple(lse.shape)} {lse.dtype} is not fp32 ({bhq}, {sq})")
     off = expand_offsets(q_offset, bhq, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -217,6 +318,8 @@ def _launch(kernel: str | None, q, k, v, *, causal=True, window=None, q_offset=0
         ws = torch.empty(max(1, -(-skv // chunk)) * bhkv * decode_rows(group) * (2 + MMA_MAX_HEAD),
                          dtype=torch.float32, device=q.device)
         args += [chunk, ws.data_ptr(), arrival_counters(q.device, bhkv).data_ptr()]
+    if kernel == "mma":
+        args.append(lse.data_ptr() if lse is not None else None)
     if kernel == "simt":
         # few blocks (decode: one per slot and KV head) get 16 warps each to
         # split the KV walk; many blocks get 4

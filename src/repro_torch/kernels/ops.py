@@ -8,7 +8,14 @@
 On CUDA tensors each launches its kernel or raises; on CPU tensors it takes
 the plain version of ``kernels.ref`` (attention switches to the chunked one
 above ``CHUNKED_ATTN_THRESHOLD`` score elements, as the reference's ``xla``
-path does).  The device decides: there is no ``backend=`` switch.  The models
+path does).  The device decides: there is no ``backend=`` switch.
+
+``rmsnorm`` and ``attention`` are differentiable.  On CUDA tensors, when grad
+is enabled and an input requires it, they go through a
+``torch.autograd.Function`` whose forward launches K4 / K5 (K5 also writing
+the log-sum-exp) and whose backward launches K4-bwd / K5-bwd; otherwise (the
+serving path) they launch the forward kernel alone, as before.  On CPU
+tensors autograd differentiates the plain versions.  The models
 keep their projections as ``x @ w`` on cuBLAS, as the reference computes them
 outside any Pallas kernel.
 
@@ -23,9 +30,9 @@ import torch
 
 from . import flash_attention as _fa
 from . import ref
+from . import rmsnorm as _rn
 from .gemm import gemm
 from .moe_gmm import grouped_matmul  # noqa: F401
-from .rmsnorm import rmsnorm  # noqa: F401
 
 
 def matmul(x, y, *, tile=None):
@@ -33,6 +40,53 @@ def matmul(x, y, *, tile=None):
     ``x.dtype``: K1 on the card, ``kernels.ref.matmul`` on the CPU.  ``tile``
     (a plan's TPU block shape) is accepted and ignored: K1's tiling is fixed."""
     return gemm(x, y)
+
+
+def _training(*ts) -> bool:
+    """CUDA tensors whose result autograd will differentiate."""
+    return (ts[0].device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in ts))
+
+
+class _RMSNorm(torch.autograd.Function):
+    """K4 forward, K4-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return _rn.rmsnorm(x, gamma, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = _rn.rmsnorm_bwd(x, gamma, dy.contiguous(), eps=ctx.eps)
+        return dx, dgamma, None
+
+
+def rmsnorm(x, gamma, *, eps=1e-6):
+    """K4 (``kernels.rmsnorm``), differentiable through K4-bwd on the card."""
+    if _training(x, gamma):
+        return _RMSNorm.apply(x.contiguous(), gamma, eps)
+    return _rn.rmsnorm(x, gamma, eps=eps)
+
+
+class _Attention(torch.autograd.Function):
+    """K5's tensor-core forward with the log-sum-exp, K5-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                           q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, dout, lse, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 # Above this many score elements (Sq*Skv) the CPU path switches to the
@@ -43,6 +97,8 @@ CHUNKED_ATTN_THRESHOLD = 1 << 22
 def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q (BHq, Sq, D), k/v (BHkv, Skv, D) -> (BHq, Sq, D); see
     ``kernels.flash_attention`` for ``q_offset``."""
+    if _training(q, k, v):
+        return _Attention.apply(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu" and q.shape[1] * k.shape[1] > CHUNKED_ATTN_THRESHOLD \
             and q.shape[1] > 1:
         _fa.PLAIN["flash_attention"] += 1

@@ -63,6 +63,24 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def attention_lse(q, k, *, causal=True, window=None, q_offset=0):
+    """Each q row's log-sum-exp of its scaled visible scores, fp32 ``(BHq,
+    Sq)``; ``+inf`` for a row that sees no key (the backward's P is then 0),
+    as the tensor-core kernel writes it."""
+    bhq, sq, d = q.shape
+    skv = k.shape[1]
+    k, _ = _repeat_kv(k, k, bhq)
+    lse = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)[None, None, :]
+    for q0 in range(0, sq, 512):  # a (BHq, 512, Skv) score tile at a time
+        rows = torch.arange(q0, min(sq, q0 + 512), device=q.device)
+        s = torch.einsum("bqd,bkd->bqk", q[:, q0:q0 + 512].float(), k.float()) / (d ** 0.5)
+        mask = _mask(_q_pos(q_offset, bhq, rows), k_pos, causal, window)
+        part = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+        lse[:, q0:q0 + 512] = torch.where(torch.isneginf(part), float("inf"), part)
+    return lse
+
+
 def attention_chunked(q, k, v, *, causal=True, window=None, q_offset=0,
                       block_q=512, block_k=1024):
     """Online-softmax attention over (block_q, block_k) tiles, so the live
@@ -156,3 +174,30 @@ def rmsnorm(x, gamma, *, eps=1e-6):
     xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+
+
+def rmsnorm_grad(x, gamma, dy, *, eps=1e-6):
+    """K4-bwd's plain version: ``torch.autograd.grad`` of ``rmsnorm`` at
+    ``(x, gamma)`` for the output gradient ``dy``; ``(dx, dgamma)`` in the
+    inputs' types."""
+    with torch.enable_grad():
+        xr, gr = x.detach().requires_grad_(), gamma.detach().requires_grad_()
+        dx, dg = torch.autograd.grad(rmsnorm(xr, gr, eps=eps), (xr, gr), dy)
+    return dx, dg
+
+
+def attention_grad(q, k, v, dout, *, causal=True, window=None, q_offset=0):
+    """K5-bwd's plain version: ``torch.autograd.grad`` of ``attention`` (or
+    of ``attention_chunked`` above ``CHUNKED_GRAD_ABOVE`` score elements) at
+    ``(q, k, v)`` for the output gradient ``dout``; ``(dq, dk, dv)`` in the
+    inputs' types."""
+    attend = attention_chunked if q.shape[1] * k.shape[1] > CHUNKED_GRAD_ABOVE else attention
+    with torch.enable_grad():
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attend(qr, kr, vr, causal=causal, window=window, q_offset=q_offset)
+        return torch.autograd.grad(out, (qr, kr, vr), dout)
+
+
+# above this many score elements (Sq * Skv) the gradient goes through the
+# chunked form, whose autograd graph holds (BHq, 512, 1024) tiles
+CHUNKED_GRAD_ABOVE = 1 << 22

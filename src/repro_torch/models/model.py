@@ -27,6 +27,14 @@ the caches, per-slot rope positions and K5 offsets come from the per-slot
 4096 positions is 3 GB); a recurrent layer's new state replaces its old one
 in the state's list.
 
+Remat: under grad, ``forward`` wraps each block in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` when
+``cfg.remat == "block"`` (the reference's ``jax.checkpoint`` per block), so
+the backward keeps each block's input and recomputes the rest; ``"none"``
+keeps everything.  ``"block_save_moe"`` and ``"layer"`` raise: they shape
+MoE and recurrent training, which is not ported yet.  Without grad (serving)
+nothing is wrapped.
+
 MoE capacity: ``forward`` and ``decode_step`` dispatch the ``B * s`` tokens
 of a call together with ``moe_capacity(cfg, B * s)``, as the reference does.
 The reference decodes slots one by one under ``vmap`` (T = 1, capacity 8:
@@ -51,6 +59,8 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -166,7 +176,11 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) ->
     check_family(cfg)
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = params["embed"][tokens]
+    # the same gather as indexing; its backward sums each row's gradients in
+    # fp32 in a fixed order, where indexing's sums them in the parameters'
+    # type with atomics (6.4e-2 relative L2 on MiniCPM-2B's bf16 embedding
+    # gradient against fp32, PERF.md)
+    x = F.embedding(tokens, params["embed"])
     n_front, memory = 0, None
     if cfg.frontend is not None and cfg.family == "vlm":
         emb = batch["embeds"].to(x.dtype)  # precomputed patch embeddings
@@ -177,9 +191,26 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) ->
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :].expand(b, -1)
     for l, blk in enumerate(decoder_layers(cfg, params)):
-        x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
+        if _remat(cfg, x, blk, memory):
+            x, _ = checkpoint(_apply_block, x, blk, cfg, l, positions, memory=memory,
+                              use_reentrant=False)
+        else:
+            x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
     logits = _logits(cfg, params, x)
     return logits[:, n_front:] if n_front else logits
+
+
+def _remat(cfg: ModelConfig, x, blk: Params, memory) -> bool:
+    """Whether ``forward`` checkpoints this block: ``cfg.remat == "block"``
+    and autograd will differentiate it."""
+    if cfg.remat not in ("block", "none"):
+        raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported (MoE and "
+                                  "recurrent training are later work)")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return False
+    leaves = [x, memory] + [t for v in blk.values()
+                            for t in (v.values() if isinstance(v, dict) else (v,))]
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)
 
 
 def encode(cfg: ModelConfig, params: Params, embeds: torch.Tensor) -> torch.Tensor:

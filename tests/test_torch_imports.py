@@ -28,7 +28,11 @@ def test_every_module_is_listed():
               "repro_torch.models.plain", "repro_torch.serve", "repro_torch.serve.engine",
               "repro_torch.core.search", "repro_torch.fault", "repro_torch.autotune",
               "repro_torch.tools.tune", "repro_torch.tools.explain",
-              "repro_torch.models.lowering"):
+              "repro_torch.models.lowering", "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.compression", "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.train", "repro_torch.train.checkpoint",
+              "repro_torch.train.train_loop", "repro_torch.train.fault",
+              "repro_torch.launch", "repro_torch.launch.train"):
         assert m in MODULES, m
     assert len(MODULES) >= 50
 
