@@ -172,7 +172,7 @@ Phases, in order (any failure exits nonzero):
    generate (a)'s tokens; ``compile_resilient`` under an injected
    ``daisy.compile`` fault on ``cuda`` degrades to ``torch`` and is recorded,
    and without it stays on ``cuda``;
-16. training, last: MiniCPM-2B (40 layers, every width, 2.72 B parameters)
+16. training: MiniCPM-2B (40 layers, every width, 2.72 B parameters)
    trains whole on the card through ``repro_torch.train.Trainer``, its
    forward on K4 and K5 (the tensor-core kernel, writing each row's
    log-sum-exp), its backward on K4-bwd and K5-bwd.  (a) K4-bwd in fp32 and
@@ -201,7 +201,35 @@ Phases, in order (any failure exits nonzero):
    ``run_resilient(5, fail_at=3)`` with checkpoints every two steps against
    an uninterrupted run, losses, parameters and moments bit-identical
    (under ``torch.use_deterministic_algorithms``), the checkpoint's size
-   and its save and restore seconds.
+   and its save and restore seconds;
+17. MoE and recurrent training, last: (a) K6-bwd (``grouped_matmul_bwd``,
+   the dx and dw kernels) at Mixtral 8x7B's gate/up and down widths for C
+   in {16, 40, 320, 2560}, Jamba's widths at E = 2, C = 2560 and E = 16, C =
+   320, and a ragged case: dx and dw within 1e-2 relative L2 per tensor of
+   fp32 autograd of ``ref.grouped_matmul`` on the same bf16 inputs,
+   bit-identical over two launches, timed (a call, a CUDA graph) beside the
+   bound, the plain version and ``torch.bmm`` on the transposed views; and
+   K5-bwd at SeamlessM4T's non-causal D = 64 shapes (the encoder, the
+   cross-attention); (b) gradient gates at 1 x 1024 tokens against the fp32
+   plain model with autograd, which takes the model's expert choices: a
+   2-layer Mixtral stage (every width, all 8 experts; two runs and
+   ``block_save_moe`` bit-identical to ``block``), Jamba-1.5-Large's first 2
+   layers with the MoE layer cut to 2 of 16 experts (these two held: loss
+   within 1e-2 relative, global gradient within 5e-2 relative L2),
+   xLSTM-350M whole in fp32 (the loss held; the global gradient measured
+   beside the plain model's own gradient under a 1e-6 relative perturbation
+   of its weights, since the model amplifies fp32 rounding past any fixed
+   limit; each of its first 8 layers alone held at 5e-2) and in bf16
+   (measured); (c) ``Trainer`` on the Mixtral stage,
+   six steps of 8 x 2048 tokens in two microbatches at 3e-5: two runs of the
+   first microbatch bit-identical, every step's K4 / K5 / K6 / K4-bwd /
+   K5-bwd / K6-bwd launches exactly what the model implies, no plain
+   version, the last loss below the first, host ms, one profiled step,
+   tokens/s, peak memory, model FLOP/s (6 N_active T); then three steps
+   each of the Jamba cut (1 x 2048) and xLSTM-350M in fp32 (4 x 256);
+   (d) xLSTM-350M whole: ``run_resilient(3, fail_at=2)`` with a checkpoint
+   in the reference's ``periods`` layout, bit-identical to an uninterrupted
+   run.
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -222,7 +250,8 @@ at a decode step, its self-attention decode step, LLaVA-NeXT's
 device beside SDPA (``F.rms_norm``) and its bound.
 
 Phase 16's K4-bwd and K5-bwd rows join the kernels' JSON line; their
-``launches`` are (c)'s six steps.
+``launches`` are phase 16 (c)'s six steps.  Phase 17's K6-bwd row joins
+it too; its ``launches`` are phase 17 (c)'s six Mixtral steps.
 
 Output: progress lines, then a JSON line with every kernel's numbers, the
 ``nvidia-smi`` line with the card's name and power limit, and last
@@ -2383,7 +2412,8 @@ def check_moe_layer(torch, cfg, params) -> dict:
 
 
 # device-time groups of a profiled window: kernel-name fragments of each group
-KERNEL_GROUPS = {"K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
+KERNEL_GROUPS = {"K6-bwd grouped_matmul_bwd": ("moe_gmm_dx", "moe_gmm_dw"),
+                 "K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
                  "K6 grouped_matmul decode": ("moe_gmm_decode",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
                  "K5 flash_attention": ("flash_kernel", "flash_mma_kernel", "flash_decode_kernel"),
@@ -3614,12 +3644,32 @@ def _named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def gradient_gate(torch, cfg) -> dict:
-    """(b): MiniCPM-2B whole, seeded, one batch of 1 x GATE_TOKENS tokens: the
-    bf16 model on K4/K5 and their backward kernels (block remat) against
-    ``models/plain.py``'s fp32 forward and autograd on the same parameters
-    (an fp32 copy; the bf16 parameters are freed before it runs)."""
+def gradient_gate(torch, cfg, *, phase: str = "16", hold=True, bitwise: tuple = (),
+                  layerwise: int = 0, perturb: float | None = None) -> dict:
+    """(b): the model, seeded, one batch of 1 x GATE_TOKENS tokens: on the
+    kernels (the config's dtype and remat) against ``models/plain.py``'s
+    fp32 forward and autograd on the same parameters (an fp32 copy; the
+    model's parameters are freed before it runs).  The plain forward takes
+    the model's expert choices (``routing``: a choice that differs from its
+    own fp32 top-k only by a near-tie within ``plain.ROUTER_MARGIN``), so
+    both sides keep and drop the same token-expert assignments: bf16 flips
+    about 1% of top-2 choices, and one flipped token would dominate a
+    gradient comparison.
+
+    ``hold``: True fails beyond the loss and the global gradient limits;
+    ``"loss"`` holds the loss only and measures the gradient; False holds
+    nothing.  ``bitwise`` names runs whose loss and gradients must equal the
+    first run's bit for bit: ``"again"`` (the same run once more) and
+    ``"block_save_moe"`` (that remat).  ``layerwise``: the first that many
+    layers alone, each on its input from the model's forward with a seeded
+    output gradient, their gradients (input and parameters) against
+    ``plain.layer``'s, held at the global gradient's limit unless ``hold`` is
+    False.  ``perturb``: the plain model's own gradient again with every
+    parameter scaled by 1 + ``perturb`` N(0, 1), the distance printed: what
+    a rounding-sized change of the weights does to the gradient."""
     from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
     from repro_torch.models import plain
     from repro_torch.optim.adamw import tree_unflatten
     from repro_torch.train import train_loop as T
@@ -3631,117 +3681,246 @@ def gradient_gate(torch, cfg) -> dict:
     raw = LMDataPipeline(DataConfig(seq_len=GATE_TOKENS, global_batch=1, vocab=cfg.vocab,
                                     seed=SEED)).batch_at(0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    routes, inputs, real_route, real_block = [], [], L.moe_route, M._apply_block
+
+    def recorded(x, router, k):
+        gates, experts = real_route(x, router, k)
+        routes.append(experts)
+        return gates, experts
+
+    forward_only = [False]
+
+    def kept_input(x, *args, **kw):
+        if forward_only[0] and len(inputs) < layerwise:
+            inputs.append(x.detach().clone())
+        return real_block(x, *args, **kw)
+
+    def run(c, record: bool = False):
+        """(loss, gradients); the forward's expert choices and layer inputs
+        recorded, not the remat's recompute."""
+        L.moe_route = recorded if record else real_route
+        M._apply_block = kept_input if record else real_block
+        forward_only[0] = record
+        try:
+            loss = T.loss_fn(c, params, batch)
+        finally:
+            L.moe_route, M._apply_block = real_route, real_block
+            forward_only[0] = False
+        return float(loss.detach()), torch.autograd.grad(loss, [t for _, t in named])
+
+    def rel(pairs) -> float:
+        num = den = 0.0
+        for got, want in pairs:
+            num += float((got.float() - want).norm()) ** 2
+            den += float(want.norm()) ** 2
+        return math.sqrt(num / max(den, 1e-60))
+
     t0 = time.perf_counter()
-    loss = T.loss_fn(cfg, params, batch)
-    grads = torch.autograd.grad(loss, [t for _, t in named])
-    loss = float(loss.detach())
+    loss, grads = run(cfg, record=True)
     torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
+    same = {}
+    for what in bitwise:
+        again, grads2 = run(cfg if what == "again" else replace(cfg, remat=what))
+        same[what] = again == loss and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+        del grads2
+    layer_errs = []
+    positions = torch.arange(GATE_TOKENS, dtype=torch.int32, device="cuda")[None]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for l, x in enumerate(inputs):
+        blk = params["layers"][l]
+        leaves = [t for _, t in _named_leaves(blk)]
+        x = x.requires_grad_()
+        out, _ = real_block(x, blk, cfg, l, positions)
+        dy = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        got = torch.autograd.grad(out, [x] + leaves, dy)
+        x32 = x.detach()[0].float().requires_grad_()
+        b32 = [t.detach().float().requires_grad_() for t in leaves]
+        want = torch.autograd.grad(plain.layer(cfg, tree_unflatten(blk, b32), l, x32),
+                                   [x32] + b32, dy[0].float())
+        layer_errs.append(rel(zip([got[0][0]] + list(got[1:]), want)))
+        del out, got, want, x32, b32
+    inputs.clear()
     p32 = [t.detach().float().requires_grad_() for _, t in named]
     tree32 = tree_unflatten(params, p32)  # the order _named_leaves walks
     names = [n for n, _ in named]
     del params, named
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    logits = plain.forward(cfg, tree32, batch["tokens"][0])
-    loss32 = T.cross_entropy(logits[None], batch["labels"])
-    del logits
-    grads32 = torch.autograd.grad(loss32, p32)
-    loss32 = float(loss32.detach())
+    stats: dict = {}
+
+    def plain_grads(leaves):
+        logits = plain.forward(cfg, tree_unflatten(tree32, leaves), batch["tokens"][0],
+                               routing=routes or None, stats=stats)
+        loss32 = T.cross_entropy(logits[None], batch["labels"])
+        del logits
+        return float(loss32.detach()), torch.autograd.grad(loss32, leaves)
+
+    loss32, grads32 = plain_grads(p32)
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
+    sensitivity = None
+    if perturb:
+        gp = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        moved = [(t.detach() * (1 + perturb * torch.randn(t.shape, generator=gp, device="cuda"))
+                  ).requires_grad_() for t in p32]
+        sensitivity = rel(zip(plain_grads(moved)[1], grads32))
+        del moved
     loss_err = abs(loss - loss32) / abs(loss32)
-    per = []
-    num = den = 0.0
-    for name, gk, g32 in zip(names, grads, grads32):
-        diff = float((gk.float() - g32).norm()) ** 2
-        ref_sq = float(g32.norm()) ** 2
-        num, den = num + diff, den + ref_sq
-        per.append((math.sqrt(diff / max(ref_sq, 1e-60)), name))
-    glob = math.sqrt(num / den)
+    per = [(rel([(gk, g32)]), name) for name, gk, g32 in zip(names, grads, grads32)]
+    glob = rel(zip(grads, grads32))
     worst = sorted(per, reverse=True)[:5]
-    log(f"  (b) gradient gate, {cfg.name} whole, 1 x {GATE_TOKENS} tokens: loss {loss:.6f} "
-        f"(bf16, kernels, remat {cfg.remat!r}) vs {loss32:.6f} (fp32 plain), relative "
-        f"{loss_err:.3e} (limit {TRAIN_LOSS_REL}); global gradient relative L2 {glob:.3e} "
-        f"(limit {TRAIN_GRAD_REL_L2}); worst tensors "
+    ties = (f"; routing: {len(routes)} MoE layers, {stats.get('near_ties', 0)} near-tie choices "
+            f"taken (largest gap {stats.get('max_tie_gap', 0.0):.4f})" if routes else "")
+    held = {True: "held", "loss": "the loss held, the gradient measured", False: "measured"}[hold]
+    log(f"  (b) gradient gate ({held}), {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}), 1 x "
+        f"{GATE_TOKENS} tokens: loss {loss:.6f} (kernels, remat {cfg.remat!r}) vs {loss32:.6f} "
+        f"(fp32 plain), relative {loss_err:.3e} (limit {TRAIN_LOSS_REL}); global gradient "
+        f"relative L2 {glob:.3e} (limit {TRAIN_GRAD_REL_L2}); worst tensors "
         + ", ".join(f"{n} {e:.3e}" for e, n in worst)
-        + f"; {t_kernels:.2f} s (kernels) and {t_plain:.2f} s (plain); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        + f"{ties}; bit-identical: {same or 'not asked'}; {t_kernels:.2f} s (kernels) and "
+        f"{t_plain:.2f} s (plain); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if layer_errs:
+        log(f"  (b) {cfg.name}, each of the first {len(layer_errs)} layers alone on its input, a "
+            "seeded output gradient: input and parameter gradients against plain.layer's, "
+            "relative L2 " + " ".join(f"{e:.2e}" for e in layer_errs)
+            + f"; max {max(layer_errs):.3e} (limit {TRAIN_GRAD_REL_L2})")
+    if sensitivity is not None:
+        log(f"  (b) {cfg.name}: the plain model's own gradient with every weight scaled by 1 + "
+            f"{perturb:g} N(0, 1) moves by {sensitivity:.3e} relative L2 (the kernels' distance "
+            f"{glob:.3e})")
     out = dict(loss=loss, loss_plain=loss32, loss_rel=loss_err, grad_rel_l2=glob,
-               worst_tensors=[(n, e) for e, n in worst])
-    del grads, p32, tree32, grads32
+               worst_tensors=[(n, e) for e, n in worst], bit_identical=same, held=held,
+               near_ties=stats.get("near_ties", 0), layer_grad_rel_l2=layer_errs,
+               perturbed_plain_rel_l2=sensitivity)
+    del grads, p32, tree32, grads32, routes
     gc.collect()
     torch.cuda.empty_cache()
-    if loss_err > TRAIN_LOSS_REL or not glob <= TRAIN_GRAD_REL_L2:
-        raise AssertionError(f"phase 16 (b): loss {loss_err:.3e} or gradient {glob:.3e} beyond "
-                             f"{TRAIN_LOSS_REL} / {TRAIN_GRAD_REL_L2}")
+    if hold and (loss_err > TRAIN_LOSS_REL
+                 or (hold is True and not glob <= TRAIN_GRAD_REL_L2)
+                 or not all(e <= TRAIN_GRAD_REL_L2 for e in layer_errs)):
+        raise AssertionError(f"phase {phase} (b) {cfg.name}: loss {loss_err:.3e}, gradient "
+                             f"{glob:.3e} or layers {layer_errs} beyond {TRAIN_LOSS_REL} / "
+                             f"{TRAIN_GRAD_REL_L2}")
+    if not all(same.values()):
+        raise AssertionError(f"phase {phase} (b) {cfg.name}: gradients not bit-identical: {same}")
     return out
 
 
-def train_counts(kr, kf) -> dict:
+def train_counts() -> dict:
+    """The model stack's launch and plain-version counters."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import rmsnorm as kr
+
     return {"K4": kr.LAUNCHES["rmsnorm"], "K4-bwd": kr.LAUNCHES["rmsnorm_bwd"],
             "K5": kf.LAUNCHES["flash_attention"], "K5-bwd": kf.LAUNCHES["flash_attention_bwd"],
+            "K6": km.LAUNCHES["grouped_matmul"], "K6-bwd": km.LAUNCHES["grouped_matmul_bwd"],
             "K5 kernels": dict(kf.PATHS), "K5-bwd kernels": dict(kf.BWD_PATHS),
             "plain": {"K4": kr.PLAIN["rmsnorm"], "K4-bwd": kr.PLAIN["rmsnorm_bwd"],
-                      "K5": kf.PLAIN["flash_attention"], "K5-bwd": kf.PLAIN["flash_attention_bwd"]}}
+                      "K5": kf.PLAIN["flash_attention"], "K5-bwd": kf.PLAIN["flash_attention_bwd"],
+                      "K6": km.PLAIN["grouped_matmul"], "K6-bwd": km.PLAIN["grouped_matmul_bwd"]}}
 
 
-def reset_train_counts(kr, kf) -> None:
-    for d in (kr.LAUNCHES, kr.PLAIN, kf.LAUNCHES, kf.PLAIN, kf.PATHS, kf.BWD_PATHS):
+def reset_train_counts() -> None:
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import rmsnorm as kr
+
+    for d in (kr.LAUNCHES, kr.PLAIN, kf.LAUNCHES, kf.PLAIN, kf.PATHS, kf.BWD_PATHS,
+              km.LAUNCHES, km.PLAIN, km.PATHS):
         for k in d:
             d[k] = 0
 
 
-def model_flops(cfg, tokens: int, seq: int) -> dict:
-    """A step's model operations: 6 N T (N every parameter, the tied head
-    included), attention's two products over the causal pairs forward and
-    2.5x that backward, and block remat's recompute (the blocks' forward
-    again) apart."""
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    block = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f + 2 * d
-    n = cfg.vocab * d + L * block + d
-    pairs = seq * (seq + 1) / 2 * h * (tokens // seq)
-    attn_fwd = 4.0 * pairs * hd * L
-    return dict(params=n, model=6.0 * n * tokens + 3.5 * attn_fwd,
-                recompute=2.0 * L * block * tokens + attn_fwd)
+def train_launches(cfg) -> dict:
+    """A microbatch's launches, as the model implies them: each block's
+    norms (two, one without an FFN) and the final norm on K4, each attention
+    layer on K5, each MoE layer's three expert products on K6, every one
+    again in block remat's recompute, and each once backward."""
+    n = cfg.n_layers
+    attn = sum(cfg.layer_kind(l) == "attn" for l in range(n))
+    moe = sum(cfg.layer_is_moe(l) for l in range(n))
+    norms = n * (2 if cfg.d_ff else 1)
+    again = 2 if cfg.remat != "none" else 1
+    return {"K4": norms * again + 1, "K4-bwd": norms + 1, "K5": attn * again, "K5-bwd": attn,
+            "K6": 3 * moe * again, "K6-bwd": 3 * moe}
+
+
+def model_flops(cfg, params, tokens: int, seq: int) -> dict:
+    """A step's model operations: 6 N T (N every parameter a token meets: an
+    MoE layer's experts at top_k of n_experts, the tied head included),
+    attention's two products over the causal pairs forward and 2.5x that
+    backward, and block remat's recompute (the blocks' forward again) apart.
+    The Mamba and xLSTM scans' elementwise work is not counted."""
+    named = _named_leaves(params)
+
+    def active(name, t):
+        expert = cfg.n_experts and ".ffn.w" in name and t.dim() == 3
+        return t.numel() * (cfg.top_k / cfg.n_experts if expert else 1)
+
+    n = sum(active(nm, t) for nm, t in named)
+    block = sum(active(nm, t) for nm, t in named if nm.startswith("layers."))
+    attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers))
+    pairs = seq * (seq + 1) / 2 * cfg.n_heads * (tokens // seq)
+    attn_fwd = 4.0 * pairs * cfg.head_dim * attn
+    return dict(params=sum(t.numel() for _, t in named), active_params=n,
+                model=6.0 * n * tokens + 3.5 * attn_fwd,
+                recompute=2.0 * block * tokens + attn_fwd)
 
 
 def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
-                 measure: bool = True) -> dict:
-    """(c): ``Trainer`` on MiniCPM-2B whole, TRAIN_STEPS steps of TRAIN_BATCH x
-    TRAIN_SEQ tokens in TRAIN_ACCUM microbatches, WSD from ``lr`` with one
-    warm-up step; every step's launches checked against the counts the model
-    implies, no plain version run, losses finite and no step skipped, its
-    host ms; with ``measure``, one step profiled for device ms and the idle
-    share, and ``explain_kernels()``."""
+                 measure: bool = True, *, phase: str = "16", steps: int = TRAIN_STEPS,
+                 seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, accum: int = TRAIN_ACCUM,
+                 repeat: bool = False) -> dict:
+    """(c): ``Trainer`` on ``cfg``, ``steps`` steps of ``batch`` x ``seq``
+    tokens in ``accum`` microbatches, WSD from ``lr`` with one warm-up step;
+    every step's launches checked against the counts the model implies
+    (``train_launches``), no plain version run, losses finite and no step
+    skipped, its host ms and the peak memory; with ``repeat``, first the
+    gradients of the first microbatch twice, bit-identical; with
+    ``measure``, one step profiled for device ms and the idle share, and
+    ``explain_kernels()``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.kernels import rmsnorm as kr
     from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import train_loop as T
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = Trainer(cfg, AdamWConfig(schedule="wsd", lr=lr, total_steps=TRAIN_STEPS,
-                                  warmup_steps=1),
-                 DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab,
-                            seed=SEED),
-                 TrainerConfig(ckpt_dir=str(tmp / "c"), accum_steps=TRAIN_ACCUM, ckpt_every=100),
+    tr = Trainer(cfg, AdamWConfig(schedule="wsd", lr=lr, total_steps=steps, warmup_steps=1),
+                 DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab, seed=SEED),
+                 TrainerConfig(ckpt_dir=str(tmp / "c"), accum_steps=accum, ckpt_every=100),
                  seed=SEED)
     torch.cuda.synchronize()
-    log(f"  (c) Trainer built in {time.perf_counter() - t0:.1f} s: "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (bf16 parameters, fp32 moments)")
-    L = cfg.n_layers
-    per_mb = {"K4": 4 * L + 1, "K4-bwd": 2 * L + 1, "K5": 2 * L, "K5-bwd": L}
-    want = {k: n * TRAIN_ACCUM for k, n in per_mb.items()}
-    reset_train_counts(kr, kf)
-    steps, total = [], {k: 0 for k in want}
+    log(f"  (c) Trainer on {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) built in "
+        f"{time.perf_counter() - t0:.1f} s: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "(parameters, fp32 moments)")
+    if repeat:
+        micro = {k: torch.from_numpy(v[:batch // accum]).cuda()
+                 for k, v in tr.data.batch_at(0).items()}
+        runs = []
+        for _ in range(2):
+            loss = T.loss_fn(cfg, tr.params, micro)
+            runs.append((loss.detach(), torch.autograd.grad(loss, tree_leaves(tr.params))))
+        same = torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        del runs, loss
+        torch.cuda.empty_cache()
+        log(f"  (c) two runs of step 1's first microbatch ({batch // accum} x {seq} tokens): "
+            f"loss and every gradient {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"phase {phase} (c) {cfg.name}: two runs of one microbatch gave "
+                                 "other gradients")
+    want = {k: n * accum for k, n in train_launches(cfg).items()}
+    reset_train_counts()
+    records, total = [], {k: 0 for k in want}
     profiled = 3 if measure else -1
-    for s in range(TRAIN_STEPS):
-        before = train_counts(kr, kf)
+    for s in range(steps):
+        before = train_counts()
         if s == profiled:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t_p = time.perf_counter()
@@ -3751,54 +3930,60 @@ def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
         else:
             tr.run(1)
         torch.cuda.synchronize()
-        after = train_counts(kr, kf)
+        after = train_counts()
         moved = {k: after[k] - before[k] for k in want}
         if moved != want:
-            raise AssertionError(f"phase 16 (c) step {s + 1}: launches {moved}, the model "
-                                 f"implies {want}")
+            raise AssertionError(f"phase {phase} (c) {cfg.name} step {s + 1}: launches {moved}, "
+                                 f"the model implies {want}")
         for k in want:
             total[k] += moved[k]
         rec = dict(tr.history[-1])
-        steps.append(rec)
+        records.append(rec)
         log(f"  (c) step {rec['step']}: loss {rec['loss']:.4f}, lr {rec['lr']:.3e}, "
             f"{rec['dt'] * 1e3:.1f} host ms, launches {moved}")
-    counts = train_counts(kr, kf)
+    counts = train_counts()
     if any(counts["plain"].values()):
-        raise AssertionError(f"phase 16 (c): a plain version ran on the card: {counts['plain']}")
-    if set(k for k, n in counts["K5 kernels"].items() if n) != {"mma"}:
-        raise AssertionError(f"phase 16 (c): K5 launched {counts['K5 kernels']}, want mma only")
-    losses = [r["loss"] for r in steps]
-    if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in steps):
-        raise AssertionError(f"phase 16 (c): losses {losses}")
+        raise AssertionError(f"phase {phase} (c): a plain version ran on the card: "
+                             f"{counts['plain']}")
+    if set(k for k, n in counts["K5 kernels"].items() if n) - {"mma"}:
+        raise AssertionError(f"phase {phase} (c): K5 launched {counts['K5 kernels']}, want mma "
+                             "only")
+    losses = [r["loss"] for r in records]
+    if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in records):
+        raise AssertionError(f"phase {phase} (c) {cfg.name}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    host_ms = [r["dt"] * 1e3 for r in records]
     if not measure:
-        log(f"  (c) lr {lr:g}: losses {' '.join(f'{x:.4f}' for x in losses)}")
+        log(f"  (c) {cfg.name} at lr {lr:g}: losses {' '.join(f'{x:.4f}' for x in losses)}; host "
+            f"ms a step {' '.join(f'{x:.0f}' for x in host_ms)}; peak memory {peak:.2f} GB")
         del tr
         gc.collect()
         torch.cuda.empty_cache()
-        return dict(lr=lr, losses=losses, launches=total)
+        return dict(lr=lr, losses=losses, launches=total, host_ms=host_ms, peak_memory_gb=peak,
+                    tokens_per_step=seq * batch)
     per_group, group_launches, n_ops = device_groups(torch, prof, 1)
     device_ms = sum(per_group.values())
-    tokens = TRAIN_SEQ * TRAIN_BATCH
-    host_ms = sorted(r["dt"] * 1e3 for r in steps[1:])
-    med_ms = host_ms[len(host_ms) // 2]
-    fl = model_flops(cfg, tokens, TRAIN_SEQ)
+    tokens = seq * batch
+    med_ms = sorted(host_ms[1:])[len(host_ms[1:]) // 2]
+    fl = model_flops(cfg, tr.params, tokens, seq)
     out = dict(
-        lr=lr, losses=losses, host_ms=[r["dt"] * 1e3 for r in steps], median_host_ms=med_ms,
+        lr=lr, losses=losses, host_ms=host_ms, median_host_ms=med_ms,
         profiled_step=profiled + 1, profiled_host_ms=t_p * 1e3, device_ms=device_ms,
         device_ms_by_group=per_group, launches_by_group=group_launches, device_ops=n_ops,
         idle_share=1 - device_ms / (t_p * 1e3), tokens_per_s=tokens / (med_ms / 1e3),
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, params=fl["params"],
+        peak_memory_gb=peak, params=fl["params"], active_params=fl["active_params"],
         model_flops=fl["model"], recompute_flops=fl["recompute"],
         model_flops_share=fl["model"] / (med_ms / 1e3) / PEAK_BF16,
         with_recompute_share=(fl["model"] + fl["recompute"]) / (med_ms / 1e3) / PEAK_BF16,
         launches=total, launches_per_step=want, card=smi)
-    log(f"  (c) {TRAIN_STEPS} steps, losses {' '.join(f'{x:.4f}' for x in losses)}; median host "
-        f"{med_ms:.1f} ms a step (steps 2-{TRAIN_STEPS}), {out['tokens_per_s']:.0f} tokens/s; "
+    log(f"  (c) {cfg.name}: {steps} steps, losses {' '.join(f'{x:.4f}' for x in losses)}; median "
+        f"host {med_ms:.1f} ms a step (steps 2-{steps}), {out['tokens_per_s']:.0f} tokens/s; "
         f"step {profiled + 1} profiled: {t_p * 1e3:.1f} host ms, {device_ms:.1f} device ms "
         f"(idle {out['idle_share']:.1%}), by group "
         + ", ".join(f"{k} {v:.1f} ms ({group_launches[k]:.0f})" for k, v in per_group.items())
-        + f"; peak memory {out['peak_memory_gb']:.2f} GB; {fl['params'] / 1e9:.3f} B parameters, "
-        f"model FLOP/s {out['model_flops_share']:.1%} of 989 TFLOP/s (6NT + attention; "
+        + f"; peak memory {peak:.2f} GB; {fl['params'] / 1e9:.3f} B parameters "
+        f"({fl['active_params'] / 1e9:.3f} B a token), model FLOP/s "
+        f"{out['model_flops_share']:.1%} of 989 TFLOP/s (6NT + attention; "
         f"{out['with_recompute_share']:.1%} with remat's recompute) ({smi})")
     log("  (c) Trainer.explain_kernels():")
     for line in tr.explain_kernels().splitlines():
@@ -3809,24 +3994,31 @@ def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
     return out
 
 
-def resilience_path(torch, cfg, tmp: Path) -> dict:
-    """(d): RESILIENT_LAYERS of MiniCPM-2B's layers at full width: a run with
-    checkpoints every 2 steps that fails at step 3 and restores, against an
-    uninterrupted run of as many steps: losses and final parameters and
-    moments bit-identical.  Should the run differ in torch's default mode,
-    it is repeated under ``torch.use_deterministic_algorithms`` (this check
-    only), with the ops torch flags printed, and must be bit-identical
-    there."""
+def resilience_path(torch, cfg, tmp: Path, *, phase: str = "16",
+                    layers: int | None = RESILIENT_LAYERS, steps: int = 5, fail_at: int = 3,
+                    every: int = 2, seq: int = TRAIN_SEQ, batch: int = 4) -> dict:
+    """(d): ``layers`` of the model's layers (None: all) at full width: a run
+    with checkpoints every ``every`` steps that fails at step ``fail_at`` and
+    restores, against an uninterrupted run of ``steps`` steps: losses and
+    final parameters and moments bit-identical.  A ``hybrid`` or ``ssm``
+    model's checkpoint must hold the reference's ``periods`` layout.  Should
+    the run differ in torch's default mode, it is repeated under
+    ``torch.use_deterministic_algorithms`` (this check only), with the ops
+    torch flags printed, and must be bit-identical there."""
     import warnings
 
+    import numpy as np
+
     from repro_torch.data import DataConfig
+    from repro_torch.models import model as M
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import Trainer, TrainerConfig
 
-    c4 = replace(cfg, n_layers=RESILIENT_LAYERS)
-    ocfg = AdamWConfig(schedule="wsd", lr=3e-4, total_steps=5, warmup_steps=1)
-    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=4, vocab=cfg.vocab, seed=SEED + 16)
+    c4 = replace(cfg, n_layers=layers) if layers else cfg
+    ocfg = AdamWConfig(schedule="wsd", lr=3e-4, total_steps=steps, warmup_steps=1)
+    dcfg = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab, seed=SEED + int(phase))
+    restored_at = fail_at // every * every
 
     def attempt(tag: str) -> dict:
         timed = {}
@@ -3842,30 +4034,39 @@ def resilience_path(torch, cfg, tmp: Path) -> dict:
 
         plain_run = Trainer(c4, ocfg, dcfg, TrainerConfig(ckpt_dir=str(tmp / f"{tag}0"),
                                                           ckpt_every=100), seed=SEED)
-        plain_run.run(5)
-        tr = Trainer(c4, ocfg, dcfg, TrainerConfig(ckpt_dir=str(tmp / f"{tag}1"), ckpt_every=2),
-                     seed=SEED)
+        plain_run.run(steps)
+        tr = Trainer(c4, ocfg, dcfg, TrainerConfig(ckpt_dir=str(tmp / f"{tag}1"),
+                                                   ckpt_every=every), seed=SEED)
         tr.save, tr.try_restore = timing("save", tr.save), timing("restore", tr.try_restore)
-        tr.run_resilient(5, fail_at=3)
+        tr.run_resilient(steps, fail_at=fail_at)
         torch.cuda.synchronize()
         want = [r["loss"] for r in plain_run.history]
         got = [r["loss"] for r in tr.history]
-        same = (got[:3] == want[:3] and got[3:] == want[2:]
+        same = (got[:fail_at] == want[:fail_at] and got[fail_at:] == want[restored_at:]
                 and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.params),
                                                           tree_leaves(plain_run.params)))
                 and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.opt_state),
                                                           tree_leaves(plain_run.opt_state))))
-        size = sum(f.stat().st_size for f in tr.ckpt._step_dir(2).iterdir())
-        log(f"  (d) {tag}: {RESILIENT_LAYERS} of {cfg.n_layers} layers, full width: "
-            f"run_resilient(5, fail_at=3) with checkpoints every 2 steps, losses "
-            f"{' '.join(f'{x:.6f}' for x in got)} (restored at step 2, steps 3-5 again); "
+        saved = tr.ckpt._step_dir(restored_at)
+        size = sum(f.stat().st_size for f in saved.iterdir())
+        with np.load(saved / "proc_0.npz") as z:
+            keys = list(z.files)
+        periods = sum("['params']/['periods']/[" in k for k in keys)
+        if M.layer_period(c4) and (not periods or any("['layers']" in k for k in keys)):
+            raise AssertionError(f"phase {phase} (d): the checkpoint of {c4.name} does not hold "
+                                 f"the periods layout: {keys[:6]}")
+        log(f"  (d) {tag}: {c4.n_layers} of {cfg.n_layers} layers of {cfg.name} ({cfg.dtype}), "
+            f"full width: run_resilient({steps}, fail_at={fail_at}) with checkpoints every "
+            f"{every} steps, losses {' '.join(f'{x:.6f}' for x in got)} (restored at step "
+            f"{restored_at}, steps {restored_at + 1}-{steps} again); "
             f"uninterrupted {' '.join(f'{x:.6f}' for x in want)}; losses, parameters and "
             f"moments {'bit-identical' if same else 'DIFFER'}; checkpoint {size / 1e9:.2f} GB, "
             f"save {timed.get('save', float('nan')):.2f} s, restore "
-            f"{timed.get('restore', float('nan')):.2f} s")
+            f"{timed.get('restore', float('nan')):.2f} s; {len(keys)} arrays, {periods} of them "
+            "under ['params']/['periods']")
         out = dict(losses=got, uninterrupted=want, bit_identical=same,
                    checkpoint_gb=size / 1e9, save_s=timed.get("save"),
-                   restore_s=timed.get("restore"))
+                   restore_s=timed.get("restore"), period_arrays=periods)
         del tr, plain_run
         gc.collect()
         torch.cuda.empty_cache()
@@ -3886,7 +4087,7 @@ def resilience_path(torch, cfg, tmp: Path) -> dict:
         log(f"  (d) ops torch flags as without a deterministic implementation: "
             f"{out['flagged'] or 'none'}")
     if not out["bit_identical"]:
-        raise AssertionError(f"phase 16 (d): the resumed run differs: {out['losses']} vs "
+        raise AssertionError(f"phase {phase} (d): the resumed run differs: {out['losses']} vs "
                              f"{out['uninterrupted']}")
     return out
 
@@ -3918,6 +4119,217 @@ def training_phase(torch, smi: str) -> dict:
                              f"{learn['losses']}")
     log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
     return dict(rows=rows, gate=gate, train=train, learn=learn, resilient=resilient)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: MoE and recurrent training.  K6-bwd (``grouped_matmul_bwd``: the
+# dx and dw kernels in csrc/moe_gmm.cu) joins K4-bwd and K5-bwd.  Mixtral
+# 8x7B (arXiv:2401.04088) trains a 2-layer stage at every width with all 8
+# experts, top-2 (3.16 B parameters: at the trainer's 16 bytes a parameter,
+# bf16 weights and gradients, the fp32 gradient sum and fp32 AdamW moments,
+# 51 GB; 3 layers' 4.62 B would be 74 GB before activations).  Jamba-1.5-
+# Large's first 2 layers (attention with a dense FFN; Mamba with MoE) at
+# every width, its MoE layer cut from 16 experts to 2 (top-2 kept; 3.46 B
+# parameters: one layer's 16 experts are 9.66 B, 155 GB of training state).
+# xLSTM-350M whole (24 layers), in fp32 as phase 14 holds it.
+# ---------------------------------------------------------------------------
+MOE_TRAIN_LAYERS = 2
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_EXPERTS = 2, 2
+# K6-bwd's shapes (label, E, C, D, F): Mixtral's gate/up and down at the
+# capacities of a 16-slot step (16), a 128-token bucket (40), the 1 x 1024
+# gate (320) and an 8,192-token microbatch (2560); Jamba's widths at the
+# cut's 2,048-token step (E 2, C 2560) and at 16 experts (C 320); a ragged case
+K6_BWD_SHAPES = ([(f"Mixtral gate/up C {c}", 8, c, 4096, 14336) for c in (16, 40, 320, 2560)]
+                 + [(f"Mixtral down C {c}", 8, c, 14336, 4096) for c in (16, 40, 320, 2560)]
+                 + [("Jamba gate/up E 2 C 2560", 2, 2560, 8192, 24576),
+                    ("Jamba gate/up E 16 C 320", 16, 320, 8192, 24576),
+                    ("ragged", 3, 37, 40, 72)])
+K6_BWD_MAIN = "Mixtral gate/up C 2560"  # the row the kernels line reports first
+# K5-bwd at Seamless's non-causal D = 64: (label, BHq, BHkv, Sq, Skv, D)
+SEAMLESS_K5_BWD = [("Seamless encoder", 16, 16, 4096, 4096, 64),
+                   ("Seamless cross-attention", 16, 16, 2048, 4096, 64)]
+# (b) xLSTM-350M amplifies fp32 rounding through its 24 layers and 1,024
+# positions: on an H100 its fp32 gradient lay 0.35-0.56 relative L2 from
+# the plain model's while the loss agreed to 2e-6, and scaling every weight
+# of the plain model by 1 + 1e-6 N(0, 1) moved its own gradient 0.56
+# (PERF.md).  So the whole model's gradient is measured beside that
+# perturbation, and held one layer at a time over the first period (7
+# mLSTM layers, 1 sLSTM), where the two agree to about 2e-6
+XLSTM_LAYERWISE, XLSTM_PERTURB = 8, 1e-6
+# (c)'s other models: a few steps each, one microbatch (the Jamba cut's
+# Mamba chunk graph is 6.4 GB at 2,048 tokens beside 41 GB of training
+# state); xLSTM's sLSTM loop launches 13 kernels a token and layer forward,
+# so its steps (and (d)'s) are 256 tokens long
+FAMILY_STEPS = 3
+JAMBA_TRAIN_SEQ, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH = 2048, 256, 4
+
+
+def check_gmm_bwd(torch, smi: str) -> dict:
+    """(a) K6-bwd against its plain version: at K6_BWD_SHAPES, dx and dw
+    within BF16_GRAD_REL_L2 relative L2 per tensor of fp32 autograd of
+    ``ref.grouped_matmul`` on the same bf16 inputs (one expert at a time),
+    bit-identical over two launches; each timed (a call, a CUDA graph)
+    beside its bound (both products' operations at 989 TFLOP/s, or x, w and
+    dy read and dx and dw written once at 3.35 TB/s), the plain version
+    (``ref.grouped_matmul_grad``) and ``torch.bmm`` on the transposed
+    views."""
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    rows, worst, worst_abs = [], 0.0, 0.0
+    for label, e, c, d, f in K6_BWD_SHAPES:
+        x = torch.randn(e, c, d, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5).bfloat16()
+        dy = torch.randn(e, c, f, generator=g, device="cuda").bfloat16()
+        dx, dw = km.grouped_matmul_bwd(x, w, dy)
+        dx2, dw2 = km.grouped_matmul_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"K6-bwd {label}: two launches differ")
+        del dx2, dw2
+        num, den = [0.0, 0.0], [0.0, 0.0]
+        for i in range(e):
+            xr = x[i:i + 1].float().requires_grad_()
+            wr = w[i:i + 1].float().requires_grad_()
+            want = torch.autograd.grad(ref.grouped_matmul(xr, wr), (xr, wr), dy[i:i + 1].float())
+            for j, (got, wnt) in enumerate(zip((dx[i:i + 1], dw[i:i + 1]), want)):
+                diff = got.float() - wnt
+                num[j] += float(diff.norm()) ** 2
+                den[j] += float(wnt.norm()) ** 2
+                worst_abs = max(worst_abs, float(diff.abs().max()))
+            del xr, wr, want
+        errs = [math.sqrt(a / max(b, 1e-60)) for a, b in zip(num, den)]
+        worst = max(worst, *errs)
+        if max(errs) > BF16_GRAD_REL_L2:
+            raise AssertionError(f"K6-bwd {label}: relative L2 dx {errs[0]:.3e}, dw {errs[1]:.3e} "
+                                 f"> {BF16_GRAD_REL_L2}")
+        del dx, dw
+        torch.cuda.empty_cache()
+        t = bwd_timing(torch, lambda: km.grouped_matmul_bwd(x, w, dy),
+                       lambda: ref.grouped_matmul_grad(x, w, dy),
+                       lambda: (torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2), dy)))
+        flops = 4.0 * e * c * d * f
+        t_ops = flops / PEAK_BF16 * 1e3
+        t_bytes = 2.0 * (2 * e * c * d + 2 * e * d * f + e * c * f) / PEAK_BYTES * 1e3
+        row = dict(shape=f"{label}: x ({e}, {c}, {d}), w ({e}, {d}, {f}), dy ({e}, {c}, {f}) bf16",
+                   rel_l2=dict(dx=errs[0], dw=errs[1]), bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   graph_tflops=flops / t["graph_ms"] / 1e9, **t)
+        log(f"  K6-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f} "
+            f"({row['graph_tflops']:.0f} TFLOP/s); bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"plain {t['plain_ms']:.4f}; torch.bmm x2 {fmt_ms(t['library_ms'])}; relative L2 "
+            f"dx/dw {errs[0]:.2e}/{errs[1]:.2e} ({smi})")
+        rows.append(row)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    log(f"  K6-bwd at {len(rows)} shapes: within {BF16_GRAD_REL_L2} relative L2 of fp32 autograd "
+        f"(worst {worst:.3e}), bit-identical over two launches")
+    main = next(r for r in rows if r["shape"].startswith(K6_BWD_MAIN + ":"))
+    return dict(name="grouped_matmul_bwd", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+                replaces="src/repro/kernels/moe_gmm.py:61 (its gradient: the TPU kernel has none, "
+                         "the reference trains on XLA's gradient of kernels/ref.py)",
+                max_abs_err=worst_abs, max_rel_l2=worst, **main,
+                other_shapes=[r for r in rows if r is not main])
+
+
+def check_flash_bwd_seamless(torch, smi: str) -> list:
+    """(a) K5-bwd at SeamlessM4T's non-causal D = 64 shapes against its plain
+    version (fp32 autograd of ``ref.attention``'s chunked form), bit-identical
+    over two launches, timed beside its bound, the plain version and SDPA's
+    backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    for label, bhq, bhkv, sq, skv, d in SEAMLESS_K5_BWD:
+        q = torch.randn(bhq, sq, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(bhkv, skv, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        do = torch.randn(bhq, sq, d, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=False, window=None, q_offset=0)
+        out, lse = kf.flash_attention_fwd(q, k, v, **kw)
+        got = kf.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        again = kf.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        torch.cuda.synchronize()
+        want = ref.attention_grad(q.float(), k.float(), v.float(), do.float(), **kw)
+        errs = []
+        for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K5-bwd {label}: {name} differs over two launches")
+            errs.append(float((a.float() - w).norm() / w.norm().clamp_min(1e-30)))
+            if errs[-1] > BF16_GRAD_REL_L2:
+                raise AssertionError(f"K5-bwd {label} {name}: relative L2 {errs[-1]:.3e} > "
+                                     f"{BF16_GRAD_REL_L2}")
+        del got, again, want
+        ql = q.view(1, bhq, sq, d).clone().requires_grad_()
+        kl = k.view(1, bhkv, skv, d).clone().requires_grad_()
+        vl = v.view(1, bhkv, skv, d).clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        dol = do.view(1, bhq, sq, d)
+        t = bwd_timing(
+            torch, lambda: kf.flash_attention_bwd(q, k, v, out, do, lse, **kw),
+            lambda: ref.attention_grad(q, k, v, do, **kw),
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dol, retain_graph=True))
+        t_ops, t_bytes = _attn_bound(torch, q, k, 0, False, None)
+        t_ops *= 2.5
+        t_bytes *= 2.0
+        row = dict(shape=f"{label}: q ({bhq}, {sq}, {d}), kv ({bhkv}, {skv}, {d}), non-causal",
+                   rel_l2=dict(zip(("dq", "dk", "dv"), errs)), bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes", **t)
+        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; SDPA "
+            f"backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
+            + "/".join(f"{e:.2e}" for e in errs) + f" ({smi})")
+        rows.append(row)
+        del q, k, v, do, out, lse, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_training_phase(torch, smi: str) -> dict:
+    """Phase 17 (a)-(d): K6-bwd's row and the training numbers.  Temporary
+    checkpoints go under the system's temporary directory and are removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    log("  (a) K6-bwd against its plain version; K5-bwd at Seamless's non-causal D = 64")
+    row = check_gmm_bwd(torch, smi)
+    seamless = check_flash_bwd_seamless(torch, smi)
+    mcfg = replace(get_config(MIXTRAL), n_layers=MOE_TRAIN_LAYERS)
+    jcfg = replace(get_config(JAMBA), n_layers=JAMBA_TRAIN_LAYERS, n_experts=JAMBA_TRAIN_EXPERTS)
+    xcfg = replace(get_config(XLSTM), dtype="float32")
+    log("  (b) gradient gates: Mixtral's stage (block and block_save_moe, twice), the Jamba cut, "
+        "xLSTM-350M in fp32 (the loss and each layer alone held) and bf16 (measured)")
+    gates = {"mixtral": gradient_gate(torch, mcfg, phase="17", bitwise=("again", "block_save_moe")),
+             "jamba": gradient_gate(torch, jcfg, phase="17"),
+             "xlstm_fp32": gradient_gate(torch, xcfg, phase="17", hold="loss",
+                                         layerwise=XLSTM_LAYERWISE, perturb=XLSTM_PERTURB),
+             "xlstm_bf16": gradient_gate(torch, get_config(XLSTM), phase="17", hold=False)}
+    tmp = Path(tempfile.mkdtemp(prefix="repro_train17_"))
+    try:
+        train = trainer_path(torch, smi, mcfg, tmp, lr=LEARN_LR, phase="17", repeat=True)
+        families = {
+            "jamba": trainer_path(torch, smi, jcfg, tmp, lr=LEARN_LR, measure=False, phase="17",
+                                  steps=FAMILY_STEPS, seq=JAMBA_TRAIN_SEQ, batch=1, accum=1),
+            "xlstm": trainer_path(torch, smi, xcfg, tmp, lr=LEARN_LR, measure=False, phase="17",
+                                  steps=FAMILY_STEPS, seq=XLSTM_TRAIN_SEQ,
+                                  batch=XLSTM_TRAIN_BATCH, accum=1)}
+        resilient = resilience_path(torch, xcfg, tmp, phase="17", layers=None, steps=3,
+                                    fail_at=2, every=2, seq=XLSTM_TRAIN_SEQ, batch=2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not train["losses"][-1] < train["losses"][0]:
+        raise AssertionError(f"phase 17 (c): at lr {LEARN_LR:g} the loss did not fall: "
+                             f"{train['losses']}")
+    log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return dict(row=row, seamless=seamless, gates=gates, train=train, families=families,
+                resilient=resilient)
 
 
 class PrefillPaths:
@@ -4333,6 +4745,19 @@ def main(argv: list[str] | None = None) -> int:
     results["flash_attention_bwd"]["phase_16"] = {k: v for k, v in training.items()
                                                   if k != "rows"}
 
+    log(f"phase 17: MoE and recurrent training: K6-bwd; {MIXTRAL} cut to {MOE_TRAIN_LAYERS} of "
+        f"32 layers (every width, all 8 experts) through Trainer; the {JAMBA} cut and {XLSTM}")
+    moe_training = moe_training_phase(torch, smi)
+    results["grouped_matmul_bwd"] = moe_training["row"]
+    trained = moe_training["train"]["launches"]
+    launches["grouped_matmul_bwd"] = trained["K6-bwd"]
+    for key, name in (("rmsnorm", "K4"), ("flash_attention", "K5"), ("grouped_matmul", "K6"),
+                      ("rmsnorm_bwd", "K4-bwd"), ("flash_attention_bwd", "K5-bwd")):
+        results[key]["launches_phase_17"] = trained[name]
+    results["flash_attention_bwd"]["seamless_shapes"] = moe_training["seamless"]
+    results["grouped_matmul_bwd"]["phase_17"] = {k: v for k, v in moe_training.items()
+                                                 if k not in ("row", "seamless")}
+
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]
                                           + k5_paths["MoE serving decode"]["decode"])
@@ -4340,7 +4765,7 @@ def main(argv: list[str] | None = None) -> int:
     kernels = []
     for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
                 "flash_attention_decode", "grouped_matmul", "grouped_matmul_decode",
-                "rmsnorm_bwd", "flash_attention_bwd"):
+                "rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_bwd"):
         row = dict(results[key])
         row["launches"] = launches[key]
         if key == "flash_attention":

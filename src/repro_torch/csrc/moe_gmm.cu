@@ -73,6 +73,22 @@
 // float32 does not come here: kernels/moe_gmm.py launches K1's 3xTF32 kernel
 // in gemm.cu with the expert as its batch (grid z) axis.
 //
+// K6-bwd, the gradient (the TPU kernel has none: the reference trains on
+// XLA's gradient of kernels/ref.py; the card needs a kernel for backward()):
+// moe_gmm_dx_kernel computes dx = dy . w^T and moe_gmm_dw_kernel dw = x^T .
+// dy per expert, bf16 in, fp32 accumulators on mma.sync m16n8k16, bf16 out.
+// Bound: at Mixtral 8x7B's widths and C = 2560 (an 8,192-token microbatch)
+// each product is 2.4 TFLOP, 2.43 ms at 989 TFLOP/s, bound by operations;
+// at decode-sized C the bytes of w or dw bound it.  Both kernels keep the
+// mma kernel's shape: a block owns one 128 x 128 output tile of one expert,
+// 8 warps of 64 x 32, and walks the whole k range through a 3-stage
+// cp.async ring of 32-deep slices, so nothing is split across blocks and
+// there are no atomics: the gradients are bit-identical run to run.  dx
+// reads w's rows in place as the B operand (k = F is contiguous in them), so
+// no transposed copy of the weights is made; dw loads x's rows and turns
+// them with ldmatrix.trans.  D and F must be multiples of 8 and the tensors
+// 16-byte aligned; ragged C, D and F tiles are zero-filled and masked.
+//
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(), or WGMMA_MAP_ERROR plus the
 // CUresult when a tensor map cannot be encoded; the Python wrapper
@@ -721,6 +737,259 @@ int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
 
 }  // namespace dec
 
+// ---------------------------------------------------------------------------
+// K6-bwd: moe_gmm_dx_kernel and moe_gmm_dw_kernel (the gradient of K6)
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int BM = 128;       // output rows per block
+constexpr int BN = 128;       // output columns per block
+constexpr int BK = 32;        // k slice per stage
+constexpr int STAGES = 3;     // cp.async ring depth
+constexpr int THREADS = 256;  // 8 warps: 2 along the rows x 4 along the columns, each 64 x 32
+constexpr int KSTR = BK + 8;  // [row][k] tiles: 80-byte rows, ldmatrix rows on distinct banks
+constexpr int MNSTR = BM + 8;  // [k][row or column] tiles: 272-byte rows (BM == BN)
+constexpr int DX_SMEM = STAGES * (BM + BN) * KSTR * 2;  // 61,440 bytes
+constexpr int DW_SMEM = STAGES * 2 * BK * MNSTR * 2;    // 52,224 bytes
+
+// Rows [r0, r0 + R) x k [k0, k0 + BK) of a row-major (nrows x kdim) matrix
+// into a [R][KSTR] tile, 16 bytes a cp.async; kdim % 8 == 0, so a chunk of 8
+// is in the matrix or out of it whole, and out of it is zero-filled.
+template <int R>
+__device__ __forceinline__ void load_rows_k(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                            int r0, int k0, int nrows, int kdim) {
+  for (int ch = threadIdx.x; ch < R * (BK / 8); ch += THREADS) {
+    const int r = ch / (BK / 8), cc = (ch % (BK / 8)) * 8;
+    const int gr = r0 + r, gk = k0 + cc;
+    const bool in = gr < nrows && gk < kdim;
+    cp_async16(dst + r * KSTR + cc, in ? src + static_cast<size_t>(gr) * kdim + gk : src,
+               in ? 16 : 0);
+  }
+}
+
+// k rows [k0, k0 + BK) x columns [c0, c0 + W) of a row-major (kdim x ncols)
+// matrix into a [BK][MNSTR] tile; ncols % 8 == 0, rows past kdim zero-filled.
+template <int W>
+__device__ __forceinline__ void load_k_cols(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                            int k0, int c0, int kdim, int ncols) {
+  for (int ch = threadIdx.x; ch < BK * (W / 8); ch += THREADS) {
+    const int r = ch / (W / 8), cc = (ch % (W / 8)) * 8;
+    const int gk = k0 + r, gc = c0 + cc;
+    const bool in = gk < kdim && gc < ncols;
+    cp_async16(dst + r * MNSTR + cc, in ? src + static_cast<size_t>(gk) * ncols + gc : src,
+               in ? 16 : 0);
+  }
+}
+
+// A warp's 64 x 32 accumulator (4 m16 x 4 n8 tiles) -> bf16 rows < nrows,
+// columns < ncols of a row-major (nrows x ncols) output; ncols % 8 == 0, so
+// a column pair is in or out whole.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ out, const float (&acc)[4][4][4],
+                                           int row0, int col0, int nrows, int ncols) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + wn * 32 + j * 8 + (lane % 4) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wm * 64 + i * 16 + lane / 4 + h * 8;
+        if (row < nrows && col < ncols)
+          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * ncols + col) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+// dx (E, C, D) = dy (E, C, F) . w (E, D, F)^T: M = C, N = D, k = F.  k is
+// contiguous in both operands, so dy's rows are the A tile [m][k] and w's
+// rows, read in place, the B tile [n][k]: ldmatrix without .trans gives the
+// .col B fragment of mma.sync.  grid (D tiles, C tiles, E).
+__global__ void __launch_bounds__(THREADS, 2)
+moe_gmm_dx_kernel(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ dx, int c, int d, int f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][KSTR]: dy
+  __nv_bfloat16* bs = as + STAGES * BM * KSTR;                   // [STAGES][BN][KSTR]: w
+
+  const int e = blockIdx.z;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const __nv_bfloat16* dye = dy + static_cast<size_t>(e) * c * f;
+  const __nv_bfloat16* we = w + static_cast<size_t>(e) * d * f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+
+  const int slices = (f + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slices) {
+      load_rows_k<BM>(as + s * BM * KSTR, dye, row0, s * BK, c, f);
+      load_rows_k<BN>(bs + s * BN * KSTR, we, col0, s * BK, d, f);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice kt has landed, and every warp is done with slice kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < slices) {
+      load_rows_k<BM>(as + (next % STAGES) * BM * KSTR, dye, row0, next * BK, c, f);
+      load_rows_k<BN>(bs + (next % STAGES) * BN * KSTR, we, col0, next * BK, d, f);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* a_st = as + (kt % STAGES) * BM * KSTR;
+    const __nv_bfloat16* b_st = bs + (kt % STAGES) * BN * KSTR;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], a_st + (wm * 64 + i * 16 + lane % 16) * KSTR + kk + (lane / 16) * 8);
+      unsigned b[2][4];  // b[p]: {b0, b1} of n8 tiles 2p and 2p + 1
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int mi = lane / 8;
+        const int n = wn * 32 + p * 16 + (mi / 2) * 8 + lane % 8;
+        ldmatrix_x4(b[p], b_st + n * KSTR + kk + (mi % 2) * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  store_tile(dx + static_cast<size_t>(e) * c * d, acc, row0, col0, c, d);
+}
+
+// dw (E, D, F) = x (E, C, D)^T . dy (E, C, F): M = D, N = F, k = C.  Both
+// operands are read as rows of C: x's rows land as a [k][m] tile, and
+// ldmatrix.trans turns them into the row-major A fragment; dy's rows are
+// the B tile [k][n], read the way moe_gmm_bf16_kernel reads w.  Rows past C
+// are zero-filled, so any C >= 1 is taken.  grid (F tiles, D tiles, E).
+__global__ void __launch_bounds__(THREADS, 2)
+moe_gmm_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                  __nv_bfloat16* __restrict__ dw, int c, int d, int f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BK][MNSTR]: x
+  __nv_bfloat16* bs = as + STAGES * BK * MNSTR;                  // [STAGES][BK][MNSTR]: dy
+
+  const int e = blockIdx.z;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const __nv_bfloat16* xe = x + static_cast<size_t>(e) * c * d;
+  const __nv_bfloat16* dye = dy + static_cast<size_t>(e) * c * f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+
+  const int slices = (c + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slices) {
+      load_k_cols<BM>(as + s * BK * MNSTR, xe, s * BK, row0, c, d);
+      load_k_cols<BN>(bs + s * BK * MNSTR, dye, s * BK, col0, c, f);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < slices) {
+      load_k_cols<BM>(as + (next % STAGES) * BK * MNSTR, xe, next * BK, row0, c, d);
+      load_k_cols<BN>(bs + (next % STAGES) * BK * MNSTR, dye, next * BK, col0, c, f);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* a_st = as + (kt % STAGES) * BK * MNSTR;
+    const __nv_bfloat16* b_st = bs + (kt % STAGES) * BK * MNSTR;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned a[4][4];  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int mi = lane / 8;
+        const int k = kk + (mi / 2) * 8 + lane % 8;
+        ldmatrix_x4_trans(a[i], a_st + k * MNSTR + wm * 64 + i * 16 + (mi % 2) * 8);
+      }
+      unsigned b[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int kr = kk + (lane % 8) + ((lane / 8) % 2) * 8;
+        const int nc = wn * 32 + p * 16 + (lane / 16) * 8;
+        ldmatrix_x4_trans(b[p], b_st + kr * MNSTR + nc);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  store_tile(dw + static_cast<size_t>(e) * d * f, acc, row0, col0, d, f);
+}
+
+bool takes(const void* a, const void* b, const void* out, int e, int c, int d, int f) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return aligned && e >= 1 && e <= 65535 && c >= 1 && d >= 8 && d % 8 == 0 && f >= 8 &&
+         f % 8 == 0 && (c + BM - 1) / BM <= 65535 && (d + BM - 1) / BM <= 65535;
+}
+
+int launch_dx(const void* dy, const void* w, void* dx, int e, int c, int d, int f,
+              cudaStream_t stream) {
+  if (!takes(dy, w, dx, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;  // above 48 KB only after this attribute is set
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_gmm_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((d + BN - 1) / BN, (c + BM - 1) / BM, e);
+  moe_gmm_dx_kernel<<<grid, THREADS, DX_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(dx), c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dw(const void* x, const void* dy, void* dw, int e, int c, int d, int f,
+              cudaStream_t stream) {
+  if (!takes(x, dy, dw, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((f + BN - 1) / BN, (d + BM - 1) / BM, e);
+  moe_gmm_dw_kernel<<<grid, THREADS, DW_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<__nv_bfloat16*>(dw), c, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e, int c, int d,
                                   int f, int vec, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -738,4 +1007,18 @@ extern "C" int repro_moe_gmm_wgmma_bf16(const void* x, const void* w, void* out,
 extern "C" int repro_moe_gmm_decode_bf16(const void* x, const void* w, void* out, int e, int c,
                                          int d, int f, void* stream) {
   return dec::launch(x, w, out, e, c, d, f, static_cast<cudaStream_t>(stream));
+}
+
+// K6-bwd, bf16 with C >= 1, D % 8 == 0, F % 8 == 0 and 16-byte aligned,
+// contiguous tensors (the wrapper checks; the entries return
+// cudaErrorInvalidValue otherwise): dx (E, C, D) = dy . w^T per expert.
+extern "C" int repro_moe_gmm_dx_bf16(const void* dy, const void* w, void* dx, int e, int c, int d,
+                                     int f, void* stream) {
+  return bwd::launch_dx(dy, w, dx, e, c, d, f, static_cast<cudaStream_t>(stream));
+}
+
+// dw (E, D, F) = x^T . dy per expert.
+extern "C" int repro_moe_gmm_dw_bf16(const void* x, const void* dy, void* dw, int e, int c, int d,
+                                     int f, void* stream) {
+  return bwd::launch_dw(x, dy, dw, e, c, d, f, static_cast<cudaStream_t>(stream));
 }

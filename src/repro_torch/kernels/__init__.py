@@ -11,8 +11,9 @@
                         (``csrc/flash_attention.cu``), through
                         ``ops.attention`` in the model stack (K5-bwd from its
                         autograd function);
-* ``moe_gmm``         — K6, CUDA C++ (``csrc/moe_gmm.cu``), through
-                        ``ops.grouped_matmul`` in the MoE layer.
+* ``moe_gmm``         — K6 and its gradient K6-bwd, CUDA C++
+                        (``csrc/moe_gmm.cu``), through ``ops.grouped_matmul``
+                        in the MoE layer (K6-bwd from its autograd function).
 
 ``ref`` holds the model-stack kernels' plain versions, the gradients'
 included (autograd of the plain forward functions).

@@ -23,10 +23,21 @@ accumulator over D, the output in x's type.  Four kernels compute it:
 alignment alone, before any launch.  Ragged C, D and F are masked inside the
 kernels, so no padded copy is made (the reference pads to its block sizes).
 
-``grouped_matmul`` launches a kernel for CUDA tensors and takes
-``kernels.ref.grouped_matmul`` for CPU tensors only.  ``LAUNCHES`` counts
-kernel launches (all four), ``PATHS`` the launches of each, and ``PLAIN``
-the plain-version runs.
+``grouped_matmul_bwd`` is K6-bwd, the gradient (no TPU kernel: the
+reference differentiates its plain version with XLA; the card needs a kernel
+for ``loss.backward()``): ``moe_gmm_dx_kernel`` writes ``dx = dy @ w^T`` and
+``moe_gmm_dw_kernel`` ``dw = x^T @ dy`` per expert, bf16 on ``mma.sync``
+with fp32 accumulators, one block an output tile over the whole k range, so
+the gradients are bit-identical run to run.  It takes bf16 with D and F
+multiples of 8 and 16-byte aligned contiguous tensors, and raises otherwise:
+training on the card is bf16 only.
+
+``grouped_matmul`` and ``grouped_matmul_bwd`` launch kernels for CUDA
+tensors and take ``kernels.ref.grouped_matmul`` /
+``kernels.ref.grouped_matmul_grad`` for CPU tensors only.  ``LAUNCHES``
+counts launches per function (a backward call launches both of its
+kernels), ``PATHS`` the launches of each kernel, and ``PLAIN`` the
+plain-version runs.
 """
 from __future__ import annotations
 
@@ -39,14 +50,16 @@ from . import gemm, ref
 from .build import cuda_library
 from .runtime import on_device, raw_stream
 
-LAUNCHES = {"grouped_matmul": 0}
-PATHS = {"wgmma": 0, "decode": 0, "mma": 0, "gemm": 0}
-PLAIN = {"grouped_matmul": 0}
+LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_bwd": 0}
+PATHS = {"wgmma": 0, "decode": 0, "mma": 0, "gemm": 0, "dx": 0, "dw": 0}
+PLAIN = {"grouped_matmul": 0, "grouped_matmul_bwd": 0}
 
 # kernel -> (library, entry point, int arguments)
 _ENTRIES = {"wgmma": ("moe_gmm", "repro_moe_gmm_wgmma_bf16", 4),    # e, c, d, f
             "decode": ("moe_gmm", "repro_moe_gmm_decode_bf16", 4),  # e, c, d, f
-            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5)}             # e, c, d, f, vec
+            "mma": ("moe_gmm", "repro_moe_gmm_bf16", 5),             # e, c, d, f, vec
+            "dx": ("moe_gmm", "repro_moe_gmm_dx_bf16", 4),            # e, c, d, f
+            "dw": ("moe_gmm", "repro_moe_gmm_dw_bf16", 4)}            # e, c, d, f
 _DTYPES = {"wgmma": torch.bfloat16, "decode": torch.bfloat16, "mma": torch.bfloat16,
            "gemm": torch.float32}
 
@@ -121,7 +134,7 @@ def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     if it does not take them.  ``grouped_matmul`` goes through here with
     ``None``; the card tests and ``chip_smoke.py`` name a kernel to hold each
     against the plain version at any shape it takes."""
-    if kernel is not None and kernel not in PATHS:
+    if kernel is not None and kernel not in _DTYPES:
         raise ValueError(f"grouped_matmul: no kernel {kernel!r}")
     _check(x, w)
     if x.device.type != "cuda":
@@ -157,3 +170,54 @@ def _launch(kernel: str | None, x: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     LAUNCHES["grouped_matmul"] += 1
     PATHS[kernel] += 1
     return out
+
+
+def check_bwd(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless K6-bwd takes the gradient of ``grouped_matmul(x, w)``
+    on the card: bf16, D and F multiples of 8, 16-byte aligned tensors.  CPU
+    tensors always pass (the plain version)."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_bwd: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"grouped_matmul_bwd: the backward kernels take bf16, not {x.dtype}: "
+                        "MoE training on the card is bf16 only")
+    d, f = w.shape[1], w.shape[2]
+    if d % 8 or f % 8 or not (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        raise ValueError(f"grouped_matmul_bwd: the backward kernels take D % 8 == 0, F % 8 == 0 "
+                         f"and 16-byte aligned tensors, not D = {d}, F = {f}")
+
+
+def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6-bwd: the gradients ``(dx, dw)`` of ``grouped_matmul(x, w)`` for the
+    output gradient ``dy`` (E, C, F) of x's type, ``dx`` in x's type and
+    ``dw`` in w's."""
+    check_bwd(x, w)
+    e, c, d = x.shape
+    f = w.shape[2]
+    if dy.shape != (e, c, f) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"grouped_matmul_bwd: dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
+                         f"for x {tuple(x.shape)} @ w {tuple(w.shape)} {x.dtype} on {x.device}")
+    if x.device.type == "cpu":
+        PLAIN["grouped_matmul_bwd"] += 1
+        return ref.grouped_matmul_grad(x, w, dy)
+    if not (x.is_contiguous() and w.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("grouped_matmul_bwd: x, w and dy must be contiguous")
+    if dy.data_ptr() % 16:
+        raise ValueError("grouped_matmul_bwd: dy must be 16-byte aligned")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if c == 0 or e == 0:
+        return dx, dw.zero_()
+    stream = raw_stream(x.device)
+    with on_device(x.device):
+        for kernel, args in (("dx", (dy, w, dx)), ("dw", (x, dy, dw))):
+            err = _entry(kernel)(*(t.data_ptr() for t in args), e, c, d, f, stream)
+            if err != 0:
+                raise RuntimeError(f"grouped_matmul_bwd {kernel} kernel launch failed with "
+                                   f"error {err}")
+            PATHS[kernel] += 1
+    LAUNCHES["grouped_matmul_bwd"] += 1
+    return dx, dw

@@ -10,12 +10,14 @@ the plain version of ``kernels.ref`` (attention switches to the chunked one
 above ``CHUNKED_ATTN_THRESHOLD`` score elements, as the reference's ``xla``
 path does).  The device decides: there is no ``backend=`` switch.
 
-``rmsnorm`` and ``attention`` are differentiable.  On CUDA tensors, when grad
-is enabled and an input requires it, they go through a
-``torch.autograd.Function`` whose forward launches K4 / K5 (K5 also writing
-the log-sum-exp) and whose backward launches K4-bwd / K5-bwd; otherwise (the
-serving path) they launch the forward kernel alone, as before.  On CPU
-tensors autograd differentiates the plain versions.  The models
+``rmsnorm``, ``attention`` and ``grouped_matmul`` are differentiable.  On
+CUDA tensors, when grad is enabled and an input requires it, they go through
+a ``torch.autograd.Function`` whose forward launches K4 / K5 / K6 (K5 also
+writing the log-sum-exp) and whose backward launches K4-bwd / K5-bwd /
+K6-bwd; otherwise (the serving path) they launch the forward kernel alone,
+as before.  K6-bwd takes bf16 only, so an fp32 ``grouped_matmul`` under grad
+on the card raises before its forward launches.  On CPU tensors autograd
+differentiates the plain versions.  The models
 keep their projections as ``x @ w`` on cuBLAS, as the reference computes them
 outside any Pallas kernel.
 
@@ -29,10 +31,10 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _fa
+from . import moe_gmm as _gmm
 from . import ref
 from . import rmsnorm as _rn
 from .gemm import gemm
-from .moe_gmm import grouped_matmul  # noqa: F401
 
 
 def matmul(x, y, *, tile=None):
@@ -87,6 +89,30 @@ class _Attention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, dout, lse, **ctx.kw)
         return dq, dk, dv, None, None, None
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """K6 forward (``choose_kernel``'s pick), K6-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm._launch(None, x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return _gmm.grouped_matmul_bwd(x, w, dy.contiguous())
+
+
+def grouped_matmul(x, w):
+    """K6 (``kernels.moe_gmm``): x (E, C, D) @ w (E, D, F) per expert,
+    differentiable through K6-bwd on the card."""
+    if _training(x, w):
+        x = x.contiguous()
+        _gmm.check_bwd(x, w)
+        return _GroupedMatmul.apply(x, w)
+    return _gmm.grouped_matmul(x, w)
 
 
 # Above this many score elements (Sq*Skv) the CPU path switches to the

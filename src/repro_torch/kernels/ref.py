@@ -170,6 +170,17 @@ def grouped_matmul(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def grouped_matmul_grad(x, w, dy):
+    """K6-bwd's plain version: the gradients of ``grouped_matmul(x, w)`` for
+    the output gradient ``dy`` (E, C, F), each expert's product in fp32:
+    ``dx = dy @ w^T`` (E, C, D) and ``dw = x^T @ dy`` (E, D, F), returned in
+    the inputs' types."""
+    dyf = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype)
+    return dx, dw
+
+
 def rmsnorm(x, gamma, *, eps=1e-6):
     xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)

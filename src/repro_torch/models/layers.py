@@ -28,6 +28,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -199,6 +200,82 @@ def moe_dispatch(experts: torch.Tensor, n_experts: int, capacity: int):
     return order, dest, keep
 
 
+def _training(*ts) -> bool:
+    """Autograd will differentiate a result of these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatch buffer: row ``slot[t, j]`` of the ``(rows + 1, D)`` buffer
+    is token t's row ``x[t]`` for its j-th choice (``rows``: the overflow row,
+    dropped).  The backward gathers each token's k rows of the buffer's
+    gradient and sums them in fp32 in choice order: indexing's backward would
+    sum them with atomics, in x's type."""
+
+    @staticmethod
+    def forward(ctx, x, slot, rows: int):
+        t, d = x.shape
+        disp = x.new_zeros((rows + 1, d))
+        disp.index_copy_(0, slot.reshape(-1), x.repeat_interleave(slot.shape[1], 0))
+        ctx.save_for_backward(slot)
+        return disp[:rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        gp = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        return gp[slot].float().sum(1).to(g.dtype), None, None
+
+
+def moe_route_dispatch(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                       capacity: int | None = None):
+    """Route the tokens x (T, D) and fill the dispatch buffer: ``(disp (E, C,
+    D), route)``, ``route`` what ``moe_combine`` needs.  ``capacity``
+    defaults to ``moe_capacity(cfg, T)``, the reference's; assignments over it
+    (capacity overflow) contribute 0.
+
+    Serving (no grad): ``route`` is ``(dest, st, sg, keep)`` in expert order,
+    the buffer filled by ``index_copy_``.  Training: ``route`` is ``(slot,
+    gw)`` in token order, each token's k rows of the buffer (``E * C``: the
+    overflow row) and gates with the dropped ones zeroed, so the backward of
+    the dispatch and the combine sums each token's k contributions in fp32
+    in a fixed order (``_Dispatch``, ``moe_combine``)."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = moe_capacity(cfg, t) if capacity is None else capacity
+    gates, experts = moe_route(x, p["router"], k)
+    order, dest, keep = moe_dispatch(experts, e, c)
+    if _training(x, *(p[n] for n in ("router", "wg", "wu", "wd"))):
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        slot = dest[inv].view(t, k)
+        gw = gates * keep[inv].view(t, k).to(gates.dtype)
+        return _Dispatch.apply(x, slot, e * c).view(e, c, d), (slot, gw)
+    st = torch.div(order, k, rounding_mode="floor")  # token of each sorted assignment
+    disp = x.new_zeros((e * c + 1, d))
+    disp.index_copy_(0, dest, x[st])  # kept rows are distinct; overflow rows land on e*c
+    return disp[: e * c].view(e, c, d), (dest, st, gates.reshape(-1)[order], keep)
+
+
+def moe_experts(disp: torch.Tensor, p: Params) -> torch.Tensor:
+    """The experts' SwiGLU FFN on the dispatch buffer: three K6 products."""
+    h = ops.grouped_matmul(disp, p["wg"])
+    u = ops.grouped_matmul(disp, p["wu"])
+    return ops.grouped_matmul(F.silu(h) * u, p["wd"])  # (E, C, D)
+
+
+def moe_combine(y: torch.Tensor, route, t: int) -> torch.Tensor:
+    """The experts' outputs y (E, C, D) back to the T tokens, gate-weighted."""
+    e, c, d = y.shape
+    y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
+    if len(route) == 2:  # training: each token's k rows, summed in fp32 in choice order
+        slot, gw = route
+        return (y_flat[slot] * gw[..., None]).float().sum(1).to(y.dtype)
+    dest, st, sg, keep = route
+    contrib = y_flat[dest] * (sg * keep.to(sg.dtype))[:, None]
+    return y.new_zeros((t, d)).index_add_(0, st, contrib)
+
+
 def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
             capacity: int | None = None) -> torch.Tensor:
     """Top-k token-choice MoE with static capacity (sort-based dispatch).
@@ -208,24 +285,8 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
     batched decode passes ``capacity=T``, which drops nothing, as the
     reference's per-slot decode (T = 1, capacity 8) never does.
     """
-    t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    c = moe_capacity(cfg, t) if capacity is None else capacity
-    gates, experts = moe_route(x, p["router"], k)
-    order, dest, keep = moe_dispatch(experts, e, c)
-    st = torch.div(order, k, rounding_mode="floor")  # token of each sorted assignment
-    sg = gates.reshape(-1)[order]
-
-    disp = x.new_zeros((e * c + 1, d))
-    disp.index_copy_(0, dest, x[st])  # kept rows are distinct; overflow rows land on e*c
-    disp = disp[: e * c].view(e, c, d)
-    h = ops.grouped_matmul(disp, p["wg"])
-    u = ops.grouped_matmul(disp, p["wu"])
-    y = ops.grouped_matmul(F.silu(h) * u, p["wd"])  # (E, C, D)
-
-    y_flat = torch.cat([y.view(e * c, d), y.new_zeros((1, d))])
-    contrib = y_flat[dest] * (sg * keep.to(sg.dtype))[:, None]
-    return x.new_zeros((t, d)).index_add_(0, st, contrib)
+    disp, route = moe_route_dispatch(x, p, cfg, capacity)
+    return moe_combine(moe_experts(disp, p), route, x.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -261,10 +322,22 @@ def _mamba_scan_chunked(dt, Bm, Cm, xc, A, h0, chunk: int):
     ever live: the carry is folded into the chunk's first input, a log-step
     scan of the pairs (a, b) under (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)
     gives every position's state, which is contracted with C at once.
-    """
+
+    Without grad the chunk's tensors are updated in place.  Under grad each
+    chunk runs ``_scan_chunk`` (the same operations, out of place, so no
+    tensor autograd saved is overwritten) inside its own checkpoint, so the
+    backward keeps each chunk's inputs and recomputes one chunk's graph at a
+    time."""
     b, s, din = dt.shape
     q = min(chunk, s)
     assert s % q == 0
+    if _training(dt, Bm, Cm, xc, A, h0):
+        ys, h = [], h0
+        for c0 in range(0, s, q):
+            y, h = checkpoint(_scan_chunk, dt[:, c0:c0 + q], Bm[:, c0:c0 + q],
+                              Cm[:, c0:c0 + q], xc[:, c0:c0 + q], A, h, use_reentrant=False)
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
     y = torch.empty((b, s, din), dtype=torch.float32, device=dt.device)
     h = h0
     for c0 in range(0, s, q):
@@ -281,6 +354,22 @@ def _mamba_scan_chunked(dt, Bm, Cm, xc, A, h0, chunk: int):
         y[:, c0:c0 + q] = torch.einsum("bqdn,bqn->bqd", hs, Cm[:, c0:c0 + q])
         h = hs[:, -1].clone()
     return y, h
+
+
+def _scan_chunk(dtc, bc, cc, xcc, A, h):
+    """One chunk of ``_mamba_scan_chunked`` out of place: (y (B, Q, Din), the
+    state after it)."""
+    q = dtc.shape[1]
+    a = torch.exp(dtc[..., None] * A)
+    hs = dtc[..., None] * bc[:, :, None, :] * xcc[..., None]
+    hs = torch.cat([hs[:, :1] + a[:, :1] * h[:, None], hs[:, 1:]], dim=1)
+    step = 1
+    while step < q:
+        hs = torch.cat([hs[:, :step], hs[:, step:] + a[:, step:] * hs[:, :-step]], dim=1)
+        if 2 * step < q:
+            a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
+        step *= 2
+    return torch.einsum("bqdn,bqn->bqd", hs, cc), hs[:, -1]
 
 
 def mamba(x: torch.Tensor, p: Params, cfg: ModelConfig,

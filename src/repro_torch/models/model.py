@@ -29,11 +29,12 @@ in the state's list.
 
 Remat: under grad, ``forward`` wraps each block in
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` when
-``cfg.remat == "block"`` (the reference's ``jax.checkpoint`` per block), so
-the backward keeps each block's input and recomputes the rest; ``"none"``
-keeps everything.  ``"block_save_moe"`` and ``"layer"`` raise: they shape
-MoE and recurrent training, which is not ported yet.  Without grad (serving)
-nothing is wrapped.
+``cfg.remat == "block"`` (the reference's ``jax.checkpoint`` per block, or
+per period for ``hybrid`` and ``ssm``: the same gradients), so the backward
+keeps each block's input and recomputes the rest; ``"none"`` keeps
+everything.  ``"block_save_moe"`` also keeps an MoE block's dispatch buffer
+and expert outputs (``_block_save_moe``).  ``"layer"`` raises.  Without grad
+(serving) nothing is wrapped.
 
 MoE capacity: ``forward`` and ``decode_step`` dispatch the ``B * s`` tokens
 of a call together with ``moe_capacity(cfg, B * s)``, as the reference does.
@@ -77,6 +78,17 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 PORTED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 # families whose layers carry token-recurrent state (one state per layer)
 RECURRENT_FAMILIES = ("hybrid", "ssm")
+
+
+def layer_period(cfg: ModelConfig) -> int | None:
+    """Layers a period of a ``hybrid`` or ``ssm`` model, the length of the
+    reference's ``periods`` (``repro/models/model.py:96-114``); None for the
+    families the reference stacks as ``layers``."""
+    if cfg.family == "hybrid":
+        return cfg.attn_period
+    if cfg.family == "ssm":
+        return len(cfg.block_pattern)
+    return None
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -135,11 +147,10 @@ def decoder_layers(cfg: ModelConfig, params: Params) -> list[Params]:
 # ---------------------------------------------------------------------------
 # blocks, forward
 # ---------------------------------------------------------------------------
-def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None,
-                 write_pos=0, attn_offset=0, moe_capacity=None, causal=True, memory=None):
-    """Layer ``l``: (x, the layer's state after it).  An attention layer
-    writes its cache ``state`` in place and returns it; a recurrent layer
-    returns its new state."""
+def _mixer(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None, write_pos=0,
+           attn_offset=0, causal=True, memory=None):
+    """Layer ``l``'s first half: the mixer (and an audio decoder's
+    cross-attention) with its residual; (x, the layer's state after it)."""
     normed = ops.rmsnorm(x, blk["norm1"], eps=cfg.norm_eps)
     kind = cfg.layer_kind(l)
     if kind == "attn":
@@ -152,6 +163,16 @@ def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None
     else:
         out, state = _RECURRENT_MIXERS[kind](normed, blk["mixer"], cfg, state=state)
         x = x + out
+    return x, state
+
+
+def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None,
+                 write_pos=0, attn_offset=0, moe_capacity=None, causal=True, memory=None):
+    """Layer ``l``: (x, the layer's state after it).  An attention layer
+    writes its cache ``state`` in place and returns it; a recurrent layer
+    returns its new state."""
+    x, state = _mixer(x, blk, cfg, l, positions, state=state, write_pos=write_pos,
+                      attn_offset=attn_offset, causal=causal, memory=memory)
     if cfg.d_ff:
         normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
         if cfg.layer_is_moe(l):
@@ -162,6 +183,35 @@ def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None
             y = L.dense_ffn(normed2, blk["ffn"])
         x = x + y
     return x, state
+
+
+def _moe_dispatched(x, blk: Params, cfg: ModelConfig, l: int, positions, memory):
+    """An MoE block up to its dispatch buffer: (x after the mixer, the
+    buffer, the route's tensors)."""
+    x, _ = _mixer(x, blk, cfg, l, positions, memory=memory)
+    b, s, d = x.shape
+    normed2 = ops.rmsnorm(x, blk["norm2"], eps=cfg.norm_eps)
+    disp, route = L.moe_route_dispatch(normed2.reshape(b * s, d), blk["ffn"], cfg)
+    return (x, disp, *route)
+
+
+def _moe_combined(x, y, *route):
+    b, s, d = x.shape
+    return x + L.moe_combine(y, route, b * s).view(b, s, d)
+
+
+def _block_save_moe(x, blk: Params, cfg: ModelConfig, l: int, positions, memory):
+    """``remat="block_save_moe"`` on an MoE block: three checkpoints split at
+    the dispatch buffer and the experts' outputs, so the backward keeps those
+    two tensors (the reference's ``save_only_these_names("moe_dispatch",
+    "moe_expert_out")``) and recomputes the rest.  The same operations on the
+    same values as ``"block"``; every tensor that crosses a split takes at
+    most two gradient contributions, whose sum does not depend on their
+    order, so the gradients are bit-identical to ``"block"``'s."""
+    x, disp, *route = checkpoint(_moe_dispatched, x, blk, cfg, l, positions, memory,
+                                 use_reentrant=False)
+    y = checkpoint(L.moe_experts, disp, blk["ffn"], use_reentrant=False)
+    return checkpoint(_moe_combined, x, y, *route, use_reentrant=False)
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -191,21 +241,23 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) ->
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :].expand(b, -1)
     for l, blk in enumerate(decoder_layers(cfg, params)):
-        if _remat(cfg, x, blk, memory):
+        if not _remat(cfg, x, blk, memory):
+            x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
+        elif cfg.remat == "block_save_moe" and cfg.layer_is_moe(l):
+            x = _block_save_moe(x, blk, cfg, l, positions, memory)
+        else:
             x, _ = checkpoint(_apply_block, x, blk, cfg, l, positions, memory=memory,
                               use_reentrant=False)
-        else:
-            x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
     logits = _logits(cfg, params, x)
     return logits[:, n_front:] if n_front else logits
 
 
 def _remat(cfg: ModelConfig, x, blk: Params, memory) -> bool:
-    """Whether ``forward`` checkpoints this block: ``cfg.remat == "block"``
-    and autograd will differentiate it."""
-    if cfg.remat not in ("block", "none"):
-        raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported (MoE and "
-                                  "recurrent training are later work)")
+    """Whether ``forward`` checkpoints this block: ``cfg.remat`` is
+    ``"block"`` or ``"block_save_moe"`` and autograd will differentiate it."""
+    if cfg.remat not in ("block", "block_save_moe", "none"):
+        raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported (the "
+                                  "reference's per-position remat of a period)")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return False
     leaves = [x, memory] + [t for v in blk.values()

@@ -13,9 +13,10 @@ width.  It applies the sliding window at every position, as the reference's
 The recurrent mixers share no code with ``layers``: Mamba is the plain
 per-position recurrence ``h = exp(dt A) h + dt B x, y = C h`` (the engine's
 is a chunked log-step scan, another association); the mLSTM is its
-recurrent stabilized form, one position at a time (the engine's is
-chunkwise-parallel), the normalizer carried as the memory of a constant 1
-value; the sLSTM is the recurrence as written.
+parallel stabilized form over the whole sequence (the engine's is
+chunkwise, carrying its memory from chunk to chunk); the sLSTM is the
+recurrence as written.  Every family is differentiable, so autograd of
+``forward`` is the yardstick of the trained model's gradients too.
 
 An MoE layer computes, per expert, only the tokens routed to it.  Two
 optional arguments let it follow how the engine dispatched a sequence:
@@ -36,7 +37,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -99,6 +99,7 @@ def _groups(cfg: ModelConfig, s: int, moe_groups):
 def _route(logits, chosen, k: int, stats):
     """The experts to use: own fp32 top-k, or the engine's ``chosen`` where it
     differs only by a near-tie."""
+    logits = logits.detach()  # a choice, not a function to differentiate
     top, own = torch.topk(logits, k, dim=-1)
     if chosen is None:
         return own
@@ -217,37 +218,31 @@ def _mamba(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:
 
 
 def _mlstm(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:
-    """fp32 mLSTM mixer on ``y`` (S, D), recurrent: per head, the stabilizer
-    ``m_t = max(logf_t + m_{t-1}, logi_t)`` (from -1e30; on the host in
-    float64), then ``C_t = exp(logf_t + m_{t-1} - m_t) C_{t-1} + exp(logi_t -
-    m_t) k_t [v_t, 1]``, whose last column is the normalizer, and
-    ``h_t = q_t C_t[:, :Dh] / max(|q_t C_t[:, Dh]|, exp(-m_t))``."""
+    """fp32 mLSTM mixer on ``y`` (S, D) in its parallel stabilized form over
+    the whole sequence: per head, with F the cumulative log forget gates (in
+    float64), the stabilizer ``m_t = max_{s<=t}(F_t - F_s + logi_s)`` (the
+    recurrence ``max(logf_t + m_{t-1}, logi_t)`` from -1e30 written out), the
+    weights ``D_ts = exp(F_t - F_s + logi_s - m_t)`` for s <= t, and
+    ``h_t = sum_s D_ts (q_t.k_s) v_s / max(|sum_s D_ts (q_t.k_s)|,
+    exp(-m_t))``: the memory and normalizer of the recurrence contracted
+    with q_t.  No chunks and no carried state (the engine's form is
+    chunkwise); autograd differentiates it."""
     s, d = y.shape
     h = cfg.n_heads
     dh = d // h
-    q = (y @ f(mx["wq"])).view(s, h, dh) / math.sqrt(dh)
-    k = (y @ f(mx["wk"])).view(s, h, dh)
-    v = (y @ f(mx["wv"])).view(s, h, dh)
-    logf = F.logsigmoid(y @ f(mx["wf"]) + f(mx["bf"])).double().cpu().numpy()  # (S, H)
-    logi = (y @ f(mx["wi"]) + f(mx["bi"])).double().cpu().numpy()
-    m, ms = np.full(h, -1e30), np.empty((s, h))
-    fg, ig = np.empty((s, h)), np.empty((s, h))
-    for t in range(s):
-        m_new = np.maximum(logf[t] + m, logi[t])
-        fg[t], ig[t] = np.exp(logf[t] + m - m_new), np.exp(logi[t] - m_new)
-        ms[t] = m = m_new
-    dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=y.device)  # noqa: E731
-    fg, ig, ms = dev(fg)[:, :, None, None], dev(ig), dev(ms)
-    kin = (ig[..., None] * k)[..., None]  # (S, H, Dh, 1)
-    v1 = torch.cat([v, v.new_ones((s, h, 1))], dim=-1)[:, :, None, :]  # (S, H, 1, Dh + 1)
-    mem = y.new_zeros((h, dh, dh + 1))
-    read = y.new_empty((s, h, 1, dh + 1))
-    for t in range(s):
-        mem.mul_(fg[t]).baddbmm_(kin[t], v1[t])
-        torch.bmm(q[t, :, None, :], mem, out=read[t])
-    read = read[:, :, 0]
-    den = torch.maximum(read[..., dh].abs(), torch.exp(-ms))
-    return (read[..., :dh] / den[..., None]).reshape(s, d) @ f(mx["wo"])
+    q = (y @ f(mx["wq"])).view(s, h, dh).transpose(0, 1) / math.sqrt(dh)  # (H, S, Dh)
+    k = (y @ f(mx["wk"])).view(s, h, dh).transpose(0, 1)
+    v = (y @ f(mx["wv"])).view(s, h, dh).transpose(0, 1)
+    logf = F.logsigmoid(y @ f(mx["wf"]) + f(mx["bf"])).double().T  # (H, S)
+    logi = (y @ f(mx["wi"]) + f(mx["bi"])).double().T
+    cum = torch.cumsum(logf, dim=-1)
+    expo = cum[:, :, None] - cum[:, None, :] + logi[:, None, :]  # (H, t, s)
+    seen = torch.ones((s, s), dtype=torch.bool, device=y.device).tril()
+    expo = expo.masked_fill(~seen, float("-inf"))
+    m = expo.amax(dim=-1)  # (H, S)
+    w = torch.exp(expo - m[..., None]).float() * (q @ k.transpose(1, 2))  # D_ts (q_t.k_s)
+    den = torch.maximum(w.sum(-1).abs(), torch.exp(-m).float())
+    return ((w @ v) / den[..., None]).transpose(0, 1).reshape(s, d) @ f(mx["wo"])
 
 
 def _slstm(cfg: ModelConfig, mx: dict, y: torch.Tensor, f) -> torch.Tensor:

@@ -9,14 +9,18 @@ a half checkpoint that restore would pick up.  Keep-last-k garbage
 collection included.
 
 The keys are the reference's (``_flatten``: each dict key as ``['name']``,
-joined by ``/``), and so are the arrays: the port keeps a model's layers as
-a list of per-layer dicts, which is stacked on save into the reference's
-``(n_layers, ...)`` arrays and split again on restore.  bf16 is stored as its
+each list index as ``[i]``, joined by ``/``), and so are the arrays: the port
+keeps a model's layers as a list of per-layer dicts, which is stacked on
+save into the reference's ``(n_layers, ...)`` arrays and split again on
+restore.  The ``hybrid`` and ``ssm`` families' layers differ within a period;
+the reference keeps them as ``periods``, one tree per position of the period
+stacked over the periods.  ``to_periods`` lays a tree's ``layers`` out so
+(a list of per-position lists of the same tensors, saved as
+``['periods']/[pos]/...``) and ``from_periods`` takes it back; ``Trainer``
+saves and restores those families through them.  bf16 is stored as its
 16-bit pattern (``uint16``) under the key with ``::bfloat16`` appended, as
 the reference stores it.  So either package restores the other's
-checkpoint.  Lists of blocks that differ (the hybrid and ssm families'
-layers, which the reference keeps as periods) raise: their training is not
-ported yet.
+checkpoint.  A list of blocks that differ given as it is raises.
 
 One process saves everything as ``proc_0``; the port runs on one device.
 """
@@ -36,8 +40,10 @@ Tree = Any
 BF16_TAG = "::bfloat16"
 
 
-def _key(parts: tuple[str, ...]) -> str:
-    return "/".join(f"['{p}']" for p in parts)
+def _key(parts: tuple) -> str:
+    """The reference's key of a path: a dict key as ``['name']``, a list
+    index as ``[i]``."""
+    return "/".join(f"[{p}]" if isinstance(p, int) else f"['{p}']" for p in parts)
 
 
 def _stackable(items) -> bool:
@@ -46,28 +52,67 @@ def _stackable(items) -> bool:
             and all(_paths(t) == _paths(items[0]) for t in items))
 
 
-def _paths(tree: Tree, prefix: tuple[str, ...] = ()) -> list[tuple[str, ...]]:
+def _indexed(items) -> bool:
+    """A list of lists (``periods``): each item is keyed by its index."""
+    return len(items) > 0 and all(isinstance(t, (list, tuple)) for t in items)
+
+
+def _paths(tree: Tree, prefix: tuple = ()) -> list[tuple]:
     """The key paths of a tree's leaves in sorted key order; a stackable
-    list contributes its items' paths once."""
+    list contributes its items' paths once, an indexed list each item's
+    under its index."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (str(k),))]
     if isinstance(tree, (list, tuple)):
+        if _indexed(tree):
+            return [p for i, t in enumerate(tree) for p in _paths(t, prefix + (i,))]
         if not _stackable(tree):
             raise NotImplementedError(
-                f"checkpoint: {_key(prefix)} is a list of blocks that differ; only lists of "
-                "per-layer dicts of one structure are stacked")
+                f"checkpoint: {_key(prefix)} is a list of blocks that differ; lay it out as "
+                "periods (to_periods) or give per-layer dicts of one structure")
         return _paths(tree[0], prefix)
     return [prefix]
 
 
-def _get(tree: Tree, path: tuple[str, ...]):
+def _get(tree: Tree, path: tuple):
     """The leaf at ``path``; through a stackable list, the list of its items'
     leaves."""
     for i, k in enumerate(path):
-        if isinstance(tree, (list, tuple)):
+        if isinstance(tree, (list, tuple)) and not isinstance(k, int):
             return [_get(t, path[i:]) for t in tree]
         tree = tree[k]
     return tree
+
+
+def to_periods(tree: Tree, period: int) -> Tree:
+    """``tree`` with every ``layers`` list laid out as the reference's
+    ``periods``: position ``pos`` holds layers ``pos, pos + period, ...``
+    (the same tensors, not copies)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "layers" and isinstance(v, list):
+            if len(v) % period:
+                raise ValueError(f"checkpoint: {len(v)} layers are not whole periods of {period}")
+            out["periods"] = [list(v[pos::period]) for pos in range(period)]
+        else:
+            out[k] = to_periods(v, period)
+    return out
+
+
+def from_periods(tree: Tree) -> Tree:
+    """``to_periods`` undone: every ``periods`` back to a ``layers`` list."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "periods":
+            period, n = len(v), sum(len(t) for t in v)
+            out["layers"] = [v[l % period][l // period] for l in range(n)]
+        else:
+            out[k] = from_periods(v)
+    return out
 
 
 def _to_numpy(t) -> tuple[np.ndarray, str]:
@@ -111,6 +156,8 @@ def _unflatten(template: Tree, flat: dict[str, np.ndarray]) -> Tree:
         if isinstance(t, dict):
             return {k: build(v, path + (str(k),), i, n) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
+            if _indexed(t):
+                return type(t)(build(x, path + (j,), i, n) for j, x in enumerate(t))
             _paths(t, path)  # raises unless stackable
             return type(t)(build(x, path, j, len(t)) for j, x in enumerate(t))
         return leaf(t, path, i, n)

@@ -11,9 +11,10 @@ From JAX to torch: ``jax.value_and_grad`` is ``torch.autograd.grad`` of the
 loss with respect to every parameter leaf; the ``lax.scan`` over microbatches
 is a loop whose gradients are summed in fp32 and divided, as the reference's
 scan carries them; ``jit`` and donation have no counterpart (AdamW updates
-in place).  On the card the model's K4 and K5 launch their kernels forward
-and backward (``kernels.ops``); on the CPU autograd differentiates their
-plain versions.
+in place).  On the card the model's K4, K5 and K6 launch their kernels
+forward and backward (``kernels.ops``; K5-bwd and K6-bwd take bf16 only); on
+the CPU autograd differentiates their plain versions.  Checkpoints keep the
+reference's layout (``hybrid`` and ``ssm`` layers as ``periods``).
 
 ``mesh`` and a ``grad_codec`` over a ``pod_axis`` raise
 ``NotImplementedError``: the port trains on one device.
@@ -35,7 +36,7 @@ from ..data.pipeline import DataConfig, LMDataPipeline
 from ..fault import Heartbeat, RestartPolicy, StragglerMonitor
 from ..models import model as M
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_unflatten
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, from_periods, to_periods
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -192,7 +193,11 @@ class Trainer:
 
     # -- checkpoint plumbing --------------------------------------------------
     def _tree(self):
-        return {"params": self.params, "opt": self.opt_state}
+        """What a checkpoint holds, in the reference's layout: ``hybrid`` and
+        ``ssm`` layers as ``periods``."""
+        tree = {"params": self.params, "opt": self.opt_state}
+        period = M.layer_period(self.cfg)
+        return to_periods(tree, period) if period else tree
 
     def save(self) -> None:
         self.ckpt.save(self.step, self._tree(), extra={"step": self.step})
@@ -204,6 +209,7 @@ class Trainer:
             step, tree, _ = self.ckpt.restore(self._tree())
         except (KeyError, ValueError):
             return False  # incompatible checkpoint (e.g. config changed)
+        tree = from_periods(tree)
         self.params = _trainable(tree["params"])
         self.opt_state = tree["opt"]
         self.step = step

@@ -177,10 +177,13 @@ def test_block_remat_gives_the_same_gradients(params):
 
 
 def test_unported_remat_modes_raise(params):
+    """``"layer"`` (the reference's per-position remat of a hybrid or ssm
+    period) is not ported; ``"block_save_moe"`` is, and its MoE gradients are
+    held in tests/test_torch_train_families.py."""
     _, np_params = params
     batch = _tbatch(LMDataPipeline(_dcfg()).batch_at(0))
     with pytest.raises(NotImplementedError):
-        PT.loss_fn(replace(PCFG, remat="block_save_moe"), _port_params(np_params), batch)
+        PT.loss_fn(replace(PCFG, remat="layer"), _port_params(np_params), batch)
 
 
 @pytest.mark.parametrize("accum", [1, 2])

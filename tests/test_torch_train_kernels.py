@@ -1,11 +1,13 @@
-"""The gradients of K4 (RMSNorm) and K5 (flash attention): the CPU path's
-against ``jax.vjp`` of the reference's ``repro/kernels/ref.py``, and K4-bwd
-and K5-bwd against their plain versions on a card.
+"""The gradients of K4 (RMSNorm), K5 (flash attention) and K6 (the grouped
+matmul): the CPU path's against ``jax.vjp`` of the reference's
+``repro/kernels/ref.py``, and K4-bwd, K5-bwd and K6-bwd against their plain
+versions on a card.
 
-On the CPU ``ops.rmsnorm`` and ``ops.attention`` take the plain versions and
-autograd differentiates them; the reference trains on XLA's gradient of the
-same functions.  fp32 tolerances: tests/test_kernels.py's (RMSNorm 1e-5,
-attention rtol 2e-4 / atol 2e-5), on gradients of inputs of unit scale.
+On the CPU ``ops.rmsnorm``, ``ops.attention`` and ``ops.grouped_matmul`` take
+the plain versions and autograd differentiates them; the reference trains on
+XLA's gradient of the same functions.  fp32 tolerances: tests/test_kernels.py's
+(RMSNorm 1e-5, attention rtol 2e-4 / atol 2e-5; the grouped matmul, an fp32
+product over D of unit-scale inputs, rtol 1e-5 / atol 1e-4).
 
 The ``cuda`` tests need a card and skip here; the reference is loaded in a
 fixture (it needs jax), so this file also runs on a machine with a card and
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as p_flash
+from repro_torch.kernels import moe_gmm as p_gmm
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
 from repro_torch.kernels import rmsnorm as p_rms
@@ -39,6 +42,11 @@ ATTN_SWEEP = [(4, 4, 32, 32, True, None, 0), (4, 2, 64, 64, True, None, 0),
               (8, 2, 40, 72, True, 16, 0), (2, 1, 8, 128, True, None, 120),
               (2, 2, 48, 48, False, None, 0), (2, 2, 17, 33, True, 8, 0)]
 MODEL_WIDTHS = (1024, 2304, 3840, 4096, 8192)  # Seamless, MiniCPM, Danube, Mixtral, Jamba
+GMM_RTOL, GMM_ATOL = 1e-5, 1e-4  # fp32 products over D of unit-scale inputs
+# K6-bwd's ragged shapes (E, C, D, F): C from 1 and past a 128-row tile, D and F
+# multiples of 8 that are not multiples of the 128-wide tiles or 32-deep slices
+GMM_BWD_SHAPES = [(3, 37, 40, 72), (2, 1, 8, 16), (1, 130, 136, 200), (4, 300, 264, 24),
+                  (3, 5, 520, 136)]
 
 
 @pytest.fixture(scope="module")
@@ -192,8 +200,52 @@ def test_no_grad_call_builds_no_autograd_function():
     assert "_RMSNorm" not in type(y.grad_fn).__name__
 
 
+@pytest.mark.parametrize("e,c,d,f", [(3, 11, 24, 40), (2, 37, 40, 72)])
+def test_grouped_matmul_grad_matches_reference(reference, e, c, d, f):
+    """``ops.grouped_matmul`` on the CPU: autograd of the plain version, the
+    reference's gradient (``jax.vjp`` of its ``ref.grouped_matmul``), and
+    ``ref.grouped_matmul_grad`` (K6-bwd's plain version) the same."""
+    jax, r_ref = reference
+    x = RNG.normal(size=(e, c, d)).astype(np.float32)
+    w = RNG.normal(size=(e, d, f)).astype(np.float32)
+    dy = RNG.normal(size=(e, c, f)).astype(np.float32)
+    _, vjp = jax.vjp(r_ref.grouped_matmul, x, w)
+    want = [np.asarray(t) for t in vjp(dy)]
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    before = dict(p_gmm.PLAIN), dict(p_gmm.LAUNCHES)
+    got = _grads(p_ops.grouped_matmul(xt, wt), (xt, wt), torch.from_numpy(dy))
+    assert p_gmm.PLAIN["grouped_matmul"] == before[0]["grouped_matmul"] + 1
+    assert p_gmm.LAUNCHES == before[1]
+    plain = p_ref.grouped_matmul_grad(torch.from_numpy(x), torch.from_numpy(w),
+                                      torch.from_numpy(dy))
+    for name, g, p, wnt in zip(("dx", "dw"), got, plain, want):
+        np.testing.assert_allclose(g.numpy(), wnt, rtol=GMM_RTOL, atol=GMM_ATOL, err_msg=name)
+        np.testing.assert_allclose(p.numpy(), wnt, rtol=GMM_RTOL, atol=GMM_ATOL, err_msg=name)
+
+
+def test_grouped_matmul_bwd_wrapper_on_cpu():
+    """K6-bwd's wrapper on CPU tensors: its plain version, counted in
+    ``PLAIN``, in the inputs' types; wrong shapes and types raise."""
+    x = torch.from_numpy(RNG.normal(size=(2, 9, 16)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(RNG.normal(size=(2, 16, 24)).astype(np.float32)).bfloat16()
+    dy = torch.from_numpy(RNG.normal(size=(2, 9, 24)).astype(np.float32)).bfloat16()
+    before = p_gmm.PLAIN["grouped_matmul_bwd"], p_gmm.LAUNCHES["grouped_matmul_bwd"]
+    dx, dw = p_gmm.grouped_matmul_bwd(x, w, dy)
+    assert (p_gmm.PLAIN["grouped_matmul_bwd"], p_gmm.LAUNCHES["grouped_matmul_bwd"]) == \
+        (before[0] + 1, before[1])
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    want = p_ref.grouped_matmul_grad(x, w, dy)
+    torch.testing.assert_close((dx, dw), want, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        p_gmm.grouped_matmul_bwd(x, w, dy[:, :8])
+    with pytest.raises(ValueError):
+        p_gmm.grouped_matmul_bwd(x, w, dy.float())
+    with pytest.raises(TypeError):
+        p_gmm.grouped_matmul_bwd(x, w.float(), dy)
+
+
 # ---------------------------------------------------------------------------
-# K4-bwd and K5-bwd on a card, against their plain versions
+# K4-bwd, K5-bwd and K6-bwd on a card, against their plain versions
 # ---------------------------------------------------------------------------
 @pytest.fixture
 def card():
@@ -325,4 +377,105 @@ def test_trainer_steps_through_the_kernels_on_card(card, tmp_path):
                                                   "rmsnorm_bwd": (2 * n + 1) * mb}
     assert moved(p_flash.LAUNCHES, launches[1]) == {"flash_attention": 2 * n * mb,
                                                     "flash_attention_bwd": n * mb}
+    assert all(np.isfinite(h["loss"]) for h in hist) and not any(h["skipped"] for h in hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", GMM_BWD_SHAPES)
+def test_grouped_matmul_bwd_kernels_on_card(card, e, c, d, f):
+    """K6-bwd's dx and dw kernels at ragged shapes: within 1e-2 relative L2
+    per tensor of fp32 autograd of ``ref.grouped_matmul`` on the same bf16
+    inputs (``ref.grouped_matmul_grad``), bit-identical over two launches."""
+    x = RNG.normal(size=(e, c, d)).astype(np.float32)
+    w = (RNG.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32)
+    dy = RNG.normal(size=(e, c, f)).astype(np.float32)
+    xt, wt, dyt = _on(card, x, w, dy, dtype=torch.bfloat16)
+    before = p_gmm.LAUNCHES["grouped_matmul_bwd"], dict(p_gmm.PATHS), p_gmm.PLAIN["grouped_matmul_bwd"]
+    got = p_gmm.grouped_matmul_bwd(xt, wt, dyt)
+    again = p_gmm.grouped_matmul_bwd(xt, wt, dyt)
+    torch.cuda.synchronize()
+    assert p_gmm.LAUNCHES["grouped_matmul_bwd"] == before[0] + 2
+    assert p_gmm.PLAIN["grouped_matmul_bwd"] == before[2]
+    assert all(p_gmm.PATHS[k] == before[1][k] + 2 for k in ("dx", "dw"))
+    xr, wr = xt.float().requires_grad_(), wt.float().requires_grad_()
+    want = torch.autograd.grad(p_ref.grouped_matmul(xr, wr), (xr, wr), dyt.float())
+    for name, g, g2, wnt in zip(("dx", "dw"), got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, g2), name
+        assert rel_l2(g, wnt) <= BF16_GRAD_REL_L2, (name, rel_l2(g, wnt))
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_refuses_what_k6_bwd_does_not_take_on_card(card):
+    """fp32 under grad is refused before the forward launches (training on
+    the card is bf16 only), as are D or F not a multiple of 8; without grad
+    fp32 still runs (K1's kernel)."""
+    x = torch.randn(2, 16, 64, device=card, requires_grad=True)
+    w = torch.randn(2, 64, 32, device=card)
+    launches = dict(p_gmm.LAUNCHES)
+    with pytest.raises(TypeError, match="bf16"):
+        p_ops.grouped_matmul(x, w)
+    assert p_gmm.LAUNCHES == launches
+    with torch.no_grad():
+        assert p_ops.grouped_matmul(x, w).dtype == torch.float32
+    odd = torch.randn(2, 16, 60, device=card, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError):
+        p_ops.grouped_matmul(odd, torch.randn(2, 60, 32, device=card, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        p_gmm.grouped_matmul_bwd(x.detach(), w, torch.randn(2, 16, 32, device=card))
+
+
+@pytest.mark.cuda
+def test_ops_grouped_matmul_autograd_launches_k6_bwd_on_card(card):
+    """Under grad ``ops.grouped_matmul`` launches K6 forward and K6-bwd (dx
+    and dw) backward, never the plain versions, and the gradients of a
+    SwiGLU expert FFN match autograd through the plain version in fp32."""
+    e, c, d, f = 4, 96, 256, 512
+    x = (torch.randn(e, c, d, device=card) * 0.5).bfloat16().requires_grad_()
+    wg, wu = ((torch.randn(e, d, f, device=card) / d ** 0.5).bfloat16().requires_grad_()
+              for _ in range(2))
+    wd = (torch.randn(e, f, d, device=card) / f ** 0.5).bfloat16().requires_grad_()
+    plain = dict(p_gmm.PLAIN)
+    launches, paths = dict(p_gmm.LAUNCHES), dict(p_gmm.PATHS)
+
+    def ffn(ops_gmm, x, wg, wu, wd):
+        return ops_gmm(torch.nn.functional.silu(ops_gmm(x, wg)) * ops_gmm(x, wu), wd)
+
+    got = torch.autograd.grad((ffn(p_ops.grouped_matmul, x, wg, wu, wd).float() ** 2).sum(),
+                              (x, wg, wu, wd))
+    torch.cuda.synchronize()
+    assert dict(p_gmm.PLAIN) == plain
+    assert p_gmm.LAUNCHES["grouped_matmul"] == launches["grouped_matmul"] + 3
+    assert p_gmm.LAUNCHES["grouped_matmul_bwd"] == launches["grouped_matmul_bwd"] + 3
+    assert (p_gmm.PATHS["dx"], p_gmm.PATHS["dw"]) == (paths["dx"] + 3, paths["dw"] + 3)
+    leaves = [t.detach().float().requires_grad_() for t in (x, wg, wu, wd)]
+    want = torch.autograd.grad((ffn(p_ref.grouped_matmul, *leaves) ** 2).sum(), leaves)
+    for name, g, wnt in zip(("x", "wg", "wu", "wd"), got, want):
+        assert rel_l2(g, wnt) <= 2e-2, (name, rel_l2(g, wnt))
+
+
+@pytest.mark.cuda
+def test_trainer_steps_a_moe_model_through_the_kernels_on_card(card, tmp_path):
+    """A reduced Mixtral in bf16 with block remat trains two steps on the
+    card (two microbatches each) through K4/K5/K6 and their backward kernels,
+    never a plain version: per microbatch K6 3 products a layer forward and
+    3 again in the recompute, K6-bwd 3 a layer."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = replace(get_config("mixtral-8x7b").reduced(), dtype="bfloat16", remat="block")
+    tr = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                 DataConfig(seq_len=64, global_batch=4, vocab=cfg.vocab, seed=3),
+                 TrainerConfig(ckpt_dir=str(tmp_path), ckpt_every=100, accum_steps=2))
+    plain = dict(p_rms.PLAIN), dict(p_flash.PLAIN), dict(p_gmm.PLAIN)
+    launches = dict(p_gmm.LAUNCHES)
+    hist = tr.run(2)
+    torch.cuda.synchronize()
+    assert (dict(p_rms.PLAIN), dict(p_flash.PLAIN), dict(p_gmm.PLAIN)) == plain
+    n, mb = cfg.n_layers, 2 * 2
+    assert {k: p_gmm.LAUNCHES[k] - launches[k] for k in launches} == {
+        "grouped_matmul": 6 * n * mb, "grouped_matmul_bwd": 3 * n * mb}
     assert all(np.isfinite(h["loss"]) for h in hist) and not any(h["skipped"] for h in hist)
