@@ -3456,6 +3456,29 @@ K5_BWD_SHAPES = [("MiniCPM-2B microbatch", 144, 144, 2048, 64, None),
                  ("Danube heads, 2048", 32, 8, 2048, 120, 4096),
                  ("Danube heads, 8192, window 4096", 32, 8, 8192, 120, 4096),
                  ("Mixtral heads, 2048", 32, 8, 2048, 128, None)]
+# graph ms of the backward kernels the tensor-core K5-bwd and the wgmma K6-bwd
+# replaced (K5-bwd on the CUDA cores, K6-bwd on mma.sync; chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed in brackets beside this
+# run's; not in the kernels line, which holds this run's measurements only
+REPLACED_GRAPH_MS = {"MiniCPM-2B microbatch": "11.93-11.95",
+                     "Danube heads, 2048": "5.95-5.98",
+                     "Danube heads, 8192, window 4096": "69.68-69.88",
+                     "Mixtral heads, 2048": "5.95-5.96",
+                     "Seamless encoder": "10.15-10.17", "Seamless cross-attention": "5.13-5.14",
+                     "Mixtral gate/up C 2560": "20.51-20.55", "Mixtral down C 2560": "20.69-21.11",
+                     "Jamba gate/up E 2 C 2560": "18.45-18.59",
+                     "Jamba gate/up E 16 C 320": "21.76-22.06", "ragged": "0.011-0.012",
+                     **{f"Mixtral {p} C {c}": "1.45-1.49" for p in ("gate/up", "down")
+                        for c in (16, 40)},
+                     **{f"Mixtral {p} C 320": "3.09-3.18" for p in ("gate/up", "down")}}
+
+
+def replaced(label: str) -> str:
+    """`` [replaced kernel: ...]`` for a timed shape of K5-bwd or K6-bwd."""
+    return (f" [replaced kernel: {REPLACED_GRAPH_MS[label]}]" if label in REPLACED_GRAPH_MS
+            else "")
+
+
 TRAIN_STEPS = 6
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 2048, 8, 2
 # (c) runs at the training CLI's learning rate (`launch/train.py`, 3e-4 with
@@ -3619,9 +3642,9 @@ def check_flash_bwd(torch, smi: str) -> dict:
                    rel_l2=dict(zip(("dq", "dk", "dv"), errs)),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes", **t)
-        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; SDPA "
-            f"backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
+        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}"
+            f"{replaced(label)}; bound {row['bound_ms']:.4f} ({row['bound_by']}); plain "
+            f"{t['plain_ms']:.4f}; SDPA backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
             + "/".join(f"{e:.2e}" for e in errs) + f" ({smi})")
         rows_out.append(row)
         del q, k, v, out, do, lse, ql, kl, vl, lib_out
@@ -4217,8 +4240,8 @@ def check_gmm_bwd(torch, smi: str) -> dict:
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    graph_tflops=flops / t["graph_ms"] / 1e9, **t)
         log(f"  K6-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f} "
-            f"({row['graph_tflops']:.0f} TFLOP/s); bound {row['bound_ms']:.4f} ({row['bound_by']}); "
-            f"plain {t['plain_ms']:.4f}; torch.bmm x2 {fmt_ms(t['library_ms'])}; relative L2 "
+            f"({row['graph_tflops']:.0f} TFLOP/s){replaced(label)}; bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}); plain {t['plain_ms']:.4f}; torch.bmm x2 {fmt_ms(t['library_ms'])}; relative L2 "
             f"dx/dw {errs[0]:.2e}/{errs[1]:.2e} ({smi})")
         rows.append(row)
         del x, w, dy
@@ -4279,9 +4302,9 @@ def check_flash_bwd_seamless(torch, smi: str) -> list:
         row = dict(shape=f"{label}: q ({bhq}, {sq}, {d}), kv ({bhkv}, {skv}, {d}), non-causal",
                    rel_l2=dict(zip(("dq", "dk", "dv"), errs)), bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes", **t)
-        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; SDPA "
-            f"backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
+        log(f"  K5-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}"
+            f"{replaced(label)}; bound {row['bound_ms']:.4f} ({row['bound_by']}); plain "
+            f"{t['plain_ms']:.4f}; SDPA backward {fmt_ms(t['library_ms'])}; relative L2 dq/dk/dv "
             + "/".join(f"{e:.2e}" for e in errs) + f" ({smi})")
         rows.append(row)
         del q, k, v, do, out, lse, ql, kl, vl, lib_out

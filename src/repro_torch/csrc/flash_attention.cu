@@ -119,7 +119,8 @@
 // custom_vjp backward that the reference does not have; it trains on XLA's
 // gradient of its plain version).  FlashAttention-2's two-pass form, three
 // kernels, no atomics:
-// * flash_bwd_delta_kernel: delta = rowsum(dO * O) in fp32, a warp a row;
+// * flash_bwd_delta_kernel: delta = rowsum(dO * O) in fp32, 8 lanes a row,
+//   16-byte loads;
 // * flash_bwd_dkdv_kernel: a block per (KV head, 64 keys) holds K and V,
 //   walks every q head of its GQA group and, 64 rows at a time, the rows that
 //   can see its keys (the forward's range rule for causal, window and
@@ -129,15 +130,40 @@
 //   its rows' visible keys, 64 at a time, and sums dQ += scale dS K.
 // Bound: operations.  Five products over the visible (q, k) pairs against
 // the forward's two: at MiniCPM-2B's 144 heads of 64 over a causal 2048 that
-// is 2.5 x 77 GFLOP, 0.20 ms at 989 TFLOP/s.  This first version runs them
-// on the CUDA cores: bf16 tiles widened to fp32 in shared memory (row stride
-// DP + 1 floats, DP = 64 or 128, so a warp's reads fall in distinct banks),
-// 256 threads in a 16 x 16 grid, each with a 4 x 4 block of a 64 x 64 score
-// tile and a 4 x DP/16 block of its output, fp32 FMA (67 TFLOP/s at most on
-// an H100).  Each output element is summed by one thread in a fixed order,
-// so the gradients are bit-identical run to run.  Tensor cores are later
-// work.  It takes bf16 with D % 8 == 0, D <= 128, Skv >= Sq and 16-byte
-// aligned pointers; kernels/flash_attention.py raises on anything else.
+// is 2.5 x 77 GFLOP, 0.20 ms at 989 TFLOP/s.  The first version ran them as
+// fp32 FMA on the CUDA cores (67 TFLOP/s at most) from element-by-element
+// loads, 61x the bound.  Here every product runs on the tensor cores, with
+// the forward's building blocks (mma.sync m16n8k16, bf16 in, fp32
+// accumulators; ldmatrix; cp.async):
+// * Tiles stay bf16 in shared memory at the forward's stride (DP + 8, DP =
+//   64 or 128; D = 120 padded by cp.async's zero fill).  dkdv loads its K and
+//   V once and streams the Q and dO tiles (with their lse and delta) of each
+//   q head through a 2-stage cp.async ring, the next tile loading while the
+//   current one is multiplied; dq keeps Q, dO, lse and delta resident and
+//   streams K and V the same way.  Six tiles: 104 KB at DP = 128, two blocks
+//   an SM (the fp32 tiles took 162 KB, one block).
+// * dkdv: a warp owns 16 keys.  S^T = K Q^T and dP^T = V dO^T with K and V
+//   as A fragments (ldmatrix) and Q and dO rows as B fragments, then P^T and
+//   dS^T in registers, rounded to bf16 and used from the accumulator
+//   registers as the A fragments of dV += P^T dO and dK += dS^T Q (FA2's
+//   register reuse), dO and Q as B fragments by ldmatrix.trans.  dK and dV
+//   stay in fp32 registers over the whole q range; at DP = 128 a warp takes
+//   32 of a tile's rows at a time so S^T and dP^T fit beside them.
+// * dq: a warp owns 16 q rows: S = Q K^T and dP = dO V^T, dS rounded to bf16
+//   in registers, dQ += dS K with K's B fragments by ldmatrix.trans.
+// * A warp skips a tile none of whose (row, key) pairs is visible and tests
+//   the mask only on tiles that cross the diagonal, the window edge, Sq or
+//   Skv.
+// P and dS in bf16 are the one rounding the fp32 version did not have (the
+// forward rounds P the same way); kernels/ref.py::attention_grad_mma follows
+// it on the CPU.  Each output element is summed by one warp in a fixed order,
+// so the gradients are bit-identical run to run.  On an H100 (700 W) the
+// three kernels took 1.28 graph ms at MiniCPM-2B's shape beside SDPA's
+// backward's 0.72 (PERF.md).  A GQA group's heads are walked by one dkdv
+// block, so at 8 KV heads a causal key tile 0 holds 4 x 32 q tiles while the
+// last holds 4.  It takes bf16 with D % 8 == 0, D <= 128, Skv >= Sq and
+// 16-byte aligned pointers; kernels/flash_attention.py raises on anything
+// else.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
@@ -1180,29 +1206,24 @@ int run_decode(const void* q, const void* k, const void* v, void* out, const Par
 
 // ---------------------------------------------------------------------------
 // K5-bwd: the backward of attention, FlashAttention-2's two-pass form on the
-// CUDA cores (see the note at the top)
+// tensor cores (see the note at the top)
 // ---------------------------------------------------------------------------
-constexpr int BWD_BQ = 64;       // q rows per tile
-constexpr int BWD_BK = 64;       // keys per tile
-constexpr int BWD_THREADS = 256;  // a 16 x 16 grid: thread (ty, tx)
-constexpr int BWD_SP = BWD_BK + 1;  // row stride of the P and dS tiles (floats)
+constexpr int BWD_TILE = 64;   // q rows or keys of a tile: a dkdv block's keys, a dq block's rows
+constexpr int BWD_WARPS = 4;   // 16 keys (dkdv) or 16 q rows (dq) a warp
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+static_assert(16 * BWD_WARPS == BWD_TILE, "a warp owns 16 of a block's keys or rows");
+static_assert(BWD_THREADS == MMA_THREADS, "load_tile strides by MMA_THREADS");
 
 template <int DP>
-constexpr int bwd_smem_bytes() {  // four (64, DP + 1) tiles, P and dS, lse and delta
-  return (4 * 64 * (DP + 1) + 2 * BWD_BQ * BWD_SP + 2 * BWD_BQ) * 4;
+constexpr int bwd_smem_bytes() {  // 6 bf16 tiles of (64, DP + 8); dkdv also 2 stages of lse, delta
+  return 6 * BWD_TILE * mma_stride<DP>() * 2 + 4 * BWD_TILE * 4;
 }
 
-// rows [row0, row0 + 64) of a (rows, d) bf16 matrix into a fp32 tile of
-// stride DP + 1, zero past nrows and past d
-template <int DP>
-__device__ __forceinline__ void load_tile_f32(float* dst, const __nv_bfloat16* src, int row0,
-                                              int nrows, int d) {
-  for (int idx = threadIdx.x; idx < 64 * DP; idx += BWD_THREADS) {
-    const int r = idx / DP, c = idx % DP;
-    const bool in = row0 + r < nrows && c < d;
-    dst[r * (DP + 1) + c] =
-        in ? __bfloat162float(src[static_cast<size_t>(row0 + r) * d + c]) : 0.f;
-  }
+// 4 bytes by cp.async (rows of lse and delta, whose length need not keep 16
+// bytes of alignment); bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
 }
 
 // visible keys [lo, hi) of a q row at absolute position pos
@@ -1211,234 +1232,415 @@ __device__ __forceinline__ void key_range(const Params& p, int pos, int& lo, int
   lo = p.has_window ? max(0, pos - p.window + 1) : 0;
 }
 
-// S = Q.K^T and dP = dO.V^T for this thread's 4 x 4 (row ty + 16i, key
-// tx + 16j) of a 64 x 64 tile, then P = exp(S scale - lse) where the key is
-// visible (else 0) and dS = P (dP - delta), both stored to their tiles.
-template <int DP>
-__device__ __forceinline__ void bwd_scores(const float* qs, const float* dos, const float* ks,
-                                           const float* vs, const float* lse_s,
-                                           const float* del_s, float* ps, float* dss,
-                                           const Params& p, int off, int q0, int k0) {
-  constexpr int SD = DP + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < DP; ++c) {
-    float a[4], o[4], b[4], w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = qs[(ty + 16 * i) * SD + c];
-      o[i] = dos[(ty + 16 * i) * SD + c];
-      b[i] = ks[(tx + 16 * i) * SD + c];
-      w[i] = vs[(tx + 16 * i) * SD + c];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        dp[i][j] = fmaf(o[i], w[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-    int lo = 1, hi = 0;
-    if (row < p.sq) key_range(p, off + row, lo, hi);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-      const float pv = key >= lo && key < hi ? expf(s[i][j] * p.scale - lse_s[r]) : 0.f;
-      ps[r * BWD_SP + tx + 16 * j] = pv;
-      dss[r * BWD_SP + tx + 16 * j] = pv * (dp[i][j] - del_s[r]);
-    }
-  }
+__device__ __forceinline__ bool key_visible(const Params& p, int pos, int key) {
+  return key < p.skv && (!p.causal || key <= pos) && (!p.has_window || pos - key < p.window);
 }
 
-// lse and delta of rows [q0, q0 + 64) of one head; rows past Sq see nothing
-__device__ __forceinline__ void load_rows(float* lse_s, float* del_s, const float* lse,
-                                          const float* delta, size_t base, int q0, int sq) {
-  for (int r = threadIdx.x; r < BWD_BQ; r += BWD_THREADS) {
-    const bool in = q0 + r < sq;
-    lse_s[r] = in ? lse[base + q0 + r] : INFINITY;
-    del_s[r] = in ? delta[base + q0 + r] : 0.f;
-  }
+// rows [lo, hi) of q head `head` that can see a key of [k0, kend): causal
+// needs off + i >= k0, a window off + i - window + 1 < kend
+__device__ __forceinline__ void q_range(const Params& p, int head, int k0, int kend, int& lo,
+                                        int& hi) {
+  const int off = p.offs ? p.offs[head] : p.off0;
+  lo = p.causal ? max(0, k0 - off) : 0;
+  hi = p.has_window ? min(p.sq, kend + p.window - 1 - off) : p.sq;
 }
 
-// delta = rowsum(dO * O) in fp32: one warp a row
+// Advances (gi, q0) to the next q tile of KV head bkv's GQA group that can
+// see keys [k0, kend): further tiles of head gi, then the next heads' (gi =
+// -1 starts).  False past the last.
+__device__ __forceinline__ bool next_q_tile(const Params& p, int bkv, int group, int k0, int kend,
+                                            int& gi, int& q0) {
+  int lo, hi;
+  if (gi >= 0) {
+    q_range(p, bkv * group + gi, k0, kend, lo, hi);
+    if (q0 + BWD_TILE < hi) {
+      q0 += BWD_TILE;
+      return true;
+    }
+  }
+  for (++gi; gi < group; ++gi) {
+    q_range(p, bkv * group + gi, k0, kend, lo, hi);
+    if (lo < hi) {
+      q0 = lo / BWD_TILE * BWD_TILE;
+      return true;
+    }
+  }
+  return false;
+}
+
+// delta = rowsum(dO * O) in fp32: 8 lanes a row, 16-byte loads 64 values
+// apart, summed by 3 xor shuffles; 32 rows a block
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                        float* __restrict__ delta, int rows, int d) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const __nv_bfloat16* orow = o + static_cast<size_t>(row) * d;
-  const __nv_bfloat16* drow = dout + static_cast<size_t>(row) * d;
+  const int row = blockIdx.x * 32 + threadIdx.x / 8, t = threadIdx.x % 8;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32)
-    acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(drow[c]), acc);
-  acc = warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
+  if (row < rows) {
+    const __nv_bfloat16* orow = o + static_cast<size_t>(row) * d;
+    const __nv_bfloat16* drow = dout + static_cast<size_t>(row) * d;
+    for (int c = 8 * t; c < d; c += 64) {
+      float a[8], b[8];
+      bf16x8_to_f32(*reinterpret_cast<const uint4*>(orow + c), a);
+      bf16x8_to_f32(*reinterpret_cast<const uint4*>(drow + c), b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(a[e], b[e], acc);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < rows && t == 0) delta[row] = acc;
 }
 
-// dK and dV of 64 keys of one KV head: every q row of its GQA group that sees
-// them, 64 rows at a time
+// One q tile against this warp's 16 keys, QC of its rows (the columns of
+// S^T) from column c0: S^T = K Q^T and dP^T = V dO^T on the tensor cores,
+// P^T = exp(S^T scale - lse) (0 where MASK finds the key hidden from the row
+// or the row past Sq), dS^T = P^T (dP^T - delta), both rounded to bf16 as
+// the A fragments of dV += P^T dO and dK += dS^T Q.  The forward's helpers:
+// K and V rows give A fragments by ldmatrix, Q and dO rows B fragments
+// (S^T's by ldmatrix, dV's and dK's by ldmatrix.trans).
+template <int DP, int QC, bool MASK>
+__device__ __forceinline__ void dkdv_part(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                          const __nv_bfloat16* qs, const __nv_bfloat16* dos,
+                                          const float* lse_s, const float* del_s,
+                                          float (&dk)[DP / 8][4], float (&dv)[DP / 8][4],
+                                          const Params& p, int pos0, int rows, int c0, int key0,
+                                          float scale_log2) {
+  constexpr int ST = mma_stride<DP>();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float s[QC / 8][4], dp[QC / 8][4];
+#pragma unroll
+  for (int j = 0; j < QC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    unsigned ka[4], va[4];
+    const int arow = (warp * 16 + lane % 16) * ST + kk * 16 + (lane / 16) * 8;
+    ldmatrix_x4(ka, ks + arow);
+    ldmatrix_x4(va, vs + arow);
+#pragma unroll
+    for (int jp = 0; jp < QC / 16; ++jp) {
+      unsigned b[4];  // {b0, b1} of q tiles 2jp and 2jp + 1
+      const int brow = (c0 + jp * 16 + lane % 8 + (lane / 16) * 8) * ST + kk * 16 +
+                       ((lane / 8) % 2) * 8;
+      ldmatrix_x4(b, qs + brow);
+      mma_bf16(s[2 * jp], ka, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
+      ldmatrix_x4(b, dos + brow);
+      mma_bf16(dp[2 * jp], va, b[0], b[1]);
+      mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
+    }
+  }
+  // s[j][e]: key key0 + lane/4 (+ 8 for e >= 2), q row c0 + 8j + 2(lane%4) + e%2
+  unsigned pa[QC / 16][4], sa[QC / 16][4];
+#pragma unroll
+  for (int j = 0; j < QC / 8; ++j) {
+    const int qc = c0 + 8 * j + 2 * (lane % 4);
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + qc);
+    const float2 dl = *reinterpret_cast<const float2*>(del_s + qc);
+    float pv[4], dsv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fast_exp2(fmaf(s[j][e], scale_log2, -(e % 2 ? l2.y : l2.x) * LOG2E));
+      if (MASK) {
+        const int r = qc + e % 2;
+        if (!(r < rows && key_visible(p, pos0 + r, key0 + lane / 4 + 8 * (e / 2)))) x = 0.f;
+      }
+      pv[e] = x;
+      dsv[e] = x * (dp[j][e] - (e % 2 ? dl.y : dl.x));
+    }
+    pa[j / 2][(j % 2) * 2] = pack_bf16(pv[0], pv[1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+    sa[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+    sa[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < QC / 16; ++kk) {
+    const int brow = (c0 + kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ST + (lane / 16) * 8;
+#pragma unroll
+    for (int jp = 0; jp < DP / 16; ++jp) {
+      unsigned b[4];  // {b0, b1} of column tiles 2jp and 2jp + 1
+      ldmatrix_x4_trans(b, dos + brow + jp * 16);
+      mma_bf16(dv[2 * jp], pa[kk], b[0], b[1]);
+      mma_bf16(dv[2 * jp + 1], pa[kk], b[2], b[3]);
+      ldmatrix_x4_trans(b, qs + brow + jp * 16);
+      mma_bf16(dk[2 * jp], sa[kk], b[0], b[1]);
+      mma_bf16(dk[2 * jp + 1], sa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// dK and dV of 64 keys of one KV head: K and V stay in shared memory, the Q
+// and dO tiles (with lse and delta) of every q head of the GQA group that
+// sees those keys stream through a 2-stage cp.async ring; dK and dV stay in
+// fp32 registers, 16 keys a warp.  QC: q rows a warp takes at once (32 at
+// DP = 128 keep S^T and dP^T in registers beside dK and dV).
 template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_THREADS, 2)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Params p) {
-  constexpr int SD = DP + 1;
-  extern __shared__ float bsm[];
-  float* ks = bsm;
-  float* vs = ks + 64 * SD;
-  float* qs = vs + 64 * SD;
-  float* dos = qs + 64 * SD;
-  float* ps = dos + 64 * SD;
-  float* dss = ps + BWD_BQ * BWD_SP;
-  float* lse_s = dss + BWD_BQ * BWD_SP;
-  float* del_s = lse_s + BWD_BQ;
-  const int bkv = blockIdx.x, k0 = blockIdx.y * BWD_BK;
+  constexpr int ST = mma_stride<DP>();
+  constexpr int QC = DP > 64 ? 32 : 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][ST]
+  __nv_bfloat16* vs = ks + BWD_TILE * ST;                           // [64][ST]
+  __nv_bfloat16* ring = vs + BWD_TILE * ST;                         // [stage][Q, dO][64][ST]
+  float* rows_s = reinterpret_cast<float*>(ring + 4 * BWD_TILE * ST);  // [stage][lse, delta][64]
+  const int bkv = blockIdx.x, k0 = blockIdx.y * BWD_TILE;
   const int group = p.bhq / p.bhkv, d = p.d;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int kend = min(k0 + BWD_BK, p.skv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kend = min(k0 + BWD_TILE, p.skv);
+  const int key0 = k0 + warp * 16;  // this warp's keys
+  const bool warp_live = key0 < p.skv;
 
-  load_tile_f32<DP>(ks, k + static_cast<size_t>(bkv) * p.skv * d, k0, p.skv, d);
-  load_tile_f32<DP>(vs, v + static_cast<size_t>(bkv) * p.skv * d, k0, p.skv, d);
-  float acc_k[4][DP / 16], acc_v[4][DP / 16];
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
-  for (int gi = 0; gi < group; ++gi) {
-    const int head = bkv * group + gi;
-    const int off = p.offs ? p.offs[head] : p.off0;
-    // the rows i of this head that can see a key of [k0, kend): causal needs
-    // off + i >= k0, a window off + i - window + 1 < kend
-    const int i_lo = p.causal ? max(0, k0 - off) : 0;
-    const int i_hi = p.has_window ? min(p.sq, kend + p.window - 1 - off) : p.sq;
-    const size_t base = static_cast<size_t>(head) * p.sq;
-    for (int q0 = i_lo / BWD_BQ * BWD_BQ; q0 < i_hi; q0 += BWD_BQ) {
-      __syncthreads();  // every thread is done with the last tile
-      load_tile_f32<DP>(qs, q + base * d, q0, p.sq, d);
-      load_tile_f32<DP>(dos, dout + base * d, q0, p.sq, d);
-      load_rows(lse_s, del_s, lse, delta, base, q0, p.sq);
-      __syncthreads();
-      bwd_scores<DP>(qs, dos, ks, vs, lse_s, del_s, ps, dss, p, off, q0, k0);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 rows, in row order
-#pragma unroll 4
-      for (int r = 0; r < BWD_BQ; ++r) {
-        float pa[4], sa[4];
+  auto fetch = [&](int stage, int gi, int q0) {
+    const size_t base = static_cast<size_t>(bkv * group + gi) * p.sq;
+    __nv_bfloat16* st = ring + stage * 2 * BWD_TILE * ST;
+    float* rs = rows_s + stage * 2 * BWD_TILE;
+    load_tile<DP, BWD_TILE>(st, q + base * d, q0, p.sq, d);
+    load_tile<DP, BWD_TILE>(st + BWD_TILE * ST, dout + base * d, q0, p.sq, d);
+    for (int r = threadIdx.x; r < BWD_TILE; r += BWD_THREADS) {
+      const bool in = q0 + r < p.sq;
+      cp_async4(rs + r, in ? lse + base + q0 + r : lse, in ? 4 : 0);
+      cp_async4(rs + BWD_TILE + r, in ? delta + base + q0 + r : delta, in ? 4 : 0);
+    }
+  };
+  const size_t kv0 = static_cast<size_t>(bkv) * p.skv * d;
+  load_tile<DP, BWD_TILE>(ks, k + kv0, k0, p.skv, d);
+  load_tile<DP, BWD_TILE>(vs, v + kv0, k0, p.skv, d);
+  int gi = -1, q0 = 0;
+  bool have = next_q_tile(p, bkv, group, k0, kend, gi, q0);
+  if (have) fetch(0, gi, q0);
+  cp_async_commit();
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int n = 0; have; ++n) {
+    int gn = gi, qn = q0;
+    const bool more = next_q_tile(p, bkv, group, k0, kend, gn, qn);
+    cp_async_wait<0>();
+    __syncthreads();  // tile n (and K, V) has landed, and every warp is done with tile n - 1
+    if (more) fetch((n + 1) % 2, gn, qn);
+    cp_async_commit();
+    if (warp_live) {
+      const __nv_bfloat16* qs = ring + (n % 2) * 2 * BWD_TILE * ST;
+      const float* lse_s = rows_s + (n % 2) * 2 * BWD_TILE;
+      const int pos0 = (p.offs ? p.offs[bkv * group + gi] : p.off0) + q0;
+      const int rows = min(BWD_TILE, p.sq - q0);
+      // the warp's 16 keys against the tile's first and last real rows: none
+      // visible to any row (skipped), or all to every row (no mask)
+      int lo_first, hi_first, lo_last, hi_last;
+      key_range(p, pos0, lo_first, hi_first);
+      key_range(p, pos0 + rows - 1, lo_last, hi_last);
+      if (hi_last > key0 && lo_first < key0 + 16) {
+        const bool full = rows == BWD_TILE && lo_last <= key0 && hi_first >= key0 + 16;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = ps[r * BWD_SP + ty + 16 * i];
-          sa[i] = dss[r * BWD_SP + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < DP / 16; ++j) {
-          const float ob = dos[r * SD + tx + 16 * j], qb = qs[r * SD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][j] = fmaf(pa[i], ob, acc_v[i][j]);
-            acc_k[i][j] = fmaf(sa[i], qb, acc_k[i][j]);
-          }
+        for (int c0 = 0; c0 < BWD_TILE; c0 += QC) {
+          if (full)
+            dkdv_part<DP, QC, false>(ks, vs, qs, qs + BWD_TILE * ST, lse_s, lse_s + BWD_TILE,
+                                     dk_acc, dv_acc, p, pos0, rows, c0, key0, scale_log2);
+          else
+            dkdv_part<DP, QC, true>(ks, vs, qs, qs + BWD_TILE * ST, lse_s, lse_s + BWD_TILE,
+                                    dk_acc, dv_acc, p, pos0, rows, c0, key0, scale_log2);
         }
       }
     }
+    gi = gn;
+    q0 = qn;
+    have = more;
   }
+  cp_async_wait<0>();
+
+  // dk_acc[j][e]: key key0 + lane/4 (+ 8 for e >= 2), column 8j + 2(lane%4) + e%2
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + lane / 4 + 8 * h;
     if (key >= p.skv) continue;
-    const size_t at = (static_cast<size_t>(bkv) * p.skv + key) * d;
+    const size_t at = kv0 + static_cast<size_t>(key) * d;
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) {
-        dk[at + c] = __float2bfloat16(acc_k[i][j] * p.scale);
-        dv[at + c] = __float2bfloat16(acc_v[i][j]);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) = __floats2bfloat162_rn(
+            dk_acc[j][2 * h] * p.scale, dk_acc[j][2 * h + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+            __floats2bfloat162_rn(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
       }
     }
   }
 }
 
-// dQ of 64 rows of one q head over their visible keys, 64 at a time
+// One K/V tile of 64 keys against this warp's 16 q rows: S = Q K^T and dP =
+// dO V^T on the tensor cores, P = exp(S scale - lse) (0 where MASK finds the
+// key hidden), dS = P (dP - delta) rounded to bf16 as the A fragments of dQ
+// += dS K (K's B fragments by ldmatrix.trans).  lse2: the lane's two rows'
+// lse in the log2 domain (+inf past Sq), del their delta.
+template <int DP, bool MASK>
+__device__ __forceinline__ void dq_tile(const __nv_bfloat16* qs, const __nv_bfloat16* dos,
+                                        const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                        const float (&lse2)[2], const float (&del)[2],
+                                        float (&dq)[DP / 8][4], const Params& p,
+                                        const int (&pos)[2], const bool (&in)[2], int kt0,
+                                        float scale_log2) {
+  constexpr int ST = mma_stride<DP>();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float s[BWD_TILE / 8][4], dp[BWD_TILE / 8][4];
+#pragma unroll
+  for (int j = 0; j < BWD_TILE / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    unsigned qa[4], oa[4];
+    const int arow = (warp * 16 + lane % 16) * ST + kk * 16 + (lane / 16) * 8;
+    ldmatrix_x4(qa, qs + arow);
+    ldmatrix_x4(oa, dos + arow);
+#pragma unroll
+    for (int jp = 0; jp < BWD_TILE / 16; ++jp) {
+      unsigned b[4];  // {b0, b1} of key tiles 2jp and 2jp + 1
+      const int brow = (jp * 16 + lane % 8 + (lane / 16) * 8) * ST + kk * 16 + ((lane / 8) % 2) * 8;
+      ldmatrix_x4(b, ks + brow);
+      mma_bf16(s[2 * jp], qa, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+      ldmatrix_x4(b, vs + brow);
+      mma_bf16(dp[2 * jp], oa, b[0], b[1]);
+      mma_bf16(dp[2 * jp + 1], oa, b[2], b[3]);
+    }
+  }
+  // s[j][e]: row lane/4 (+ 8 for e >= 2) of the warp's, key kt0 + 8j + 2(lane%4) + e%2
+  unsigned sa[BWD_TILE / 16][4];
+#pragma unroll
+  for (int j = 0; j < BWD_TILE / 8; ++j) {
+    float dsv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e / 2;
+      float x = fast_exp2(fmaf(s[j][e], scale_log2, -lse2[h]));
+      if (MASK && !(in[h] && key_visible(p, pos[h], kt0 + 8 * j + 2 * (lane % 4) + e % 2)))
+        x = 0.f;
+      dsv[e] = x * (dp[j][e] - del[h]);
+    }
+    sa[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+    sa[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < BWD_TILE / 16; ++kk) {
+    const int brow = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ST + (lane / 16) * 8;
+#pragma unroll
+    for (int jp = 0; jp < DP / 16; ++jp) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, ks + brow + jp * 16);
+      mma_bf16(dq[2 * jp], sa[kk], b[0], b[1]);
+      mma_bf16(dq[2 * jp + 1], sa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// dQ of 64 rows of one q head: Q, dO, lse and delta stay resident; the K/V
+// tiles of the union of the rows' visible keys stream through a 2-stage
+// cp.async ring; dQ stays in fp32 registers, 16 rows a warp.
 template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_THREADS, 2)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, Params p) {
-  constexpr int SD = DP + 1;
-  extern __shared__ float bsm[];
-  float* ks = bsm;
-  float* vs = ks + 64 * SD;
-  float* qs = vs + 64 * SD;
-  float* dos = qs + 64 * SD;
-  float* ps = dos + 64 * SD;
-  float* dss = ps + BWD_BQ * BWD_SP;
-  float* lse_s = dss + BWD_BQ * BWD_SP;
-  float* del_s = lse_s + BWD_BQ;
+  constexpr int ST = mma_stride<DP>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][ST]
+  __nv_bfloat16* dos = qs + BWD_TILE * ST;                          // [64][ST]
+  __nv_bfloat16* kvs = dos + BWD_TILE * ST;                         // [stage][K, V][64][ST]
   const int head = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;  // the causal heaviest tile first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_TILE;  // the causal heaviest tile first
   const int group = p.bhq / p.bhkv, d = p.d;
   const int bkv = head / group;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int off = p.offs ? p.offs[head] : p.off0;
   const size_t base = static_cast<size_t>(head) * p.sq;
+  const int last = min(q0 + BWD_TILE, p.sq) - 1;
 
-  load_tile_f32<DP>(qs, q + base * d, q0, p.sq, d);
-  load_tile_f32<DP>(dos, dout + base * d, q0, p.sq, d);
-  load_rows(lse_s, del_s, lse, delta, base, q0, p.sq);
-  // the union of the tile's rows' visible keys
-  const int last = min(q0 + BWD_BQ, p.sq) - 1;
+  // the union of the block's rows' visible keys: a window's lower end and the
+  // causal upper end rise with the row
   int lo_b, hi_b, unused;
-  key_range(p, off + q0, lo_b, unused);  // a window's lower end rises with the row
-  key_range(p, off + last, unused, hi_b);  // the causal upper end too
-  float acc[4][DP / 16];
+  key_range(p, off + q0, lo_b, unused);
+  key_range(p, off + last, unused, hi_b);
+  // this warp's rows, and this lane's two of them
+  const int w0 = q0 + warp * 16, w1 = min(w0 + 15, p.sq - 1);
+  const bool warp_live = w0 < p.sq;
+  int pos[2];
+  bool in[2];
+  float lse2[2], del[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int r = w0 + lane / 4 + 8 * h;
+    in[h] = r < p.sq;
+    pos[h] = off + r;
+    lse2[h] = in[h] ? lse[base + r] * LOG2E : INFINITY;
+    del[h] = in[h] ? delta[base + r] : 0.f;
+  }
+  int lo_first, hi_first, lo_last, hi_last;
+  key_range(p, off + w0, lo_first, hi_first);
+  key_range(p, off + w1, lo_last, hi_last);
+
+  float acc[DP / 8][4];
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   const __nv_bfloat16* kb = k + static_cast<size_t>(bkv) * p.skv * d;
   const __nv_bfloat16* vb = v + static_cast<size_t>(bkv) * p.skv * d;
-  for (int k0 = lo_b / BWD_BK * BWD_BK; k0 < hi_b; k0 += BWD_BK) {
-    __syncthreads();  // every thread is done with the last K/V tile
-    load_tile_f32<DP>(ks, kb, k0, p.skv, d);
-    load_tile_f32<DP>(vs, vb, k0, p.skv, d);
-    __syncthreads();
-    bwd_scores<DP>(qs, dos, ks, vs, lse_s, del_s, ps, dss, p, off, q0, k0);
-    __syncthreads();
-    // dQ += dS K over the tile's 64 keys, in key order
-#pragma unroll 4
-    for (int kk = 0; kk < BWD_BK; ++kk) {
-      float sa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dss[(ty + 16 * i) * BWD_SP + kk];
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        const float kv = ks[kk * SD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(sa[i], kv, acc[i][j]);
+  const int t0 = lo_b / BWD_TILE;
+  const int t1 = hi_b > lo_b ? (hi_b + BWD_TILE - 1) / BWD_TILE : t0;
+  if (t0 < t1) {
+    load_tile<DP, BWD_TILE>(qs, q + base * d, q0, p.sq, d);
+    load_tile<DP, BWD_TILE>(dos, dout + base * d, q0, p.sq, d);
+    load_tile<DP, BWD_TILE>(kvs, kb, t0 * BWD_TILE, p.skv, d);
+    load_tile<DP, BWD_TILE>(kvs + BWD_TILE * ST, vb, t0 * BWD_TILE, p.skv, d);
+    cp_async_commit();
+    const float scale_log2 = p.scale * LOG2E;
+    for (int t = t0; t < t1; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile t (and Q, dO) has landed, and every warp is done with tile t - 1
+      if (t + 1 < t1) {
+        __nv_bfloat16* nxt = kvs + ((t + 1 - t0) % 2) * 2 * BWD_TILE * ST;
+        load_tile<DP, BWD_TILE>(nxt, kb, (t + 1) * BWD_TILE, p.skv, d);
+        load_tile<DP, BWD_TILE>(nxt + BWD_TILE * ST, vb, (t + 1) * BWD_TILE, p.skv, d);
       }
+      cp_async_commit();
+      const int kt0 = t * BWD_TILE;
+      // the tile's keys against the warp's first and last rows: none visible
+      // (skipped), or all to every row (no mask)
+      if (!warp_live || hi_last <= kt0 || lo_first >= kt0 + BWD_TILE) continue;
+      const __nv_bfloat16* ks = kvs + ((t - t0) % 2) * 2 * BWD_TILE * ST;
+      if (w1 == w0 + 15 && lo_last <= kt0 && hi_first >= kt0 + BWD_TILE)
+        dq_tile<DP, false>(qs, dos, ks, ks + BWD_TILE * ST, lse2, del, acc, p, pos, in, kt0,
+                           scale_log2);
+      else
+        dq_tile<DP, true>(qs, dos, ks, ks + BWD_TILE * ST, lse2, del, acc, p, pos, in, kt0,
+                          scale_log2);
     }
+    cp_async_wait<0>();
   }
+
+  // acc[j][e]: row lane/4 (+ 8 for e >= 2) of the warp's, column 8j + 2(lane%4) + e%2
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.sq) continue;
-    const size_t at = (base + row) * d;
+  for (int h = 0; h < 2; ++h) {
+    if (!in[h]) continue;
+    __nv_bfloat16* row = dq + (base + w0 + lane / 4 + 8 * h) * d;
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) dq[at + c] = __float2bfloat16(acc[i][j] * p.scale);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(acc[j][2 * h] * p.scale, acc[j][2 * h + 1] * p.scale);
     }
   }
 }
@@ -1463,12 +1665,13 @@ int launch_bwd_dp(const void* q, const void* k, const void* v, const void* dout,
   const auto* kp = static_cast<const bf*>(k);
   const auto* vp = static_cast<const bf*>(v);
   const auto* dop = static_cast<const bf*>(dout);
-  const dim3 kv_grid(p.bhkv, (p.skv + BWD_BK - 1) / BWD_BK);
+  // the causal heaviest key tiles (the first) are the first blocks
+  const dim3 kv_grid(p.bhkv, (p.skv + BWD_TILE - 1) / BWD_TILE);
   flash_bwd_dkdv_kernel<DP><<<kv_grid, BWD_THREADS, bytes, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid(p.bhq, (p.sq + BWD_BQ - 1) / BWD_BQ);
+  const dim3 q_grid(p.bhq, (p.sq + BWD_TILE - 1) / BWD_TILE);
   flash_bwd_dq_kernel<DP><<<q_grid, BWD_THREADS, bytes, stream>>>(qp, kp, vp, dop, lse, delta,
                                                                    static_cast<bf*>(dq), p);
   return static_cast<int>(cudaGetLastError());
@@ -1480,15 +1683,16 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o, const vo
   const bool aligned =
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
-       reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16 == 0;
   if (p.d < 8 || p.d > 128 || p.d % 8 != 0 || !aligned || p.bhkv < 1 || p.bhkv > 65535 ||
       p.bhq % p.bhkv != 0 || p.bhq > 65535 || p.sq < 1 || p.skv < p.sq ||
-      (p.skv + BWD_BK - 1) / BWD_BK > 65535 || (p.sq + BWD_BQ - 1) / BWD_BQ > 65535 ||
+      (p.skv + BWD_TILE - 1) / BWD_TILE > 65535 || (p.sq + BWD_TILE - 1) / BWD_TILE > 65535 ||
       lse == nullptr || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int rows = p.bhq * p.sq;
-  flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, s>>>(
+  flash_bwd_delta_kernel<<<(rows + 31) / 32, 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, rows,
       p.d);
   const cudaError_t err = cudaGetLastError();
@@ -1541,7 +1745,7 @@ extern "C" int repro_flash_decode_bf16(const void* q, const void* k, const void*
 
 // K5-bwd: q (BHq, Sq, D), k and v (BHkv, Skv, D), the forward's out and lse, the output
 // gradient dout -> dq, dk, dv (bf16); delta is an fp32 (BHq, Sq) workspace.  bf16 with
-// D % 8 == 0, D <= 128, Skv >= Sq and 16-byte aligned q, k, v, out and dout.
+// D % 8 == 0, D <= 128, Skv >= Sq and 16-byte aligned q, k, v, out, dout and outputs.
 extern "C" int repro_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
                                     const void* dout, const void* lse, void* dq, void* dk,
                                     void* dv, void* delta, const int* offs, int off0, int bhq,

@@ -14,8 +14,9 @@
 // before launch from the dtype, C, D, F and the pointers' alignment.
 //
 // moe_gmm_wgmma_kernel (prefill, operation bound): Hopper's warpgroup MMA fed
-// by the Tensor Memory Accelerator.  A block owns a 128 x 256 output tile of
-// one expert: two consumer warpgroups of 64 rows each run
+// by the Tensor Memory Accelerator (gmm_tile, shared with K6-bwd below).  A
+// block owns a 128 x 256 output tile of one expert: two consumer warpgroups
+// of 64 rows each run
 // wgmma.mma_async.m64n256k16 with fp32 accumulators in registers (128 a
 // thread), and one producer warp starts TMA copies of the D slices (64 deep)
 // into a ring of 4 stages behind full/empty mbarriers, so the copies need no
@@ -75,19 +76,32 @@
 //
 // K6-bwd, the gradient (the TPU kernel has none: the reference trains on
 // XLA's gradient of kernels/ref.py; the card needs a kernel for backward()):
-// moe_gmm_dx_kernel computes dx = dy . w^T and moe_gmm_dw_kernel dw = x^T .
-// dy per expert, bf16 in, fp32 accumulators on mma.sync m16n8k16, bf16 out.
-// Bound: at Mixtral 8x7B's widths and C = 2560 (an 8,192-token microbatch)
-// each product is 2.4 TFLOP, 2.43 ms at 989 TFLOP/s, bound by operations;
-// at decode-sized C the bytes of w or dw bound it.  Both kernels keep the
-// mma kernel's shape: a block owns one 128 x 128 output tile of one expert,
-// 8 warps of 64 x 32, and walks the whole k range through a 3-stage
-// cp.async ring of 32-deep slices, so nothing is split across blocks and
-// there are no atomics: the gradients are bit-identical run to run.  dx
-// reads w's rows in place as the B operand (k = F is contiguous in them), so
-// no transposed copy of the weights is made; dw loads x's rows and turns
-// them with ldmatrix.trans.  D and F must be multiples of 8 and the tensors
-// 16-byte aligned; ragged C, D and F tiles are zero-filled and masked.
+// moe_gmm_dx_wgmma_kernel computes dx = dy . w^T and moe_gmm_dw_wgmma_kernel
+// dw = x^T . dy per expert, bf16 in, fp32 accumulators, bf16 out.  Bound: at
+// Mixtral 8x7B's widths and C = 2560 (an 8,192-token microbatch) each
+// product is 2.4 TFLOP, 2.43 ms at 989 TFLOP/s, bound by operations; at
+// decode-sized C the bytes of w or dw bound it.  The first version ran these
+// on mma.sync from a cp.async ring fed by all 256 threads (233 TFLOP/s at
+// C = 2560, PERF.md), which cannot reach the wgmma rate.  Both now run the
+// forward's pipeline (gmm_tile): 128 x 256 output tiles, two consumer
+// warpgroups on wgmma m64n256k16, one producer warp keeping TMA copies of
+// 64-deep k slices in the 4-stage full/empty mbarrier ring, 128-byte
+// swizzle, rank-3 maps with the expert as a coordinate, so TMA zero-fills a
+// ragged C, D or F.  They differ from the forward in their operands' major
+// order only, which wgmma's transpose bits absorb:
+// * dx (M = C, N = D, k = F): dy's (128 x 64) tile is the K-major A, as x is
+//   in the forward; w's rows are read in place as a K-major B (F is
+//   contiguous in them), four 64-row boxes, so no transposed copy is made.
+// * dw (M = D, N = F, k = C): x^T is an MN-major A, two 64-column boxes of
+//   x's rows for 128 rows of D, read with imm-trans-a = 1 (allowed for
+//   bf16); dy is an MN-major B, as w is in the forward.
+// Each block walks its whole k range in order, so nothing is split across
+// blocks, there are no atomics, and the gradients are bit-identical run to
+// run.  They take any C >= 1, D and F multiples of 8 and 16-byte aligned
+// tensors (TMA's strides and addresses).  On an H100 (700 W) both products at
+// Mixtral's gate/up and C = 2560 took 7.5 graph ms, 638 TFLOP/s, beside two
+// torch.bmm calls' 6.9 (PERF.md); at C <= 40 dw's blocks each run one or two
+// k slices, and their prologue and epilogue (one block an SM) dominate.
 //
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(), or WGMMA_MAP_ERROR plus the
@@ -310,18 +324,19 @@ int launch_bf16(const void* x, const void* w, void* out, int e, int c, int d, in
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// moe_gmm_wgmma_kernel: wgmma + TMA (prefill)
+// moe_gmm_wgmma_kernel (prefill) and K6-bwd's moe_gmm_dx_wgmma_kernel and
+// moe_gmm_dw_wgmma_kernel: wgmma + TMA on the same tiles (gmm_tile)
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int BM = 128;          // output rows (C) per block: two consumer warpgroups of 64
-constexpr int BN = 256;          // output columns (F) per block
-constexpr int BK = 64;           // D slice per stage: one 128-byte swizzle row of bf16
+constexpr int BM = 128;          // output rows (M) per block: two consumer warpgroups of 64
+constexpr int BN = 256;          // output columns (N) per block
+constexpr int BK = 64;           // k slice per stage: one 128-byte swizzle row of bf16
 constexpr int STAGES = 4;        // TMA ring depth
 constexpr int CONSUMERS = 256;   // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int A_BYTES = BM * BK * 2;     // 16 KB: x's tile, K-major
-constexpr int BOX_BYTES = BK * 64 * 2;   // 8 KB: one 64-column box of w's tile, MN-major
+constexpr int A_BYTES = BM * BK * 2;     // 16 KB: A's tile
+constexpr int BOX_BYTES = BK * 64 * 2;   // 8 KB: one 64 x 64 box
 constexpr int B_BYTES = (BN / 64) * BOX_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
@@ -383,9 +398,11 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// D (64 x 256, fp32, 128 registers a thread) = A (64 x 16, K-major) . B
-// (16 x 256, MN-major: imm-trans-b = 1), both from shared memory, plus D
-// itself when `accumulate` (scale-d) is nonzero.
+// D (64 x 256, fp32, 128 registers a thread) = A (64 x 16) . B (16 x 256),
+// both from shared memory, plus D itself when `accumulate` (scale-d) is
+// nonzero.  TA, TB: imm-trans-a, imm-trans-b, 1 for an MN-major operand
+// (M or N contiguous), 0 for a K-major one.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint64_t b,
                                               int accumulate) {
   asm volatile(
@@ -399,7 +416,7 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint6
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -416,13 +433,25 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint6
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
-                     int c, int d, int f) {
+// One 128 x 256 tile of out[e] (M x N) = A[e] (M x K) . B[e] (K x N), the
+// block's (blockIdx.x, blockIdx.y, expert blockIdx.z).  The producer warp
+// streams 64-deep k slices by TMA; a box wholly past M or N is not loaded
+// (the rows or columns it would give are not stored), a box partly past M,
+// N or K is zero-filled by TMA.  Operands (both 128-byte swizzled):
+// * A K-major (A_MN false: rows of K contiguous): one (128 x 64) box of an
+//   (E, M, K) map; warpgroup g reads its 64 rows, 8 KB in.
+// * A MN-major (A_MN: M contiguous): two (64 k x 64 m) boxes of an (E, K, M)
+//   map; warpgroup g reads box g with the transpose bit.
+// * B K-major (B_MN false): four (64 n x 64 k) boxes of an (E, N, K) map,
+//   stacked into 256 rows of 128 bytes.
+// * B MN-major (B_MN): four (64 k x 64 n) boxes of an (E, K, N) map, read
+//   with the transpose bit.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void gmm_tile(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                         __nv_bfloat16* __restrict__ out, int m, int n, int k) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: stage buffers start on 1024
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -431,7 +460,7 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   uint64_t* empty = full + STAGES;
 
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
-  const int slices = (d + BK - 1) / BK;
+  const int slices = (k + BK - 1) / BK;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -445,16 +474,25 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread starts every copy
     if (threadIdx.x == CONSUMERS) {
-      const int boxes = min(BN / 64, (f - n0 + 63) / 64);  // boxes wholly past F are not loaded
-      const unsigned bytes = A_BYTES + boxes * BOX_BYTES;
+      const int a_boxes = A_MN ? min(BM / 64, (m - m0 + 63) / 64) : 1;
+      const int b_boxes = min(BN / 64, (n - n0 + 63) / 64);
+      const unsigned bytes = (A_MN ? a_boxes * BOX_BYTES : A_BYTES) + b_boxes * BOX_BYTES;
       for (int kt = 0; kt < slices; ++kt) {
-        const int s = kt % STAGES;
+        const int s = kt % STAGES, k0 = kt * BK;
         mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);  // the first round passes at once
         unsigned char* st = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], bytes);
-        tma_load(st, &xmap, &full[s], kt * BK, m0, e);
-        for (int j = 0; j < boxes; ++j)
-          tma_load(st + A_BYTES + j * BOX_BYTES, &wmap, &full[s], n0 + 64 * j, kt * BK, e);
+        if (A_MN)
+          for (int i = 0; i < a_boxes; ++i)
+            tma_load(st + i * BOX_BYTES, amap, &full[s], m0 + 64 * i, k0, e);
+        else
+          tma_load(st, amap, &full[s], k0, m0, e);
+        for (int j = 0; j < b_boxes; ++j) {
+          if (B_MN)
+            tma_load(st + A_BYTES + j * BOX_BYTES, bmap, &full[s], n0 + 64 * j, k0, e);
+          else
+            tma_load(st + A_BYTES + j * BOX_BYTES, bmap, &full[s], k0, n0 + 64 * j, e);
+        }
       }
     }
     return;
@@ -469,16 +507,20 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   for (int kt = 0; kt < slices; ++kt) {
     const int s = kt % STAGES;
     mbar_wait(&full[s], (kt / STAGES) & 1);
-    const unsigned char* a = smem + s * STAGE_BYTES + g * 64 * 128;
+    const unsigned char* a = smem + s * STAGE_BYTES + g * BOX_BYTES;
     const unsigned char* b = smem + s * STAGE_BYTES + A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      // A: 16 values = 32 bytes along a 128-byte row, 8-row groups 1024 apart.
-      // B: 16 rows of 128 bytes = 2048 bytes deeper; 8-row groups 1024 apart,
-      //    64-column boxes BOX_BYTES apart.
-      wgmma_m64n256(acc, smem_desc(a + kk * 32, 16, 1024),
-                    smem_desc(b + kk * 2048, BOX_BYTES, 1024), kt > 0 || kk > 0);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // K-major: 16 values = 32 bytes along a 128-byte row, 8-row groups 1024
+      // apart.  MN-major: 16 rows of 128 bytes = 2048 bytes deeper, 8-row
+      // groups 1024 apart, 64-wide boxes BOX_BYTES apart.
+      const uint64_t ad = A_MN ? smem_desc(a + kk * 2048, BOX_BYTES, 1024)
+                               : smem_desc(a + kk * 32, 16, 1024);
+      const uint64_t bd = B_MN ? smem_desc(b + kk * 2048, BOX_BYTES, 1024)
+                               : smem_desc(b + kk * 32, 16, 1024);
+      wgmma_m64n256<A_MN, B_MN>(acc, ad, bd, kt > 0 || kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous slice's products are done: release its stage
     if (kt > 0 && threadIdx.x % 32 == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
@@ -486,21 +528,49 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   wgmma_wait<0>();
 
   // epilogue: accumulator (row 16 * warp + lane / 4 [+ 8], columns
-  // 8 j + 2 (lane % 4) + {0, 1}) -> bf16; F % 8 == 0, so a pair is in or out
+  // 8 j + 2 (lane % 4) + {0, 1}) -> bf16; N % 8 == 0, so a pair is in or out
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int row = m0 + g * 64 + warp * 16 + lane / 4;
-  __nv_bfloat16* oe = out + static_cast<size_t>(e) * c * f;
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * m * n;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = n0 + j * 8 + (lane % 4) * 2;
-    if (col >= f) continue;
+    if (col >= n) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (row + 8 * h >= c) continue;
-      *reinterpret_cast<__nv_bfloat162*>(oe + static_cast<size_t>(row + 8 * h) * f + col) =
+      if (row + 8 * h >= m) continue;
+      *reinterpret_cast<__nv_bfloat162*>(oe + static_cast<size_t>(row + 8 * h) * n + col) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
+}
+
+// out (E, C, F) = x (E, C, D) . w (E, D, F): x K-major, w MN-major (F contiguous)
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ out,
+                     int m, int n, int k) {
+  gmm_tile<false, true>(&xmap, &wmap, out, m, n, k);
+}
+
+// K6-bwd: dx (E, C, D) = dy (E, C, F) . w^T: M = C, N = D, k = F.  dy is a
+// K-major A as x is in the forward; w's rows are a K-major B read in place
+// (F contiguous in them), so no transposed copy is made.
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap dymap,
+                        const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ dx,
+                        int m, int n, int k) {
+  gmm_tile<false, false>(&dymap, &wmap, dx, m, n, k);
+}
+
+// K6-bwd: dw (E, D, F) = x^T . dy: M = D, N = F, k = C.  x^T is an MN-major
+// A (two 64-column boxes of x for 128 rows of D), dy an MN-major B as w is
+// in the forward.
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap dymap, __nv_bfloat16* __restrict__ dw,
+                        int m, int n, int k) {
+  gmm_tile<true, true>(&xmap, &dymap, dw, m, n, k);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -547,23 +617,64 @@ int make_map(CUtensorMap* map, const void* base, int outer, int rows, int inner,
   return r == CUDA_SUCCESS ? 0 : WGMMA_MAP_ERROR + static_cast<int>(r);
 }
 
+// out (E, M, N) from A's and B's maps, 128 x 256 tiles, M tiles fastest (the
+// blocks in flight share B's tile: the expert weights in the forward and
+// dx, dy in dw)
+template <typename Kernel>
+int launch_tiles(Kernel kernel, bool& configured, const CUtensorMap& amap, const CUtensorMap& bmap,
+                 void* out, int e, int m, int n, int k, cudaStream_t stream) {
+  if (!configured) {  // above 48 KB only after this attribute is set
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, e);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(amap, bmap, static_cast<__nv_bfloat16*>(out), m,
+                                                n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
            cudaStream_t stream) {
   CUtensorMap xmap, wmap;
   int err = make_map(&xmap, x, e, c, d, BM);
   if (err == 0) err = make_map(&wmap, w, e, d, f, BK);
   if (err != 0) return err;
-  static bool configured = false;  // above 48 KB only after this attribute is set
-  if (!configured) {
-    const cudaError_t e2 = cudaFuncSetAttribute(
-        moe_gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e2 != cudaSuccess) return static_cast<int>(e2);
-    configured = true;
-  }
-  const dim3 grid((c + BM - 1) / BM, (f + BN - 1) / BN, e);  // C tiles fastest: w read ~once
-  moe_gmm_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      xmap, wmap, static_cast<__nv_bfloat16*>(out), c, d, f);
-  return static_cast<int>(cudaGetLastError());
+  static bool configured = false;
+  return launch_tiles(moe_gmm_wgmma_kernel, configured, xmap, wmap, out, e, c, f, d, stream);
+}
+
+bool bwd_takes(const void* a, const void* b, const void* out, int e, int c, int d, int f) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return aligned && e >= 1 && e <= 65535 && c >= 1 && d >= 8 && d % 8 == 0 && f >= 8 &&
+         f % 8 == 0 && (c + BM - 1) / BM <= 65535 && (d + BM - 1) / BM <= 65535;
+}
+
+// dx = dy . w^T: dy's map as x's in the forward (rows C, 64-deep F slices), w's
+// as 64-row boxes of its (D, F) rows
+int launch_dx(const void* dy, const void* w, void* dx, int e, int c, int d, int f,
+              cudaStream_t stream) {
+  if (!bwd_takes(dy, w, dx, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap dymap, wmap;
+  int err = make_map(&dymap, dy, e, c, f, BM);
+  if (err == 0) err = make_map(&wmap, w, e, d, f, 64);
+  if (err != 0) return err;
+  static bool configured = false;
+  return launch_tiles(moe_gmm_dx_wgmma_kernel, configured, dymap, wmap, dx, e, c, d, f, stream);
+}
+
+// dw = x^T . dy: 64-deep C slices of x (64 columns of D a box) and of dy
+int launch_dw(const void* x, const void* dy, void* dw, int e, int c, int d, int f,
+              cudaStream_t stream) {
+  if (!bwd_takes(x, dy, dw, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, dymap;
+  int err = make_map(&xmap, x, e, c, d, BK);
+  if (err == 0) err = make_map(&dymap, dy, e, c, f, BK);
+  if (err != 0) return err;
+  static bool configured = false;
+  return launch_tiles(moe_gmm_dw_wgmma_kernel, configured, xmap, dymap, dw, e, d, f, c, stream);
 }
 
 }  // namespace wg
@@ -737,259 +848,6 @@ int launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
 
 }  // namespace dec
 
-// ---------------------------------------------------------------------------
-// K6-bwd: moe_gmm_dx_kernel and moe_gmm_dw_kernel (the gradient of K6)
-// ---------------------------------------------------------------------------
-namespace bwd {
-
-constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BK = 32;        // k slice per stage
-constexpr int STAGES = 3;     // cp.async ring depth
-constexpr int THREADS = 256;  // 8 warps: 2 along the rows x 4 along the columns, each 64 x 32
-constexpr int KSTR = BK + 8;  // [row][k] tiles: 80-byte rows, ldmatrix rows on distinct banks
-constexpr int MNSTR = BM + 8;  // [k][row or column] tiles: 272-byte rows (BM == BN)
-constexpr int DX_SMEM = STAGES * (BM + BN) * KSTR * 2;  // 61,440 bytes
-constexpr int DW_SMEM = STAGES * 2 * BK * MNSTR * 2;    // 52,224 bytes
-
-// Rows [r0, r0 + R) x k [k0, k0 + BK) of a row-major (nrows x kdim) matrix
-// into a [R][KSTR] tile, 16 bytes a cp.async; kdim % 8 == 0, so a chunk of 8
-// is in the matrix or out of it whole, and out of it is zero-filled.
-template <int R>
-__device__ __forceinline__ void load_rows_k(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                            int r0, int k0, int nrows, int kdim) {
-  for (int ch = threadIdx.x; ch < R * (BK / 8); ch += THREADS) {
-    const int r = ch / (BK / 8), cc = (ch % (BK / 8)) * 8;
-    const int gr = r0 + r, gk = k0 + cc;
-    const bool in = gr < nrows && gk < kdim;
-    cp_async16(dst + r * KSTR + cc, in ? src + static_cast<size_t>(gr) * kdim + gk : src,
-               in ? 16 : 0);
-  }
-}
-
-// k rows [k0, k0 + BK) x columns [c0, c0 + W) of a row-major (kdim x ncols)
-// matrix into a [BK][MNSTR] tile; ncols % 8 == 0, rows past kdim zero-filled.
-template <int W>
-__device__ __forceinline__ void load_k_cols(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                            int k0, int c0, int kdim, int ncols) {
-  for (int ch = threadIdx.x; ch < BK * (W / 8); ch += THREADS) {
-    const int r = ch / (W / 8), cc = (ch % (W / 8)) * 8;
-    const int gk = k0 + r, gc = c0 + cc;
-    const bool in = gk < kdim && gc < ncols;
-    cp_async16(dst + r * MNSTR + cc, in ? src + static_cast<size_t>(gk) * ncols + gc : src,
-               in ? 16 : 0);
-  }
-}
-
-// A warp's 64 x 32 accumulator (4 m16 x 4 n8 tiles) -> bf16 rows < nrows,
-// columns < ncols of a row-major (nrows x ncols) output; ncols % 8 == 0, so
-// a column pair is in or out whole.
-__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ out, const float (&acc)[4][4][4],
-                                           int row0, int col0, int nrows, int ncols) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + wn * 32 + j * 8 + (lane % 4) * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wm * 64 + i * 16 + lane / 4 + h * 8;
-        if (row < nrows && col < ncols)
-          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * ncols + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
-// dx (E, C, D) = dy (E, C, F) . w (E, D, F)^T: M = C, N = D, k = F.  k is
-// contiguous in both operands, so dy's rows are the A tile [m][k] and w's
-// rows, read in place, the B tile [n][k]: ldmatrix without .trans gives the
-// .col B fragment of mma.sync.  grid (D tiles, C tiles, E).
-__global__ void __launch_bounds__(THREADS, 2)
-moe_gmm_dx_kernel(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ dx, int c, int d, int f) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][KSTR]: dy
-  __nv_bfloat16* bs = as + STAGES * BM * KSTR;                   // [STAGES][BN][KSTR]: w
-
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const __nv_bfloat16* dye = dy + static_cast<size_t>(e) * c * f;
-  const __nv_bfloat16* we = w + static_cast<size_t>(e) * d * f;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  const int slices = (f + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < slices) {
-      load_rows_k<BM>(as + s * BM * KSTR, dye, row0, s * BK, c, f);
-      load_rows_k<BN>(bs + s * BN * KSTR, we, col0, s * BK, d, f);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt has landed, and every warp is done with slice kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < slices) {
-      load_rows_k<BM>(as + (next % STAGES) * BM * KSTR, dye, row0, next * BK, c, f);
-      load_rows_k<BN>(bs + (next % STAGES) * BN * KSTR, we, col0, next * BK, d, f);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* a_st = as + (kt % STAGES) * BM * KSTR;
-    const __nv_bfloat16* b_st = bs + (kt % STAGES) * BN * KSTR;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], a_st + (wm * 64 + i * 16 + lane % 16) * KSTR + kk + (lane / 16) * 8);
-      unsigned b[2][4];  // b[p]: {b0, b1} of n8 tiles 2p and 2p + 1
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int mi = lane / 8;
-        const int n = wn * 32 + p * 16 + (mi / 2) * 8 + lane % 8;
-        ldmatrix_x4(b[p], b_st + n * KSTR + kk + (mi % 2) * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
-  store_tile(dx + static_cast<size_t>(e) * c * d, acc, row0, col0, c, d);
-}
-
-// dw (E, D, F) = x (E, C, D)^T . dy (E, C, F): M = D, N = F, k = C.  Both
-// operands are read as rows of C: x's rows land as a [k][m] tile, and
-// ldmatrix.trans turns them into the row-major A fragment; dy's rows are
-// the B tile [k][n], read the way moe_gmm_bf16_kernel reads w.  Rows past C
-// are zero-filled, so any C >= 1 is taken.  grid (F tiles, D tiles, E).
-__global__ void __launch_bounds__(THREADS, 2)
-moe_gmm_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-                  __nv_bfloat16* __restrict__ dw, int c, int d, int f) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BK][MNSTR]: x
-  __nv_bfloat16* bs = as + STAGES * BK * MNSTR;                  // [STAGES][BK][MNSTR]: dy
-
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const __nv_bfloat16* xe = x + static_cast<size_t>(e) * c * d;
-  const __nv_bfloat16* dye = dy + static_cast<size_t>(e) * c * f;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  const int slices = (c + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < slices) {
-      load_k_cols<BM>(as + s * BK * MNSTR, xe, s * BK, row0, c, d);
-      load_k_cols<BN>(bs + s * BK * MNSTR, dye, s * BK, col0, c, f);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < slices) {
-      load_k_cols<BM>(as + (next % STAGES) * BK * MNSTR, xe, next * BK, row0, c, d);
-      load_k_cols<BN>(bs + (next % STAGES) * BK * MNSTR, dye, next * BK, col0, c, f);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* a_st = as + (kt % STAGES) * BK * MNSTR;
-    const __nv_bfloat16* b_st = bs + (kt % STAGES) * BK * MNSTR;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[4][4];  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int mi = lane / 8;
-        const int k = kk + (mi / 2) * 8 + lane % 8;
-        ldmatrix_x4_trans(a[i], a_st + k * MNSTR + wm * 64 + i * 16 + (mi % 2) * 8);
-      }
-      unsigned b[2][4];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int kr = kk + (lane % 8) + ((lane / 8) % 2) * 8;
-        const int nc = wn * 32 + p * 16 + (lane / 16) * 8;
-        ldmatrix_x4_trans(b[p], b_st + kr * MNSTR + nc);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
-  store_tile(dw + static_cast<size_t>(e) * d * f, acc, row0, col0, d, f);
-}
-
-bool takes(const void* a, const void* b, const void* out, int e, int c, int d, int f) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  return aligned && e >= 1 && e <= 65535 && c >= 1 && d >= 8 && d % 8 == 0 && f >= 8 &&
-         f % 8 == 0 && (c + BM - 1) / BM <= 65535 && (d + BM - 1) / BM <= 65535;
-}
-
-int launch_dx(const void* dy, const void* w, void* dx, int e, int c, int d, int f,
-              cudaStream_t stream) {
-  if (!takes(dy, w, dx, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;  // above 48 KB only after this attribute is set
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        moe_gmm_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((d + BN - 1) / BN, (c + BM - 1) / BM, e);
-  moe_gmm_dx_kernel<<<grid, THREADS, DX_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(dx), c, d, f);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_dw(const void* x, const void* dy, void* dw, int e, int c, int d, int f,
-              cudaStream_t stream) {
-  if (!takes(x, dy, dw, e, c, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        moe_gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((f + BN - 1) / BN, (d + BM - 1) / BM, e);
-  moe_gmm_dw_kernel<<<grid, THREADS, DW_SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-      static_cast<__nv_bfloat16*>(dw), c, d, f);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace bwd
-
 extern "C" int repro_moe_gmm_bf16(const void* x, const void* w, void* out, int e, int c, int d,
                                   int f, int vec, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -1014,11 +872,11 @@ extern "C" int repro_moe_gmm_decode_bf16(const void* x, const void* w, void* out
 // cudaErrorInvalidValue otherwise): dx (E, C, D) = dy . w^T per expert.
 extern "C" int repro_moe_gmm_dx_bf16(const void* dy, const void* w, void* dx, int e, int c, int d,
                                      int f, void* stream) {
-  return bwd::launch_dx(dy, w, dx, e, c, d, f, static_cast<cudaStream_t>(stream));
+  return wg::launch_dx(dy, w, dx, e, c, d, f, static_cast<cudaStream_t>(stream));
 }
 
 // dw (E, D, F) = x^T . dy per expert.
 extern "C" int repro_moe_gmm_dw_bf16(const void* x, const void* dy, void* dw, int e, int c, int d,
                                      int f, void* stream) {
-  return bwd::launch_dw(x, dy, dw, e, c, d, f, static_cast<cudaStream_t>(stream));
+  return wg::launch_dw(x, dy, dw, e, c, d, f, static_cast<cudaStream_t>(stream));
 }

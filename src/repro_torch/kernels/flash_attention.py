@@ -40,9 +40,12 @@ on XLA's gradient of its plain version):
 * ``"dq"`` — ``flash_bwd_dq_kernel``: a block per (q head, 64 rows) walks
   its visible keys and sums ``dQ += scale dS K``.
 
-Each output element is summed by one block in a fixed order: no atomics, and
-the gradients are bit-identical run to run.  The products run on the CUDA
-cores (fp32 FMA from shared memory), bf16 in and out.
+Each output element is summed by one warp in a fixed order: no atomics, and
+the gradients are bit-identical run to run.  Every product runs on the tensor
+cores (``mma.sync`` m16n8k16, bf16 tiles fed by ``cp.async`` rings, fp32
+accumulators), with P and dS rounded to bf16 in registers before their
+products, bf16 in and out; ``kernels.ref.attention_grad_mma`` follows that
+order and rounding on the CPU.
 
 ``flash_attention`` and ``flash_attention_bwd`` launch kernels for CUDA
 tensors and take ``kernels.ref.attention`` / ``kernels.ref.attention_grad``

@@ -25,10 +25,12 @@ kernels, so no padded copy is made (the reference pads to its block sizes).
 
 ``grouped_matmul_bwd`` is K6-bwd, the gradient (no TPU kernel: the
 reference differentiates its plain version with XLA; the card needs a kernel
-for ``loss.backward()``): ``moe_gmm_dx_kernel`` writes ``dx = dy @ w^T`` and
-``moe_gmm_dw_kernel`` ``dw = x^T @ dy`` per expert, bf16 on ``mma.sync``
-with fp32 accumulators, one block an output tile over the whole k range, so
-the gradients are bit-identical run to run.  It takes bf16 with D and F
+for ``loss.backward()``): ``moe_gmm_dx_wgmma_kernel`` writes ``dx = dy @
+w^T`` and ``moe_gmm_dw_wgmma_kernel`` ``dw = x^T @ dy`` per expert, bf16 on
+the wgmma kernel's pipeline (``wgmma`` fed by TMA, 128 x 256 tiles; w read
+in place as a K-major operand, x^T as an MN-major one) with fp32
+accumulators, one block an output tile over the whole k range, so the
+gradients are bit-identical run to run.  It takes bf16 with D and F
 multiples of 8 and 16-byte aligned contiguous tensors, and raises otherwise:
 training on the card is bf16 only.
 

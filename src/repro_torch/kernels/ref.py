@@ -209,6 +209,53 @@ def attention_grad(q, k, v, dout, *, causal=True, window=None, q_offset=0):
         return torch.autograd.grad(out, (qr, kr, vr), dout)
 
 
+def attention_grad_mma(q, k, v, dout, *, causal=True, window=None, q_offset=0, out=None,
+                       lse=None):
+    """K5-bwd's gradient in the tensor-core kernels' order and rounding:
+    ``P = exp(S scale - lse)`` and ``dS = P (dP - delta)`` (``delta =
+    rowsum(dO * O)``) in fp32, both rounded to bf16 before their products,
+    ``dV = P^T dO`` and ``dK = scale dS^T Q`` summed over the GQA group's
+    heads, then over q tiles of 64 rows, ``dQ = scale dS K`` over key tiles
+    of 64 keys.  ``out`` and ``lse``: the forward's output and
+    log-sum-exp, as the kernels read them (None: ``attention`` in q's type
+    and ``attention_lse``).  Otherwise the arguments of ``attention_grad``;
+    ``(dq, dk, dv)`` in the inputs' types.  The CPU cannot launch the
+    kernels; this is their emulation, as ``attention_decode_split`` is the
+    decode kernel's.  Nothing on the main path calls it."""
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    group = bhq // bhkv
+    dev = q.device
+    scale = 1.0 / d ** 0.5
+    if out is None:
+        out = attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if lse is None:
+        lse = attention_lse(q, k, causal=causal, window=window, q_offset=q_offset)
+    qf, dof = q.float(), dout.float()
+    kf, vf = _repeat_kv(k.float(), v.float(), bhq)
+    delta = (dof * out.float()).sum(dim=-1)
+    mask = _mask(_q_pos(q_offset, bhq, torch.arange(sq, device=dev)),
+                 torch.arange(skv, device=dev)[None, None, :], causal, window)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), device=dev))
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta[..., None])
+    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    tile = 64  # csrc/flash_attention.cu: BWD_TILE
+    dk = torch.zeros(bhkv, skv, d, device=dev)
+    dv = torch.zeros(bhkv, skv, d, device=dev)
+    for gi in range(group):  # the dkdv kernel's walk: head by head, then q tiles
+        for q0 in range(0, sq, tile):
+            rows = slice(q0, q0 + tile)
+            ph, dsh = p[gi::group, rows], ds[gi::group, rows]
+            dv += torch.einsum("bqk,bqd->bkd", ph, dof[gi::group, rows])
+            dk += torch.einsum("bqk,bqd->bkd", dsh, qf[gi::group, rows])
+    dq = torch.zeros(bhq, sq, d, device=dev)
+    for k0 in range(0, skv, tile):  # the dq kernel's walk over key tiles
+        keys = slice(k0, k0 + tile)
+        dq += torch.einsum("bqk,bkd->bqd", ds[:, :, keys], kf[:, keys])
+    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
 # above this many score elements (Sq * Skv) the gradient goes through the
 # chunked form, whose autograd graph holds (BHq, 512, 1024) tiles
 CHUNKED_GRAD_ABOVE = 1 << 22

@@ -44,9 +44,19 @@ ATTN_SWEEP = [(4, 4, 32, 32, True, None, 0), (4, 2, 64, 64, True, None, 0),
 MODEL_WIDTHS = (1024, 2304, 3840, 4096, 8192)  # Seamless, MiniCPM, Danube, Mixtral, Jamba
 GMM_RTOL, GMM_ATOL = 1e-5, 1e-4  # fp32 products over D of unit-scale inputs
 # K6-bwd's ragged shapes (E, C, D, F): C from 1 and past a 128-row tile, D and F
-# multiples of 8 that are not multiples of the 128-wide tiles or 32-deep slices
+# multiples of 8 that are not multiples of the 128 x 256 tiles or 64-deep
+# slices, so TMA zero-fills every edge of both products
 GMM_BWD_SHAPES = [(3, 37, 40, 72), (2, 1, 8, 16), (1, 130, 136, 200), (4, 300, 264, 24),
-                  (3, 5, 520, 136)]
+                  (3, 5, 520, 136), (2, 200, 72, 600)]
+# K5-bwd's emulation (``ref.attention_grad_mma``) at the sweep x D {64, 120,
+# 128} and at one causal (4, 512, 64) case
+MMA_GRAD_CASES = ([(*case, d) for case in ATTN_SWEEP for d in (64, 120, 128)]
+                  + [(4, 4, 512, 512, True, None, 0, 64)])
+# the kernels against their emulation given the same forward output and
+# log-sum-exp: both round P and dS to bf16 at the same places and their
+# outputs to bf16, so what remains is the order of fp32 sums and exp2.approx,
+# which flip a few values by one bf16 step (2^-8); a fifth of the fp32 limit
+MMA_EMULATION_REL_L2 = 2e-3
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +115,30 @@ def test_attention_grad_matches_reference(reference, bh, bkv, sq, skv, causal, w
     assert p_flash.LAUNCHES == before[1]
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=ATTN_RTOL, atol=ATTN_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("bh,bkv,sq,skv,causal,window,off,d", MMA_GRAD_CASES)
+def test_attention_grad_mma_matches_autograd_and_reference(reference, bh, bkv, sq, skv, causal,
+                                                           window, off, d):
+    """K5-bwd's emulation (P and dS rounded to bf16 before their products,
+    the kernels' tile order) within 1e-2 relative L2 per tensor of fp32
+    autograd of ``ref.attention`` and of the reference's ``jax.vjp``: the
+    limit the card holds the kernels to."""
+    jax, r_ref = reference
+    rng = np.random.default_rng(27)  # its own draws: the other tests' inputs stay as they were
+    q = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(bkv, skv, d)).astype(np.float32) for _ in range(2))
+    do = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    _, vjp = jax.vjp(lambda a, b, c: r_ref.attention(a, b, c, **kw), q, k, v)
+    from_jax = [torch.from_numpy(np.array(t)) for t in vjp(do)]
+    qt, kt, vt, dot = (torch.from_numpy(t) for t in (q, k, v, do))
+    got = p_ref.attention_grad_mma(qt, kt, vt, dot, **kw)
+    want = p_ref.attention_grad(qt, kt, vt, dot, **kw)
+    for name, g, w, r in zip("qkv", got, want, from_jax):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert 0 < rel_l2(g, w) <= BF16_GRAD_REL_L2, (name, rel_l2(g, w))
+        assert rel_l2(g, r) <= BF16_GRAD_REL_L2, (name, rel_l2(g, r))
 
 
 def test_attention_grad_in_tiles_matches_reference(reference, monkeypatch):
@@ -305,9 +339,11 @@ def test_flash_bwd_kernel_on_card(card, bh, bkv, sq, skv, causal, window, off, d
     fin = torch.isfinite(want_lse)
     assert not fin.any() or float((lse[fin] - want_lse[fin]).abs().max()) <= 1e-3
     want = p_ref.attention_grad(qt.float(), kt.float(), vt.float(), dot.float(), **kw)
-    for name, g, g2, w in zip("qkv", got, again, want):
+    emulated = p_ref.attention_grad_mma(qt, kt, vt, dot, out=out, lse=lse, **kw)
+    for name, g, g2, w, m in zip("qkv", got, again, want, emulated):
         assert g.dtype == torch.bfloat16 and torch.equal(g, g2), name
         assert rel_l2(g, w) <= BF16_GRAD_REL_L2, (name, rel_l2(g, w))
+        assert rel_l2(g, m) <= MMA_EMULATION_REL_L2, (name, rel_l2(g, m))
 
 
 @pytest.mark.cuda
