@@ -13,8 +13,10 @@ Phases, in order (any failure exits nonzero):
    ``nvcc`` per source, all started together, with ptxas's register and
    spill lines;
 3. kernels against their plain versions on the card: K1 at the kernel-test
-   shapes and at 1000x1200 @ 1200x1100 in fp32 and bf16, timed in fp32 with
-   its device time; the Triton nest
+   shapes and at 1000x1200 @ 1200x1100 in fp32, timed with its device time,
+   and in bf16 through each of its kernels (wgmma, decode, mma: ragged, K =
+   1, off 8, views off 16 bytes; bit-identical over two launches), timed at
+   1000x1200 @ 1200x1100 beside ``torch.matmul``; the Triton nest
    kernel (K2 parallel, K3 reduction) on stencil halos, triangular guards, a
    guarded reduction with unroll 1/2/4 and each of + * max min, K3 in its
    split form too; K2 at six main-path nests (the mini CLOUDSC scheme's
@@ -116,7 +118,9 @@ Phases, in order (any failure exits nonzero):
    against the fp32 plain forward at the last 256 text positions; then
    ``ops.matmul`` (K1) at the contraction plan's ``q_proj`` and ``ffn_in``
    products of a 2048-token bucket in fp32 and bf16, held against the plain
-   version and timed beside ``torch.matmul``; K4/K5 launches (> 0), K5's
+   version and timed beside ``torch.matmul`` (fp32 on the 3xTF32 kernel, bf16
+   on the wgmma kernel); K4/K5 launches
+   (> 0), K5's
    prefill only on the tensor-core kernel and its decode only on the decode
    kernel, the forward only on the tensor-core kernel;
 12. main path, SeamlessM4T-large-v2 (audio) at its published widths, all 24
@@ -177,7 +181,8 @@ Phases, in order (any failure exits nonzero):
    forward on K4 and K5 (the tensor-core kernel, writing each row's
    log-sum-exp), its backward on K4-bwd and K5-bwd.  (a) K4-bwd in fp32 and
    bf16 at 8192 x 2304 (a microbatch) and 2048 rows at 3840, 4096, 8192 and
-   1024, and K5-bwd at tests/test_kernels.py's sweep x D {64, 120, 128},
+   1024 on its vector kernel, and on the route ``bwd_plan`` picks at 300
+   rows of 40 and 100 and at views off 16 bytes, and K5-bwd at tests/test_kernels.py's sweep x D {64, 120, 128},
    MiniCPM's (144, 2048, 64), Danube's heads (D 120, group 4) at 2048 and at
    8192 with its 4096 window, and Mixtral's D 128: each gradient against the
    plain version's fp32 autograd gradients (bf16 relative L2 1e-2 per
@@ -310,6 +315,13 @@ KLEV, NPROMA = 137, 65536
 PROGRAM_RTOL, PROGRAM_ATOL = 1e-3, 1e-4  # tests/test_polybench.py
 KERNEL_MAX_REL = 2e-4                     # tests/test_kernels.py (fp32)
 BF16_RTOL, BF16_ATOL = 5e-2, 5e-1         # tests/test_kernels.py (bf16)
+# K1's bf16 shapes in phase 3, (M, N, K, offset): each route of choose_kernel
+# (wgmma: M >= 32 with K, N multiples of 8; decode: M < 32; mma: K or N not a
+# multiple of 8, K = 1, views 2 bytes off 16, and LARGE, whose N is 1100)
+K1_BF16_SHAPES = [(64, 32, 48, 0), (300, 264, 136, 0), (2048, 512, 1024, 0),
+                  (16, 256, 512, 0), (31, 72, 40, 0), (1, 8, 8, 0),
+                  (33, 17, 9, 0), (37, 70, 1, 0), (129, 65, 7, 0), (200, 90, 130, 0),
+                  (64, 32, 48, 1), (300, 264, 136, 1), (1000, 1100, 1200, 0)]
 
 
 def log(msg: str) -> None:
@@ -359,15 +371,25 @@ def check_gemm(torch, results: dict) -> None:
         log(f"  K1 gemm fp32 {m}x{k} @ {k}x{n}: max rel err {err:.3e}")
         if not err <= KERNEL_MAX_REL:
             raise AssertionError(f"K1 fp32 {m}x{n}x{k}: max rel err {err} > {KERNEL_MAX_REL}")
-    for m, n, k in [(64, 32, 48), (1000, 1100, 1200)]:
-        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-        y = torch.randn(k, n, generator=g, device="cuda").to(torch.bfloat16)
-        out = kg.gemm(x, y).float()
+    bf16_worst = 0.0
+    for m, n, k, offset in K1_BF16_SHAPES:
+        x, y = bf16_operands(torch, g, m, n, k, offset)
+        kernel = kg.choose_kernel(torch.bfloat16, m, n, k, offset == 0)
+        before = dict(kg.PATHS)
+        out, again = kg.gemm(x, y), kg.gemm(x, y)
         torch.cuda.synchronize()
-        ref = kg.gemm_plain(x, y).float()
-        ok = torch.allclose(out, ref, rtol=BF16_RTOL, atol=BF16_ATOL)
-        log(f"  K1 gemm bf16 {m}x{k} @ {k}x{n}: max abs diff {float((out - ref).abs().max()):.3e}")
-        if not ok:
+        moved = {p: kg.PATHS[p] - before[p] for p in kg.PATHS if kg.PATHS[p] != before[p]}
+        if moved != {kernel: 2}:
+            raise AssertionError(f"K1 bf16 {m}x{n}x{k} (offset {offset}): launched {moved}, "
+                                 f"choose_kernel says {kernel}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K1 bf16 {m}x{n}x{k} ({kernel}): two launches differ")
+        out, ref = out.float(), kg.gemm_plain(x, y).float()
+        diff = float((out - ref).abs().max())
+        bf16_worst = max(bf16_worst, diff)
+        log(f"  K1 gemm bf16 {m}x{k} @ {k}x{n}{' (views 2 bytes off 16)' if offset else ''}: "
+            f"{kernel}, max abs diff {diff:.3e}, bit-identical over two launches")
+        if not torch.allclose(out, ref, rtol=BF16_RTOL, atol=BF16_ATOL):
             raise AssertionError(f"K1 bf16 {m}x{n}x{k} outside rtol {BF16_RTOL} atol {BF16_ATOL}")
 
     # time at the main path's shape (PolyBench LARGE gemm), fp32
@@ -385,6 +407,50 @@ def check_gemm(torch, results: dict) -> None:
     results["gemm"] = dict(
         name="gemm", route="cuda", source="src/repro_torch/csrc/gemm.cu",
         replaces="src/repro/kernels/gemm.py:65", max_abs_err=worst, plain_ms=plain_ms, **row)
+
+    # bf16 at the same shape (N = 1100: the mma kernel) beside torch.matmul
+    x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    large = time_gemm_bf16(torch, x, y)
+    log(f"  K1 gemm bf16 {m}x{k} @ {k}x{n} ({large['kernel']}): {large['ms']:.4f} ms a call, "
+        f"back to back {large['stream_ms']:.4f}; plain {large['plain_ms']:.4f}; torch.matmul "
+        f"{large['library_ms']:.4f} (back to back {large['library_stream_ms']:.4f}); bound "
+        f"{large['bound_ms']:.4f} ms ({large['bound_by']}, bf16)")
+    results["gemm_bf16"] = dict(
+        name="gemm_bf16", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/gemm.py:65", max_abs_err=bf16_worst, large=large)
+
+
+def bf16_operands(torch, g, m: int, n: int, k: int, offset: int):
+    """Seeded bf16 x (m, k) and y (k, n); with ``offset`` both are views
+    that many elements into their buffers (2 bytes off 16 for offset 1)."""
+    def made(r, c):
+        flat = torch.randn(r * c + offset, generator=g, device="cuda").to(torch.bfloat16)
+        return flat[offset:].view(r, c)
+
+    return made(m, k), made(k, n)
+
+
+def time_gemm_bf16(torch, x, y) -> dict:
+    """K1 on bf16 x @ y (``choose_kernel``'s pick): one call under CUDA
+    events (``ms``) and 20 back to back (``stream_ms``), beside the plain
+    version and ``torch.matmul``; the bound is bf16 operations at 989
+    TFLOP/s or the operands' and output's bytes at 3.35 TB/s, whichever is
+    larger."""
+    from repro_torch.kernels import gemm as kg
+
+    (m, k), n = x.shape, y.shape[1]
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    kernel = kg.choose_kernel(x.dtype, m, n, k, aligned)
+    call = lambda: kg.gemm(x, y)  # noqa: E731
+    lib = lambda: torch.matmul(x, y)  # noqa: E731
+    t_ops = 2.0 * m * n * k / PEAK_BF16 * 1e3
+    t_bytes = 2.0 * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
+    return dict(shape=f"{m}x{k} @ {k}x{n} bf16", kernel=kernel, ms=cuda_ms(call),
+                stream_ms=stream_ms(torch, call, n=20),
+                plain_ms=cuda_ms(lambda: kg.gemm_plain(x, y), repeats=3),
+                library_ms=cuda_ms(lib), library_stream_ms=stream_ms(torch, lib, n=20),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_gemm(torch, x, y) -> dict:
@@ -2412,7 +2478,9 @@ def check_moe_layer(torch, cfg, params) -> dict:
 
 
 # device-time groups of a profiled window: kernel-name fragments of each group
-KERNEL_GROUPS = {"K6-bwd grouped_matmul_bwd": ("moe_gmm_dx", "moe_gmm_dw"),
+# (bf16 K1 runs K6's kernels at E = 1, so a profile files it under K6)
+KERNEL_GROUPS = {"K1 gemm": ("gemm_tf32x3_kernel",),
+                 "K6-bwd grouped_matmul_bwd": ("moe_gmm_dx", "moe_gmm_dw"),
                  "K6 grouped_matmul wgmma": ("moe_gmm_wgmma",),
                  "K6 grouped_matmul decode": ("moe_gmm_decode",),
                  "K6 grouped_matmul mma": ("moe_gmm_bf16",),
@@ -3081,14 +3149,15 @@ def family_forward(torch, cfg, params, n_text: int, gate: bool = True) -> dict:
     return dict(forward_s=t_fwd, forward_rel_l2=err)
 
 
-def ops_matmul_path(torch, smi: str, cfg, bucket: int, counts) -> tuple[int, list]:
+def ops_matmul_path(torch, smi: str, cfg, bucket: int, counts) -> tuple[tuple, list]:
     """``ops.matmul`` (K1) at the contraction plan's ``q_proj`` and ``ffn_in``
     products of one ``bucket``-token sequence, fp32 and bf16, on seeded
-    inputs: the launches of one call each (read by ``counts`` right after),
-    then each product against the plain version (fp32 within 2e-4 relative
-    to its largest value, bf16 within rtol 5e-2 / atol 5e-1) and timed, a
-    call and 20 back to back (the profiler drops one of 20 such kernels),
-    beside ``torch.matmul`` (full fp32 in fp32) and the bound."""
+    inputs: the launches of one call each (read by ``counts`` right after:
+    K1's total and its ``PATHS``), then each product against the plain
+    version (fp32 within 2e-4 relative to its largest value, bf16 within
+    rtol 5e-2 / atol 5e-1) and timed, a call and 20 back to back (the
+    profiler drops one of 20 such kernels), beside ``torch.matmul`` (full
+    fp32 in fp32) and the bound."""
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels import ops
     from repro_torch.models.lowering import plan_model
@@ -3101,12 +3170,14 @@ def ops_matmul_path(torch, smi: str, cfg, bucket: int, counts) -> tuple[int, lis
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
             w = torch.randn(k, n, generator=g, device="cuda").to(dtype)
-            cases.append((name, plans[name].recipe.tile, x, w,
-                          ops.matmul(x, w, tile=plans[name].recipe.tile)))
+            before = dict(kg.PATHS)
+            got = ops.matmul(x, w, tile=plans[name].recipe.tile)
+            ran = [p for p in kg.PATHS if kg.PATHS[p] != before[p]]
+            cases.append((name, plans[name].recipe.tile, x, w, got, ran))
     torch.cuda.synchronize()
     launches = counts()
     rows = []
-    for name, tile, x, w, got in cases:
+    for name, tile, x, w, got, ran in cases:
         (m, k), n = x.shape, w.shape[1]
         fp32 = x.dtype == torch.float32
         want = kg.gemm_plain(x, w)
@@ -3125,15 +3196,16 @@ def ops_matmul_path(torch, smi: str, cfg, bucket: int, counts) -> tuple[int, lis
         call = lambda: ops.matmul(x, w, tile=tile)  # noqa: E731
         lib = lambda: torch.matmul(x, w)  # noqa: E731
         row = dict(contraction=name, shape=f"{m}x{k} @ {k}x{n} {str(x.dtype)[6:]}",
-                   plan_tile=list(tile), kernel="gemm_tf32x3_kernel" if fp32 else "gemm_kernel",
+                   plan_tile=list(tile), kernel=" ".join(kg.KERNELS[p] for p in ran),
                    error=err, ms=cuda_ms(call), stream_ms=stream_ms(torch, call, n=20),
                    plain_ms=cuda_ms(lambda: kg.gemm_plain(x, w), repeats=3),
                    library_ms=cuda_ms(lib), library_stream_ms=stream_ms(torch, lib, n=20),
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes", card=smi)
-        log(f"  ops.matmul (K1) {name} {row['shape']} (plan tile {tuple(tile)}, ignored): "
-            f"{row['ms']:.4f} ms a call (back to back {row['stream_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f} (back to back "
+        log(f"  ops.matmul (K1) {name} {row['shape']} on {row['kernel']} (plan tile "
+            f"{tuple(tile)}, ignored): {row['ms']:.4f} ms a call (back to back "
+            f"{row['stream_ms']:.4f}, {row['bound_ms'] / row['stream_ms']:.1%} of the bound), "
+            f"plain {row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f} (back to back "
             f"{row['library_stream_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
             f"({'3xTF32' if fp32 else 'bf16'}); error {err:.3e}; {smi}")
         rows.append(row)
@@ -3198,11 +3270,13 @@ def family_phase(torch, smi: str, phase: int, arch: str, *, slots: int, max_len:
                                      f"{path} path")
     if cfg.family == "vlm":
         reset_counts()
-        launched, rows = ops_matmul_path(torch, smi, cfg, 2048,
-                                         lambda: model_counts()["gemm"])
-        if launched <= 0:
-            raise AssertionError(f"phase {phase}: ops.matmul launched no K1 kernel")
-        out["ops_matmul"] = dict(gemm=launched, rows=rows)
+        (launched, paths), rows = ops_matmul_path(
+            torch, smi, cfg, 2048, lambda: (model_counts()["gemm"], model_counts()["k1"]))
+        log(f"  launches: K1 {launched} (by kernel {paths})")
+        if launched <= 0 or paths["tf32x3"] <= 0 or paths["wgmma"] <= 0:
+            raise AssertionError(f"phase {phase}: ops.matmul should launch K1's tf32x3 kernel "
+                                 f"(fp32) and its wgmma kernel (bf16): {launched}, {paths}")
+        out["ops_matmul"] = dict(gemm=launched, gemm_by_kernel=paths, rows=rows)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3451,13 +3525,18 @@ GATE_TOKENS = 1024
 # K4-bwd's timed shapes: a MiniCPM microbatch (4 x 2048 tokens) and 2048 rows
 # at the serving widths (Danube, Mixtral and LLaVA, Jamba, Seamless)
 K4_BWD_SHAPES = [(8192, 2304), (2048, 3840), (2048, 4096), (2048, 8192), (2048, 1024)]
+# and its edges, (rows, D, offset): rows not a multiple of the grid's row
+# slots, D 40 and 100 (bf16's 100 off the 16-byte chunk: the loop kernel),
+# views an element off 16 bytes (the loop kernel)
+K4_BWD_EDGES = [(300, 40, 0), (300, 100, 0), (1001, 2304, 1), (37, 8192, 1)]
 # K5-bwd's timed shapes: (label, BHq, BHkv, Sq = Skv, D, window); causal
 K5_BWD_SHAPES = [("MiniCPM-2B microbatch", 144, 144, 2048, 64, None),
                  ("Danube heads, 2048", 32, 8, 2048, 120, 4096),
                  ("Danube heads, 8192, window 4096", 32, 8, 8192, 120, 4096),
                  ("Mixtral heads, 2048", 32, 8, 2048, 128, None)]
-# graph ms of the backward kernels the tensor-core K5-bwd and the wgmma K6-bwd
-# replaced (K5-bwd on the CUDA cores, K6-bwd on mma.sync; chip_smoke.py on an
+# graph ms of the backward kernels the tensor-core K5-bwd, the wgmma K6-bwd
+# and the 16-byte K4-bwd replaced (K5-bwd on the CUDA cores, K6-bwd on
+# mma.sync, K4-bwd on 2-byte loads with 528 partial rows; chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed in brackets beside this
 # run's; not in the kernels line, which holds this run's measurements only
 REPLACED_GRAPH_MS = {"MiniCPM-2B microbatch": "11.93-11.95",
@@ -3470,11 +3549,15 @@ REPLACED_GRAPH_MS = {"MiniCPM-2B microbatch": "11.93-11.95",
                      "Jamba gate/up E 16 C 320": "21.76-22.06", "ragged": "0.011-0.012",
                      **{f"Mixtral {p} C {c}": "1.45-1.49" for p in ("gate/up", "down")
                         for c in (16, 40)},
-                     **{f"Mixtral {p} C 320": "3.09-3.18" for p in ("gate/up", "down")}}
+                     **{f"Mixtral {p} C 320": "3.09-3.18" for p in ("gate/up", "down")},
+                     "K4-bwd 8192x2304": "0.0855-0.0865", "K4-bwd 2048x3840": "0.0420-0.0453",
+                     "K4-bwd 2048x4096": "0.0444-0.0473", "K4-bwd 2048x8192": "0.0900-0.0917",
+                     "K4-bwd 2048x1024": "0.0204-0.0224"}
 
 
 def replaced(label: str) -> str:
-    """`` [replaced kernel: ...]`` for a timed shape of K5-bwd or K6-bwd."""
+    """`` [replaced kernel: ...]`` for a timed shape of K4-bwd, K5-bwd or
+    K6-bwd."""
     return (f" [replaced kernel: {REPLACED_GRAPH_MS[label]}]" if label in REPLACED_GRAPH_MS
             else "")
 
@@ -3493,19 +3576,68 @@ TRAIN_LR, LEARN_LR = 3e-4, 3e-5
 RESILIENT_LAYERS = 4  # (d): a full-width checkpoint of all 40 layers is ~27 GB of npz
 
 
-def bwd_timing(torch, call, plain, library) -> dict:
+def bwd_timing(torch, call, plain, library, library_graph=None) -> dict:
     """A backward's times: one call (CUDA events), a CUDA graph of calls,
-    the plain version's call and the library's backward through autograd."""
+    the plain version's call and the library's backward through autograd,
+    and, where ``library_graph`` is given, that backward's graph ms from it."""
     return dict(ms=cuda_ms(call), graph_ms=graph_ms(torch, call, n=5),
                 plain_ms=cuda_ms(plain, repeats=3),
-                library_ms=cuda_ms(library) if library is not None else None)
+                library_ms=cuda_ms(library) if library is not None else None,
+                **({} if library_graph is None else {"library_graph_ms": library_graph()}))
+
+
+def autograd_graph_ms(torch, forward, inputs, dout, n: int = 5,
+                      tries: int = 2) -> float | None:
+    """Device ms of one autograd backward of ``forward(*leaves)`` for the
+    output gradient ``dout``: fresh leaves (copies of ``inputs``) and the
+    forward are made on a side stream, so the backward's kernels and the
+    leaves' gradient nodes live there too; two warm-up backwards, then
+    ``n`` backwards (retaining the autograd graph) captured on that stream
+    in one CUDA graph and replayed between CUDA events, as ``graph_ms``
+    does.  A refused capture is tried again ``tries`` times in all, then
+    None (not measured)."""
+    for attempt in range(tries):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            out = forward(*leaves)
+
+            def backward():
+                return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+            backward()
+            backward()
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(n):
+                    backward()
+            break
+        except RuntimeError as exc:
+            log(f"    (library backward graph, capture {attempt + 1} of {tries} refused: "
+                f"{str(exc).splitlines()[0]})")
+            torch.cuda.synchronize()
+    else:
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def check_rmsnorm_bwd(torch, smi: str) -> dict:
     """K4-bwd against its plain version (fp32 autograd of ``ref.rmsnorm`` on
-    the same inputs) in fp32 and bf16 at K4_BWD_SHAPES, bit-identical over
-    two launches, then timed in bf16 beside the bound (bytes: x and dy read,
-    dx written), the plain version and ``F.rms_norm``'s backward."""
+    the same inputs) in fp32 and bf16 at K4_BWD_SHAPES and K4_BWD_EDGES,
+    bit-identical over two launches, each on ``bwd_plan``'s route (the
+    timed shapes on the vector kernel), then timed in bf16 at K4_BWD_SHAPES
+    beside the bound (bytes: x and dy read, dx written), the plain version
+    and ``F.rms_norm``'s backward (a call, and a CUDA graph)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -3515,14 +3647,27 @@ def check_rmsnorm_bwd(torch, smi: str) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_abs = 0.0
     rows_out = []
-    for rows, d in K4_BWD_SHAPES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timed = [(rows, d, 0) for rows, d in K4_BWD_SHAPES]
+    for rows, d, offset in timed + K4_BWD_EDGES:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
-            dy = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+            def made(*shape):
+                n = math.prod(shape)
+                flat = torch.randn(n + offset, generator=g, device="cuda").to(dtype)
+                return flat[offset:].view(shape)
+
+            x, dy = made(rows, d), made(rows, d)
             gamma = (0.5 + torch.rand(d, generator=g, device="cuda")).to(dtype)
+            plan = kr.bwd_plan(dtype, rows, d, offset == 0, sms)
+            before = dict(kr.BWD_PATHS)
             dx, dg = kr.rmsnorm_bwd(x, gamma, dy)
             dx2, dg2 = kr.rmsnorm_bwd(x, gamma, dy)
             torch.cuda.synchronize()
+            moved = {k: kr.BWD_PATHS[k] - before[k] for k in kr.BWD_PATHS
+                     if kr.BWD_PATHS[k] != before[k]}
+            if moved != {plan.route: 2} or ((rows, d, offset) in timed and plan.route != "vec"):
+                raise AssertionError(f"K4-bwd {rows}x{d} {dtype} (offset {offset}): took "
+                                     f"{moved}, the plan says {plan}")
             if not (torch.equal(dx, dx2) and torch.equal(dg, dg2)):
                 raise AssertionError(f"K4-bwd {rows}x{d} {dtype}: two launches differ")
             want = ref.rmsnorm_grad(x.float(), gamma.float(), dy.float())
@@ -3537,21 +3682,33 @@ def check_rmsnorm_bwd(torch, smi: str) -> dict:
                 worst[dtype] = max(worst[dtype], err)
                 if err > limit:
                     raise AssertionError(f"K4-bwd {rows}x{d} {dtype} {name}: {err:.3e} > {limit}")
-            if dtype != torch.bfloat16:
+            if (rows, d, offset) not in timed:
+                off = " (views an element off 16 bytes)" if offset else ""
+                log(f"  K4-bwd {rows}x{d} {str(dtype)[6:]}{off}: {plan.route}, within the "
+                    "limit, bit-identical over two launches")
+            if dtype != torch.bfloat16 or (rows, d, offset) not in timed:
                 continue
             xr, gr = x.clone().requires_grad_(), gamma.clone().requires_grad_()
             lib_out = F.rms_norm(xr, (d,), gr, 1e-6) if hasattr(F, "rms_norm") else None
             library = (lambda: torch.autograd.grad(lib_out, (xr, gr), dy, retain_graph=True)) \
                 if lib_out is not None else None
+            library_graph = (lambda: autograd_graph_ms(
+                torch, lambda a, b: F.rms_norm(a, (d,), b, 1e-6), (x, gamma), dy)) \
+                if lib_out is not None else None
             t = bwd_timing(torch, lambda: kr.rmsnorm_bwd(x, gamma, dy),
-                           lambda: ref.rmsnorm_grad(x, gamma, dy), library)
+                           lambda: ref.rmsnorm_grad(x, gamma, dy), library, library_graph)
             nbytes = 2.0 * (3 * rows * d + 2 * d)
             t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 10.0 * rows * d / PEAK_FP32 * 1e3
-            row = dict(shape=f"{rows}x{d} bf16", bound_ms=max(t_bytes, t_ops),
+            row = dict(shape=f"{rows}x{d} bf16", plan=plan._asdict(),
+                       bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations", **t)
-            log(f"  K4-bwd {row['shape']}: {t['ms']:.4f} ms a call, graph {t['graph_ms']:.4f}; "
-                f"bound {row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; "
-                f"F.rms_norm backward {fmt_ms(t['library_ms'])} ({smi})")
+            log(f"  K4-bwd {row['shape']} ({plan.route}: {plan.group} threads a row, "
+                f"{plan.slots} rows a block, {plan.blocks} partial rows): {t['ms']:.4f} ms a "
+                f"call, graph {t['graph_ms']:.4f}{replaced(f'K4-bwd {rows}x{d}')} "
+                f"({row['bound_ms'] / t['graph_ms']:.1%} of the bound); bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}); plain {t['plain_ms']:.4f}; "
+                f"F.rms_norm backward {fmt_ms(t['library_ms'])} a call, graph "
+                f"{fmt_ms(t.get('library_graph_ms'))} ({smi})")
             rows_out.append(row)
     log(f"  K4-bwd against fp32 autograd: fp32 max-relative {worst[torch.float32]:.3e} "
         f"(limit {F32_RMS_GRAD_MAX_REL}), bf16 relative L2 {worst[torch.bfloat16]:.3e} (limit "
@@ -3840,6 +3997,7 @@ def train_counts() -> dict:
             "K5": kf.LAUNCHES["flash_attention"], "K5-bwd": kf.LAUNCHES["flash_attention_bwd"],
             "K6": km.LAUNCHES["grouped_matmul"], "K6-bwd": km.LAUNCHES["grouped_matmul_bwd"],
             "K5 kernels": dict(kf.PATHS), "K5-bwd kernels": dict(kf.BWD_PATHS),
+            "K4-bwd kernels": dict(kr.BWD_PATHS),
             "plain": {"K4": kr.PLAIN["rmsnorm"], "K4-bwd": kr.PLAIN["rmsnorm_bwd"],
                       "K5": kf.PLAIN["flash_attention"], "K5-bwd": kf.PLAIN["flash_attention_bwd"],
                       "K6": km.PLAIN["grouped_matmul"], "K6-bwd": km.PLAIN["grouped_matmul_bwd"]}}
@@ -3850,8 +4008,8 @@ def reset_train_counts() -> None:
     from repro_torch.kernels import moe_gmm as km
     from repro_torch.kernels import rmsnorm as kr
 
-    for d in (kr.LAUNCHES, kr.PLAIN, kf.LAUNCHES, kf.PLAIN, kf.PATHS, kf.BWD_PATHS,
-              km.LAUNCHES, km.PLAIN, km.PATHS):
+    for d in (kr.LAUNCHES, kr.PLAIN, kr.BWD_PATHS, kf.LAUNCHES, kf.PLAIN, kf.PATHS,
+              kf.BWD_PATHS, km.LAUNCHES, km.PLAIN, km.PATHS):
         for k in d:
             d[k] = 0
 
@@ -3971,6 +4129,10 @@ def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
     if set(k for k, n in counts["K5 kernels"].items() if n) - {"mma"}:
         raise AssertionError(f"phase {phase} (c): K5 launched {counts['K5 kernels']}, want mma "
                              "only")
+    log(f"  (c) K4-bwd calls by route: {counts['K4-bwd kernels']}")
+    if phase == "16" and set(k for k, n in counts["K4-bwd kernels"].items() if n) != {"vec"}:
+        raise AssertionError(f"phase 16 (c): K4-bwd took {counts['K4-bwd kernels']}, want the "
+                             "vector kernel only (MiniCPM's rows are 2304 aligned values)")
     losses = [r["loss"] for r in records]
     if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in records):
         raise AssertionError(f"phase {phase} (c) {cfg.name}: losses {losses}")
@@ -3998,7 +4160,8 @@ def trainer_path(torch, smi: str, cfg, tmp: Path, lr: float = TRAIN_LR,
         model_flops=fl["model"], recompute_flops=fl["recompute"],
         model_flops_share=fl["model"] / (med_ms / 1e3) / PEAK_BF16,
         with_recompute_share=(fl["model"] + fl["recompute"]) / (med_ms / 1e3) / PEAK_BF16,
-        launches=total, launches_per_step=want, card=smi)
+        launches=total, launches_per_step=want, k4_bwd_routes=counts["K4-bwd kernels"],
+        card=smi)
     log(f"  (c) {cfg.name}: {steps} steps, losses {' '.join(f'{x:.4f}' for x in losses)}; median "
         f"host {med_ms:.1f} ms a step (steps 2-{steps}), {out['tokens_per_s']:.0f} tokens/s; "
         f"step {profiled + 1} profiled: {t_p * 1e3:.1f} host ms, {device_ms:.1f} device ms "
@@ -4606,14 +4769,16 @@ def main(argv: list[str] | None = None) -> int:
     def model_counts():
         return {"rmsnorm": kr.LAUNCHES["rmsnorm"], "flash_attention": kf.LAUNCHES["flash_attention"],
                 "k5": dict(kf.PATHS), "grouped_matmul": km.LAUNCHES["grouped_matmul"],
-                "gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
+                "gemm": kg.LAUNCHES["gemm"], "k1": dict(kg.PATHS),
+                "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
 
     def reset_counts():
         kr.LAUNCHES["rmsnorm"] = kf.LAUNCHES["flash_attention"] = kg.LAUNCHES["gemm"] = 0
         km.LAUNCHES["grouped_matmul"] = 0
-        for k in kf.PATHS:
-            kf.PATHS[k] = 0
+        for d in (kf.PATHS, kg.PATHS):
+            for k in d:
+                d[k] = 0
         for k in nkm.EMITTED:
             nkm.EMITTED[k] = 0
 
@@ -4712,7 +4877,18 @@ def main(argv: list[str] | None = None) -> int:
     families["12"] = family_phase(torch, smi, 12, SEAMLESS, slots=8, max_len=2048,
                                   prompt_lens=(16, 512), n_text=SEAMLESS_TEXT, bucket=512,
                                   reset_counts=reset_counts, model_counts=model_counts)
-    results["gemm"]["ops_matmul"] = families["11"]["ops_matmul"]["rows"]
+    results["gemm"]["ops_matmul"] = [r for r in families["11"]["ops_matmul"]["rows"]
+                                     if r["shape"].endswith("float32")]
+    bf16_rows = [r for r in families["11"]["ops_matmul"]["rows"]
+                 if r["shape"].endswith("bfloat16")]
+    # the bf16 row's numbers: the main path's first product (q_proj), the
+    # rest beside them
+    results["gemm_bf16"].update(
+        {k: bf16_rows[0][k] for k in ("shape", "kernel", "ms", "stream_ms", "plain_ms",
+                                      "library_ms", "library_stream_ms", "bound_ms", "bound_by")},
+        ops_matmul=bf16_rows,
+        max_abs_err=max([results["gemm_bf16"]["max_abs_err"], *(r["error"] for r in bf16_rows)]))
+    launches["gemm_bf16"] = families["11"]["ops_matmul"]["gemm_by_kernel"]["wgmma"]
     for key, pick in (("rmsnorm", lambda p: p["rmsnorm"]),
                       ("flash_attention", lambda p: p["flash_attention"]),
                       ("flash_attention_decode", lambda p: p.get("k5_decode", {}).get("decode"))):
@@ -4786,7 +4962,7 @@ def main(argv: list[str] | None = None) -> int:
                                           + k5_paths["MoE serving decode"]["decode"])
     launches["grouped_matmul_decode"] = sum(n.get("decode", 0) for n in k6_paths.values())
     kernels = []
-    for key in ("gemm", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
+    for key in ("gemm", "gemm_bf16", "pallas_nest", "pallas_reduce", "rmsnorm", "flash_attention",
                 "flash_attention_decode", "grouped_matmul", "grouped_matmul_decode",
                 "rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_bwd"):
         row = dict(results[key])

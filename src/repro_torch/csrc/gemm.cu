@@ -47,10 +47,26 @@
 // output: the result is the same bits from run to run whichever block
 // arrives last.
 //
-// bfloat16: gemm_kernel, a tiled SIMT kernel (64 x 64 tiles, 16-deep K slices
-// through shared memory, a 4 x 4 register tile a thread, fmaf in K order).
-// It is on no main path (PolyBench is fp32, the models' projections are
-// cuBLAS) and was not redesigned.
+// bfloat16 does not come here: kernels/gemm.py launches K6's bf16 kernels in
+// moe_gmm.cu at E = 1, a dense product being a grouped product with one
+// expert (as K6's float32 path launches this file's kernel with the expert
+// as its batch).  That route, and not a header shared by two sources, keeps
+// one copy of the tile code, one nvcc per source, and the build's key (a
+// hash of the .cu) complete.  Bound: at LLaVA's 2048-token q_proj (2048 x
+// 4096 @ 4096 x 4096, 68.7 GFLOP) 0.0695 ms at 989 TFLOP/s bf16, bound by
+// operations.  The SIMT kernel it replaces (fmaf on the CUDA cores, 67
+// TFLOP/s at best, operands through shared memory with no asynchronous
+// copies) took 3.52 ms there, 2% of the bound.  moe_gmm_wgmma_kernel (M >=
+// 32; K and N multiples of 8, 16-byte aligned operands: TMA's strides and
+// addresses) runs K6's prefill pipeline: wgmma m64n256k16 with fp32
+// accumulators, 128 x 256 tiles, a TMA producer warp, a 4-stage mbarrier
+// ring, the 128-byte swizzle, y (K, N) read as an MN-major B through the
+// transpose bit, one block a tile over all of K (bit-identical run to run),
+// every M tile of one N tile before the next (grouped rasters of 8 or 4 M
+// tiles were no faster at LLaVA's q_proj and ffn_in, PERF.md).
+// moe_gmm_decode_kernel (M < 32) streams y by TMA; moe_gmm_bf16_kernel (K or
+// N not a multiple of 8, an unaligned operand, K = 0) masks any shape on
+// mma.sync.
 //
 // Batches: grid z walks a batch of independent products of one shape
 // (x (B, M, K), y (B, K, N), out (B, M, N), each row-major and contiguous),
@@ -60,7 +76,6 @@
 // Interface: plain C, loaded with ctypes.  Each entry point launches on the
 // given stream and returns cudaGetLastError(); the Python wrapper raises when
 // it is nonzero.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -365,74 +380,6 @@ int launch_f32(const void* x, const void* y, void* out, int batch, int m, int n,
              : launch_tf32x3<false>(xp, yp, op, batch, m, n, k, splits, wsp, cp, s);
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16: the SIMT kernel
-// ---------------------------------------------------------------------------
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int PAD = 4;                          // keeps shared rows off one bank
-
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-            __nv_bfloat16* __restrict__ out, int m, int n, int k) {
-  __shared__ float xs[BK][BM + PAD];  // x tile, transposed: xs[kk][row]
-  __shared__ float ys[BK][BN + PAD];  // y tile: ys[kk][col]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      xs[c][r] = (gr < m && gc < k) ? __bfloat162float(x[static_cast<size_t>(gr) * k + gc]) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      ys[r][c] = (gr < k && gc < n) ? __bfloat162float(y[static_cast<size_t>(gr) * n + gc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + (BM / TM) * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ys[kk][tx + (BN / TN) * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + (BM / TM) * i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + (BN / TN) * j;
-      if (c < n) out[static_cast<size_t>(r) * n + c] = __float2bfloat16(acc[i][j]);
-    }
-  }
-}
-
 }  // namespace
 
 // x, y, out, M, N, K; splits K ranges (1: no workspace), ws (splits * M * N
@@ -446,13 +393,4 @@ extern "C" int repro_gemm_batched_f32(const void* x, const void* y, void* out, i
                                       int n, int k, int splits, void* ws, void* cnt,
                                       void* stream) {
   return launch_f32(x, y, out, batch, m, n, k, splits, ws, cnt, stream);
-}
-
-extern "C" int repro_gemm_bf16(const void* x, const void* y, void* out, int m, int n, int k,
-                               void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<__nv_bfloat16*>(out), m, n, k);
-  return static_cast<int>(cudaGetLastError());
 }

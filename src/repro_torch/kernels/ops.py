@@ -39,8 +39,11 @@ from .gemm import gemm
 
 def matmul(x, y, *, tile=None):
     """``x @ y`` of 2-D float32/bfloat16 tensors with an fp32 accumulator, in
-    ``x.dtype``: K1 on the card, ``kernels.ref.matmul`` on the CPU.  ``tile``
-    (a plan's TPU block shape) is accepted and ignored: K1's tiling is fixed."""
+    ``x.dtype``: K1 on the card (fp32 on its 3xTF32 kernel; bf16 on its
+    wgmma/TMA kernel, or below M = 32 its decode kernel, or off 8 or off
+    16-byte alignment its mma.sync kernel: ``gemm.choose_kernel``),
+    ``kernels.ref.matmul`` on the CPU.  ``tile`` (a plan's TPU block shape)
+    is accepted and ignored: K1's tiling is fixed."""
     return gemm(x, y)
 
 

@@ -11,19 +11,26 @@ unaligned tensors take a looping kernel.
 differentiates its plain version with XLA; the card needs a kernel for
 ``loss.backward()``).  It recomputes each row's ``r = rsqrt(mean(x^2) + eps)``
 and writes ``dx = r (gamma dy) - x r^3 mean(x gamma dy)``; ``dgamma``, the sum
-over rows of ``dy x r``, goes through per-block fp32 partials that a second
-kernel adds in block order, so it is bit-identical run to run (no float
-atomics).  ``BWD_BLOCKS_PER_SM`` blocks an SM walk the rows.
+over rows of ``dy x r``, goes through per-block fp32 partial rows that a
+second kernel adds across the card (a block per 32 columns), each sum in a
+fixed order, so both are bit-identical run to run (no float atomics).
+``bwd_plan`` decides the route before launch: at the model widths (D a
+multiple of the 16-byte chunk, aligned tensors) ``rmsnorm_bwd_vec_kernel``,
+rows held in registers from 16-byte loads by groups of warps, the next row
+in flight, one block an SM; otherwise ``rmsnorm_bwd_kernel``, element by
+element, ``BWD_BLOCKS_PER_SM`` blocks an SM.
 
 ``rmsnorm`` and ``rmsnorm_bwd`` launch their kernels for CUDA tensors and
 take ``kernels.ref.rmsnorm`` / ``kernels.ref.rmsnorm_grad`` for CPU tensors
 only.  ``LAUNCHES`` counts kernel launches and ``PLAIN`` the plain-version
-runs, per function.
+runs, per function; ``BWD_PATHS`` counts K4-bwd's calls by route.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -32,9 +39,46 @@ from .build import cuda_library
 from .runtime import on_device, raw_stream, sm_count
 
 LAUNCHES = {"rmsnorm": 0, "rmsnorm_bwd": 0}
+BWD_PATHS = {"vec": 0, "loop": 0}
 PLAIN = {"rmsnorm": 0, "rmsnorm_bwd": 0}
-BWD_BLOCKS_PER_SM = 4  # csrc/rmsnorm.cu: K4-bwd's grid, in blocks an SM
-BWD_MAX_D = 8192       # and its widest row (8 values a thread, 1024 threads)
+BWD_MAX_D = 8192       # K4-bwd's widest row (the loop kernel: 8 values a thread, 1024 threads)
+BWD_BLOCKS_PER_SM = 4  # csrc/rmsnorm.cu: the loop kernel's grid, in blocks an SM
+BWD_BLOCK = 512        # and the vector kernel's threads a block: row groups (slots)
+BWD_CHUNKS = 4         # its 16-byte chunks of a row a thread, at most
+
+
+class BwdPlan(NamedTuple):
+    """K4-bwd's launch: ``route`` ``"vec"`` or ``"loop"``; ``group``, the
+    vector kernel's threads a row (0 for the loop kernel); ``chunks``, its
+    16-byte chunks a thread (0 for the loop kernel); ``slots``, its row
+    groups a block (1 for the loop kernel); ``blocks``, the grid, which is
+    also the number of fp32 partial dgamma rows."""
+
+    route: str
+    group: int
+    chunks: int
+    slots: int
+    blocks: int
+
+
+def bwd_plan(dtype: torch.dtype, rows: int, d: int, aligned: bool, sms: int) -> BwdPlan:
+    """K4-bwd's launch for ``rows`` x ``d`` of ``dtype`` on a card of ``sms``
+    SMs; ``aligned``: x, gamma, dy and dx start on 16 bytes.  ``d`` a
+    multiple of the 16-byte chunk and aligned tensors take the vector
+    kernel: warps a row the fewest that hold at most ``BWD_CHUNKS`` chunks a
+    thread, ``BWD_BLOCK // group`` rows at a time a block, one block an SM at
+    most, so at most ``sms`` partial rows.  Everything else takes the loop
+    kernel, ``BWD_BLOCKS_PER_SM`` blocks an SM.  Pure, decided before
+    launch."""
+    per_chunk = 16 // dtype.itemsize
+    if aligned and d > 0 and d % per_chunk == 0:
+        n = d // per_chunk
+        group = 32 * math.ceil(n / (32 * BWD_CHUNKS))
+        if group <= BWD_BLOCK:
+            slots = BWD_BLOCK // group
+            return BwdPlan("vec", group, math.ceil(n / group), slots,
+                           min(math.ceil(rows / slots), sms))
+    return BwdPlan("loop", 0, 0, 1, min(rows, BWD_BLOCKS_PER_SM * sms))
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -51,7 +95,7 @@ def _entry(dtype: torch.dtype):
 @functools.cache
 def _bwd_entry(dtype: torch.dtype):
     fn = getattr(cuda_library("rmsnorm"), f"repro_rmsnorm_bwd_{_NAMES[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,13 +159,15 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     if rows == 0 or d == 0:
         return dx, torch.zeros_like(gamma)
     dgamma = torch.empty_like(gamma)
-    blocks = min(rows, BWD_BLOCKS_PER_SM * sm_count(x.device))
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, dy, dx))
+    plan = bwd_plan(x.dtype, rows, d, aligned, sm_count(x.device))
+    part = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
     with on_device(x.device):
         err = _bwd_entry(x.dtype)(x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                                  dgamma.data_ptr(), part.data_ptr(), rows, d, blocks,
-                                  float(eps), raw_stream(x.device))
+                                  dgamma.data_ptr(), part.data_ptr(), rows, d, plan.blocks,
+                                  plan.group, float(eps), raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"rmsnorm_bwd kernel launch failed with CUDA error {err}")
     LAUNCHES["rmsnorm_bwd"] += 1
+    BWD_PATHS[plan.route] += 1
     return dx, dgamma

@@ -6,7 +6,9 @@ with the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_card.py``.  Without a card every test skips (decided in a
 fixture).  K1 runs at ragged M, N and K (K = 1, 7, 9, 200), with K split
 into ranges (bit-identical run to run), with an inf or a NaN operand, and batched
-through K6's float32 path; ``test_torch_kernels.py`` holds its 3xTF32
+through K6's float32 path; in bf16 through each of its kernels (wgmma, decode,
+mma) as ``choose_kernel`` picks them, at ragged and unaligned shapes;
+``test_torch_kernels.py`` holds its 3xTF32
 arithmetic against fp64 in an emulation on the CPU.  The nest-kernel cases
 are tests/test_tiling.py's edge cases, built from the port's IR, plus K3's
 split form at every split count of a reduction with each op, with and
@@ -319,6 +321,58 @@ def test_gemm_keeps_nan_on_card(card, m, n, k):
     rest[nan_rows] = False
     assert bool(torch.isfinite(got[rest]).all())
     assert max_rel(got[rest].cpu().numpy(), p_gemm.gemm_plain(x, y)[rest].cpu().numpy()) < MAX_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,offset", [
+    (64, 32, 48, 0), (300, 264, 136, 0), (2048, 512, 1024, 0), (130, 520, 64, 0),  # wgmma
+    (16, 256, 512, 0), (31, 72, 40, 0), (1, 8, 8, 0),                             # decode
+    (33, 17, 9, 0), (37, 70, 1, 0), (129, 65, 7, 0), (200, 90, 130, 0),            # mma: K, N
+    (64, 32, 0, 0),                                                                # K = 0
+    (64, 32, 48, 1), (300, 264, 136, 1), (16, 256, 512, 1),                        # unaligned
+    (1000, 1100, 1200, 0)])                                                        # LARGE
+def test_gemm_bf16_kernels_on_card(card, m, n, k, offset):
+    """K1 in bf16 on ``choose_kernel``'s pick (its ``PATHS`` count it, K6's
+    do not): ragged M and N past the 128 x 256 tiles, K = 1, K and N off 8,
+    M < 32, views 2 bytes off 16, LARGE; within the bf16 limit of the plain
+    version, bit-identical over two launches."""
+    g = torch.Generator(device=card).manual_seed(m * n + k)
+
+    def made(r, c):
+        flat = torch.randn(r * c + offset, generator=g, device=card).bfloat16()
+        return flat[offset:].view(r, c)
+
+    x, y = made(m, k), made(k, n)
+    kernel = p_gemm.choose_kernel(torch.bfloat16, m, n, k, offset == 0)
+    before = dict(p_gemm.PATHS), dict(p_gmm.PATHS), p_gemm.LAUNCHES["gemm"]
+    got, again = p_gemm.gemm(x, y), p_gemm.gemm(x, y)
+    torch.cuda.synchronize()
+    moved = {p: c - before[0][p] for p, c in p_gemm.PATHS.items() if c != before[0][p]}
+    assert moved == {kernel: 2} and p_gemm.LAUNCHES["gemm"] == before[2] + 2
+    assert dict(p_gmm.PATHS) == before[1]
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), p_gemm.gemm_plain(x, y).float(), rtol=5e-2,
+                               atol=5e-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(300, 1024, 136), (1100, 520, 256)])
+def test_gemm_named_kernel_refuses_operands_on_card(card, m, n, k):
+    """A kernel named to ``_launch`` that does not take the operands raises
+    before launch, and the one ``choose_kernel`` picks gives ``gemm``'s
+    bits."""
+    g = torch.Generator(device=card).manual_seed(11)
+    x = torch.randn(m, k, generator=g, device=card).bfloat16()
+    y = torch.randn(k, n, generator=g, device=card).bfloat16()
+    assert torch.equal(p_gemm._launch("wgmma", x, y), p_gemm.gemm(x, y))
+    with pytest.raises(ValueError):
+        p_gemm._launch("decode", x, y)  # M > 32
+    with pytest.raises(ValueError):
+        p_gemm._launch("wgmma", x[:, :130].contiguous(), y[:130])  # K % 8 == 2
+    with pytest.raises(TypeError):
+        p_gemm._launch("tf32x3", x, y)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -29,8 +29,10 @@ from repro_torch.core import plan_nest_tiling as p_plan
 from repro_torch.core.scheduler import random_inputs
 from repro_torch.core.tiling import TilingError
 from repro_torch.kernels import gemm as p_gemm
+from repro_torch.kernels import moe_gmm as p_gmm
 from repro_torch.kernels import nest_kernel as p_nest
 from repro_torch.kernels import ops as p_ops
+from repro_torch.kernels import rmsnorm as p_rms
 from test_torch_card import (CASES, accumulate, broadcast_update, fill, guarded_forward,
                              guarded_then_accumulated, halo_write, pointwise, reduce_op, stencil,
                              syrk1, triangle)
@@ -199,6 +201,43 @@ def test_gemm_splits_at_the_main_path_shapes(m, n, k, want):
     assert p_gemm.gemm_splits(1, m, n, k, 132) == want
     if want > 1:
         assert -(-k // p_gemm.SLICE_K) >= want * p_gemm.MIN_SLICES
+
+
+@pytest.mark.parametrize("dtype,m,n,k,aligned,want", [
+    (torch.float32, 1000, 1100, 1200, True, "tf32x3"),   # fp32, whatever the shape
+    (torch.float32, 37, 70, 1, False, "tf32x3"),
+    (torch.bfloat16, 2048, 4096, 4096, True, "wgmma"),   # LLaVA's q_proj
+    (torch.bfloat16, 2048, 14336, 4096, True, "wgmma"),  # and ffn_in
+    (torch.bfloat16, 32, 8, 8, True, "wgmma"),           # the smallest M it takes
+    (torch.bfloat16, 31, 72, 40, True, "decode"),        # M < 32
+    (torch.bfloat16, 1, 8, 8, True, "decode"),
+    (torch.bfloat16, 1000, 1100, 1200, True, "mma"),     # LARGE: N % 8 == 4
+    (torch.bfloat16, 300, 264, 130, True, "mma"),        # K % 8 == 2
+    (torch.bfloat16, 37, 70, 1, True, "mma"),            # K = 1
+    (torch.bfloat16, 64, 32, 0, True, "mma"),            # K = 0: zeros, masked
+    (torch.bfloat16, 2048, 4096, 4096, False, "mma"),    # an unaligned view
+    (torch.bfloat16, 16, 256, 512, False, "mma"),
+])
+def test_gemm_kernel_choice(dtype, m, n, k, aligned, want):
+    """K1's kernel, decided before launch from the dtype, M, N, K and the
+    operands' alignment: the wgmma/TMA kernel takes what TMA can address
+    (K and N multiples of 8, 16-byte aligned) from M = 32, the decode kernel
+    the same below it, the mma.sync kernel every other bf16 shape."""
+    assert p_gemm.choose_kernel(dtype, m, n, k, aligned) == want
+    assert p_gemm.WGMMA_MIN_M == p_gmm.WGMMA_MIN_C
+    if want != "tf32x3":  # the same line K6 draws at E = 1
+        assert p_gmm.choose_kernel(dtype, m, k, n, aligned) == (want if k else "mma")
+
+
+def test_gemm_launch_refuses_cpu_tensors_and_unknown_kernels():
+    x, y = torch.ones(40, 16, dtype=torch.bfloat16), torch.ones(16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        p_gemm._launch("wgmma", x, y)  # the plain version is gemm's, for CPU tensors only
+    with pytest.raises(ValueError):
+        p_gemm._launch("simt", x, y)
+    before = dict(p_gemm.PATHS), p_gemm.PLAIN["gemm"]
+    p_gemm.gemm(x, y)
+    assert (dict(p_gemm.PATHS), p_gemm.PLAIN["gemm"]) == (before[0], before[1] + 1)
 
 
 def test_einsum2_contraction_patterns():
@@ -480,3 +519,40 @@ def test_reduce_splits_rule(n, m, sms):
         assert programs * splits >= min(2 * sms, programs * tiles)
         per = p_nest.split_tiles(plan, splits)
         assert (splits - 1) * per < tiles <= splits * per
+
+
+# ---------------------------------------------------------------------------
+# K4-bwd's launch plan
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,rows,d,aligned,want", [
+    # MiniCPM's microbatch: three warps a row (288 chunks, 3 a thread), five
+    # rows a block, one block an SM: 132 partial rows (528 before)
+    (torch.bfloat16, 8192, 2304, True, ("vec", 96, 3, 5, 132)),
+    (torch.bfloat16, 2048, 3840, True, ("vec", 128, 4, 4, 132)),
+    (torch.bfloat16, 2048, 4096, True, ("vec", 128, 4, 4, 132)),
+    (torch.bfloat16, 2048, 8192, True, ("vec", 256, 4, 2, 132)),
+    (torch.bfloat16, 2048, 1024, True, ("vec", 32, 4, 16, 128)),  # one warp a row, no barrier
+    (torch.float32, 8192, 2304, True, ("vec", 160, 4, 3, 132)),
+    (torch.float32, 2048, 8192, True, ("vec", 512, 4, 1, 132)),
+    (torch.bfloat16, 300, 40, True, ("vec", 32, 1, 16, 19)),      # rows not a multiple of 16
+    (torch.float32, 300, 100, True, ("vec", 32, 1, 16, 19)),
+    (torch.bfloat16, 7, 2304, True, ("vec", 96, 3, 5, 2)),
+    (torch.bfloat16, 300, 100, True, ("loop", 0, 0, 1, 300)),     # 100 bf16: off the chunk
+    (torch.bfloat16, 8192, 2304, False, ("loop", 0, 0, 1, 528)),  # an unaligned view
+    (torch.float32, 300, 42, True, ("loop", 0, 0, 1, 300)),
+])
+def test_rmsnorm_bwd_plan(dtype, rows, d, aligned, want):
+    """K4-bwd's route, row groups and grid on a 132-SM H100, decided before
+    launch: the vector kernel at the model widths (at most one block an SM,
+    so at most 132 partial dgamma rows), the loop kernel off the 16-byte
+    chunk or off 16-byte alignment (4 blocks an SM, at most a row each)."""
+    plan = p_rms.bwd_plan(dtype, rows, d, aligned, 132)
+    assert tuple(plan) == want
+    if plan.route == "vec":
+        per_chunk = 16 // dtype.itemsize
+        assert plan.group % 32 == 0 and plan.slots * plan.group <= p_rms.BWD_BLOCK
+        assert plan.group * plan.chunks * per_chunk >= d          # the row fits a group
+        assert plan.chunks <= p_rms.BWD_CHUNKS
+        assert plan.group == 32 or plan.slots <= 15               # named barriers 1..15
+        assert (plan.blocks - 1) * plan.slots < rows <= plan.blocks * plan.slots \
+            or plan.blocks == 132

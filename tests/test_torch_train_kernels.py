@@ -294,18 +294,31 @@ def _on(card, *arrays, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", MODEL_WIDTHS + (40, 100))
-def test_rmsnorm_bwd_kernel_on_card(card, dtype, d):
+@pytest.mark.parametrize("d,offset", [(d, 0) for d in MODEL_WIDTHS + (40, 100)]
+                         + [(2304, 1), (40, 1), (8192, 3)])
+def test_rmsnorm_bwd_kernel_on_card(card, dtype, d, offset):
+    """300 rows (not a multiple of any grid's row slots) at the model widths,
+    40 and 100, and x and dy as views ``offset`` elements into their buffers
+    (off 16 bytes: the loop kernel), each on ``bwd_plan``'s route."""
     rows = 300
     x, dy = (RNG.normal(size=(rows, d)).astype(np.float32) for _ in range(2))
     g = (0.5 + RNG.random(d)).astype(np.float32)
     xt, dyt, gt = _on(card, x, dy, g, dtype=dtype)
-    before = p_rms.LAUNCHES["rmsnorm_bwd"], p_rms.PLAIN["rmsnorm_bwd"]
+    if offset:  # copy into buffers that start `offset` elements in
+        xt, dyt = (torch.cat([t.new_zeros(offset), t.flatten()])[offset:].view(rows, d)
+                   for t in (xt, dyt))
+        assert xt.data_ptr() % 16 and dyt.data_ptr() % 16
+    plan = p_rms.bwd_plan(dtype, rows, d, offset == 0,
+                          torch.cuda.get_device_properties(card).multi_processor_count)
+    before = p_rms.LAUNCHES["rmsnorm_bwd"], p_rms.PLAIN["rmsnorm_bwd"], dict(p_rms.BWD_PATHS)
     dx, dg = p_rms.rmsnorm_bwd(xt, gt, dyt, eps=1e-6)
     dx2, dg2 = p_rms.rmsnorm_bwd(xt, gt, dyt, eps=1e-6)
     torch.cuda.synchronize()
     assert (p_rms.LAUNCHES["rmsnorm_bwd"], p_rms.PLAIN["rmsnorm_bwd"]) == \
         (before[0] + 2, before[1])
+    assert {k: n - before[2][k] for k, n in p_rms.BWD_PATHS.items() if n != before[2][k]} == \
+        {plan.route: 2}
+    assert plan.route == ("loop" if offset or (dtype == torch.bfloat16 and d == 100) else "vec")
     assert dx.dtype == dg.dtype == dtype
     assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
     want = p_ref.rmsnorm_grad(xt.float(), gt.float(), dyt.float(), eps=1e-6)
