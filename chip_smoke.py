@@ -63,6 +63,22 @@ Phases, in order (any failure exits nonzero):
    then K1 (3xTF32) at every fp32 shape phase 4's LARGE programs handed it,
    within 2e-4 of the plain version, timed (one call and device time) beside
    full-fp32 ``torch.matmul`` and its 3xTF32 and fp32 bounds;
+18. right after phase 6, the sharded Daisy path (``repro_torch.core.partition``):
+   (a) ``Daisy(backend="cuda", mesh=column_mesh(1))`` over phase 5's three
+   CLOUDSC programs: the plan all-replicated with its reasons, the outputs
+   bit-identical to phase 5's; (b) a world of ``SHARD_RANKS`` = 2 ranks
+   spawned on the one card (``launch.mesh.run_world``; their collectives on
+   gloo, since NCCL refuses two ranks on one device): ``compile_scheme`` at
+   137 x 65,536 column-sharded (every nest sharded, none all-reducing, each
+   rank on 32,768 columns, bit-identical to the unsharded ``compile_scheme``
+   on the card), the same scheme through ``Daisy(backend="cuda", mesh=)``
+   with phase 5's kernel recipes (K2 launched in each rank, bit-identical to
+   phase 5's run, or at the program tolerance with the reducing nests named),
+   and PolyBench LARGE gemm (K1), bicg and atax (K3, one ``+`` all-reduce)
+   against the unsharded card lowering (rtol 1e-3 / atol 1e-4, finite, of
+   the declared shape); each rank's K1/K2/K3 launches, ``ROUTED`` and
+   ``COLLECTIVES``, its shard-local, all-reduce and gather ms (2 ranks
+   sharing one card: not a scaling figure);
 7. main path, serving: H2O-Danube3-4B at its published widths, all 24
    layers, bf16, seeded random weights, through ``ServingEngine`` (8 slots,
    4096 positions, 32 new tokens): 16 requests with prompts of 128-2048
@@ -253,6 +269,9 @@ encoder and cross-attention at D = 64 and a GQA group of 1, in a bucket and
 at a decode step, its self-attention decode step, LLaVA-NeXT's
 4096-position causal forward, K4 at width 1024) and times each on the
 device beside SDPA (``F.rms_norm``) and its bound.
+
+K1-K3's rows in the kernels' JSON line carry ``launches_phase_18`` (the
+mesh of one, and each rank of the world); K2's carries phase 18's record.
 
 Phase 16's K4-bwd and K5-bwd rows join the kernels' JSON line; their
 ``launches`` are phase 16 (c)'s six steps.  Phase 17's K6-bwd row joins
@@ -1052,8 +1071,10 @@ def _timed(torch, fn, inputs):
     return env, time.perf_counter() - t0
 
 
-def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label) -> tuple:
-    """Returns ``backend="cuda"``'s first and second call, in seconds."""
+def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label,
+                keep: dict | None = None) -> tuple:
+    """Returns ``backend="cuda"``'s first and second call, in seconds; with
+    ``keep``, ``keep[label]`` holds the first call's ``outputs`` on the host."""
     seed_kernel_recipes(cuda_daisy, program)
     t0 = time.perf_counter()
     fn_k, plan = cuda_daisy.compile(program)
@@ -1070,6 +1091,8 @@ def run_program(torch, cuda_daisy, torch_daisy, program, inputs, outputs, label)
             raise AssertionError(f"{label}: {name} differs from the torch backend "
                                  f"(max rel {max_rel(got, ref):.3e})")
         worst = max(worst, max_rel(got, ref))
+    if keep is not None:
+        keep[label] = {name: env_k[name].cpu() for name in outputs}
     kinds = {}
     for n in plan.nests:
         kinds[n.recipe.kind] = kinds.get(n.recipe.kind, 0) + 1
@@ -1103,11 +1126,11 @@ def check_oracle(torch, cuda_daisy, program, inputs, outputs, label) -> None:
     log(f"  {label} small: matches execute_numpy")
 
 
-def main_path(torch) -> tuple[dict, dict]:
-    """Phases 4-5; returns the fp32 shapes K1 took in the LARGE programs and
-    the hand-seeded plan's (first, second) call at ``bench`` by label."""
-    import numpy as np
-
+def main_path(torch) -> tuple[dict, dict, dict]:
+    """Phases 4-5; returns the fp32 shapes K1 took in the LARGE programs,
+    the hand-seeded plan's (first, second) call at ``bench`` by label and
+    phase 5's CLOUDSC outputs on the host by label (phase 18 holds the
+    sharded runs against them)."""
     from repro_torch.cloudsc import (erosion_program, mini_cloudsc_program, physical_inputs,
                                      saturation_chain_inputs, saturation_chain_program,
                                      scheme_inputs)
@@ -1148,15 +1171,298 @@ def main_path(torch) -> tuple[dict, dict]:
                             [b.output], f"{name}/{var} LARGE {LARGE[name]}")
 
     log(f"phase 5: main path, CLOUDSC at klev={KLEV}, nproma={NPROMA}")
+    phase5: dict = {}
+    for label, prog, inputs, outputs in cloudsc_programs():
+        run_program(torch, cuda_daisy, torch_daisy, prog, inputs, outputs, label, keep=phase5)
+    return gemm_shapes.shapes, bench_times, phase5
+
+
+def cloudsc_programs(nproma: int = NPROMA, klev: int = KLEV) -> list:
+    """Phase 5's programs: (label, program, float32 inputs, outputs)."""
+    import numpy as np
+
+    from repro_torch.cloudsc import (erosion_program, mini_cloudsc_program, physical_inputs,
+                                     saturation_chain_inputs, saturation_chain_program,
+                                     scheme_inputs)
+
     f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}  # noqa: E731
-    run_program(torch, cuda_daisy, torch_daisy, erosion_program(NPROMA, KLEV),
-                 f32(physical_inputs(NPROMA, KLEV)), ["ZTP1", "ZQSMIX"], "cloudsc erosion")
-    run_program(torch, cuda_daisy, torch_daisy, mini_cloudsc_program(NPROMA, KLEV),
-                 f32(scheme_inputs(NPROMA, KLEV)), ["ZTP1", "ZQSMIX", "ZQL", "ZQI", "TENDQ"],
-                 "cloudsc mini scheme")
-    run_program(torch, cuda_daisy, torch_daisy, saturation_chain_program(NPROMA, KLEV),
-                 f32(saturation_chain_inputs(NPROMA, KLEV)), ["TEND"], "cloudsc saturation chain")
-    return gemm_shapes.shapes, bench_times
+    return [("cloudsc erosion", erosion_program(nproma, klev),
+             f32(physical_inputs(nproma, klev)), ["ZTP1", "ZQSMIX"]),
+            ("cloudsc mini scheme", mini_cloudsc_program(nproma, klev),
+             f32(scheme_inputs(nproma, klev)), ["ZTP1", "ZQSMIX", "ZQL", "ZQI", "TENDQ"]),
+            ("cloudsc saturation chain", saturation_chain_program(nproma, klev),
+             f32(saturation_chain_inputs(nproma, klev)), ["TEND"])]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the sharded Daisy path (partition planner + torch.distributed)
+# ---------------------------------------------------------------------------
+SHARD_RANKS = 2                            # ranks sharing the one card
+SHARD_POLYBENCH = ("gemm", "bicg", "atax")  # K1; K3 with a ``+`` all-reduce
+SHARD_WORLD_TIMEOUT_S = 300                # bounds each collective
+
+
+def kernel_counts(kg, nkm, codegen, partition) -> dict:
+    """The counters phases 4-6 read, and the executor's collectives."""
+    return {"K1": kg.LAUNCHES["gemm"], "K1 by kernel": dict(kg.PATHS),
+            "K2": nkm.EMITTED["pallas_nest"], "K2 flat": nkm.FLAT["pallas_nest"],
+            "K3": nkm.EMITTED["pallas_reduce"], "K3 split": nkm.SPLIT["pallas_reduce"],
+            "routed": dict(codegen.ROUTED),
+            "collectives": {k: dict(v) for k, v in partition.COLLECTIVES.items()}}
+
+
+def counts_delta(after: dict, before: dict) -> dict:
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            sub = counts_delta(v, before.get(k, {}))
+            out[k] = {kk: vv for kk, vv in sub.items() if vv}
+        else:
+            out[k] = v - before.get(k, 0)
+    return out
+
+
+class CollectiveTimes:
+    """While installed, the host-clock ms of every all-reduce and all-gather
+    the executor runs, each between two synchronizations of the card."""
+
+    def __init__(self, torch, partition):
+        self.torch, self.partition = torch, partition
+        self.ms = {"all_reduce": 0.0, "all_gather": 0.0}
+
+    def _wrap(self, key, real):
+        def timed(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                self.torch.cuda.synchronize()
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+        return timed
+
+    def __enter__(self):
+        p = self.partition
+        self.real = p._all_reduce, p._all_gather
+        p._all_reduce = self._wrap("all_reduce", self.real[0])
+        p._all_gather = self._wrap("all_gather", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.partition._all_reduce, self.partition._all_gather = self.real
+
+
+def sharded_run(torch, fn, inputs, kg, nkm, codegen, partition) -> tuple[dict, dict]:
+    """Two calls of a sharded ``fn`` (the first compiles the shard-local
+    Triton specializations); returns the first call's environment and the
+    record: each call's ms, the second call's all-reduce and gather ms and
+    shard-local ms (CUDA events around the call, less its collectives), and
+    the counters over both calls."""
+    before = kernel_counts(kg, nkm, codegen, partition)
+    t0 = time.perf_counter()
+    env = fn(inputs)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with CollectiveTimes(torch, partition) as coll:
+        start.record()
+        fn(inputs)
+        end.record()
+        torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end)
+    rec = {"first_ms": first_ms, "call_ms": call_ms, "all_reduce_ms": coll.ms["all_reduce"],
+           "gather_ms": coll.ms["all_gather"],
+           "shard_local_ms": call_ms - coll.ms["all_reduce"] - coll.ms["all_gather"],
+           "counts": counts_delta(kernel_counts(kg, nkm, codegen, partition), before)}
+    return env, rec
+
+
+def check_outputs(torch, label, prog, env, ref, outputs, bitwise: bool) -> float:
+    """Outputs of the declared shape and finite, bit-identical to ``ref``
+    or within the program tolerance; returns the largest relative error."""
+    worst = 0.0
+    for name in outputs:
+        got, want = env[name], ref[name].to(env[name].device)
+        if tuple(got.shape) != tuple(prog.array(name).shape) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"phase 18 {label}: {name} has shape {tuple(got.shape)} or "
+                                 "non-finite values")
+        if bitwise and not torch.equal(got, want):
+            raise AssertionError(f"phase 18 {label}: {name} is not bit-identical to the "
+                                 f"unsharded run (max rel {max_rel(got, want):.3e})")
+        if not torch.allclose(got, want, rtol=PROGRAM_RTOL, atol=PROGRAM_ATOL):
+            raise AssertionError(f"phase 18 {label}: {name} differs from the unsharded run "
+                                 f"(max rel {max_rel(got, want):.3e})")
+        worst = max(worst, max_rel(got, want))
+    return worst
+
+
+def shard_world(nproma: int, klev: int, phase5_path: str) -> list:
+    """Phase 18 (b) on one rank of a world sharing the card; returns every
+    rank's report (gathered to each).  Rank 0 also runs the unsharded
+    references and holds the outputs against them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.cloudsc import column_mesh, compile_scheme, mini_cloudsc_program, scheme_inputs
+    from repro_torch.core import Daisy, TuningDatabase, codegen, partition
+    from repro_torch.core.fusion import optimization_pipeline
+    from repro_torch.core.scheduler import random_inputs
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.polybench import BENCHMARKS
+
+    t_rank = time.perf_counter()
+    mesh = column_mesh()
+    rank = mesh.rank
+    counters = (kg, nkm, codegen, partition)
+    report = {"rank": rank, "device": str(mesh.device),
+              "backend": dist.get_backend(mesh.get_group("data")),
+              "columns": -(-nproma // mesh.size("data")), "runs": {}}
+
+    def plan_of(plan) -> dict:
+        return {"describe": plan.describe(), "sharded": plan.sharded,
+                "reduces": [(k, r) for k, n in enumerate(plan.nests) for r in n.reduces]}
+
+    # compile_scheme: the reference's schedule (torch ops, no kernel)
+    inputs = {k: np.asarray(v, np.float32) for k, v in scheme_inputs(nproma, klev).items()}
+    t0 = time.perf_counter()
+    fn, plan = compile_scheme(nproma, klev, mesh=mesh)
+    compile_s = time.perf_counter() - t0
+    if not all(n.iterator is not None and not n.reduces for n in plan.nests):
+        raise AssertionError(f"phase 18 compile_scheme: not every nest sharded without a "
+                             f"collective:\n{plan.describe()}")
+    env, rec = sharded_run(torch, fn, inputs, *counters)
+    rec.update(plan=plan_of(plan), compile_s=compile_s)
+    if rank == 0:
+        ref = compile_scheme(nproma, klev, device=mesh.device)[0](inputs)
+        prog = optimization_pipeline(fuse=True).run(mini_cloudsc_program(nproma, klev))
+        rec["max_rel"] = check_outputs(torch, "compile_scheme", prog, env, ref,
+                                       [a.name for a in prog.arrays], bitwise=True)
+    report["runs"]["compile_scheme mini scheme"] = rec
+    del env
+
+    # Daisy(backend="cuda", mesh=...) with phase 5's kernel recipes: K2
+    prog = mini_cloudsc_program(nproma, klev)
+    d = Daisy(db=TuningDatabase(radius=-1.0), backend="cuda", mesh=mesh)
+    seed_kernel_recipes(d, prog)
+    t0 = time.perf_counter()
+    fn, dplan = d.compile(prog)
+    compile_s = time.perf_counter() - t0
+    env, rec = sharded_run(torch, fn, inputs, *counters)
+    rec.update(plan=plan_of(dplan.partition), compile_s=compile_s)
+    if rec["counts"]["K2"] <= 0:
+        raise AssertionError(f"phase 18 Daisy mini scheme: rank {rank} launched no K2")
+    if rank == 0:
+        phase5 = torch.load(phase5_path)
+        reduces = rec["plan"]["reduces"]
+        rec["max_rel"] = check_outputs(torch, "Daisy mini scheme", prog, env, phase5,
+                                       list(phase5), bitwise=not reduces)
+        rec["held"] = "program tolerance: nests " + str(reduces) if reduces else "bit-identical"
+    report["runs"]["Daisy mini scheme"] = rec
+    del env
+
+    # PolyBench LARGE: gemm on K1, bicg and atax on K3 with a + all-reduce
+    for name in SHARD_POLYBENCH:
+        b = BENCHMARKS[name]
+        prog = b.variants["a"](LARGE[name])
+        label = f"Daisy {name}/a LARGE"
+        d = Daisy(db=TuningDatabase(radius=-1.0), backend="cuda", mesh=mesh)
+        seed_kernel_recipes(d, prog)
+        t0 = time.perf_counter()
+        fn, dplan = d.compile(prog)
+        compile_s = time.perf_counter() - t0
+        inputs = random_inputs(prog, seed=3)
+        env, rec = sharded_run(torch, fn, inputs, *counters)
+        rec.update(plan=plan_of(dplan.partition), compile_s=compile_s)
+        want = {"gemm": "K1"}.get(name, "K3")
+        if rec["counts"][want] <= 0:
+            raise AssertionError(f"phase 18 {label}: rank {rank} launched no {want}")
+        if name != "gemm" and not any(op == "+" for _, (_, op) in rec["plan"]["reduces"]):
+            raise AssertionError(f"phase 18 {label}: no + all-reduce planned")
+        if rank == 0:
+            u = Daisy(db=d.db, backend="cuda", device=mesh.device)
+            ref = u.compile(prog)[0](inputs)
+            rec["max_rel"] = check_outputs(torch, label, prog, env, ref, [b.output],
+                                           bitwise=False)
+        report["runs"][label] = rec
+        del env
+    torch.cuda.synchronize()
+    report["seconds"] = time.perf_counter() - t_rank
+    reports = [None] * mesh.size("data")
+    dist.all_gather_object(reports, report)
+    return reports
+
+
+def shard_phase(torch, smi: str, phase5: dict) -> dict:
+    """Phase 18: (a) a mesh of one in this process, (b) ``SHARD_RANKS``
+    ranks on the card (``run_world``; collectives on gloo, since NCCL
+    refuses two ranks on one device); returns the phase's record."""
+    import tempfile
+
+    from repro_torch.cloudsc import column_mesh
+    from repro_torch.core import Daisy, TuningDatabase, codegen, partition
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import nest_kernel as nkm
+    from repro_torch.launch.mesh import run_world
+
+    t0 = time.perf_counter()
+    out: dict = {"a": {}, "card": smi}
+    d = Daisy(db=TuningDatabase(radius=-1.0), backend="cuda", mesh=column_mesh(1))
+    before = kernel_counts(kg, nkm, codegen, partition)
+    for label, prog, inputs, outputs in cloudsc_programs():
+        seed_kernel_recipes(d, prog)
+        fn, plan = d.compile(prog)
+        if plan.partition is None or plan.partition.sharded:
+            raise AssertionError(f"phase 18 (a) {label}: a mesh of one sharded:\n"
+                                 f"{plan.partition and plan.partition.describe()}")
+        env = fn(inputs)
+        check_outputs(torch, f"(a) {label}", plan.program, env, phase5[label], outputs,
+                      bitwise=True)
+        reasons = sorted({n.reason for n in plan.partition.nests})
+        out["a"][label] = {"nests": len(plan.partition.nests), "reasons": reasons}
+        log(f"  (a) {label}: mesh of one, {len(plan.partition.nests)} nests replicated "
+            f"({'; '.join(reasons)}); bit-identical to phase 5")
+        del env
+    torch.cuda.synchronize()
+    out["a_counts"] = counts_delta(kernel_counts(kg, nkm, codegen, partition), before)
+    if out["a_counts"]["K2"] <= 0:
+        raise AssertionError("phase 18 (a): K2 was not launched")
+    out["a_seconds"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as tmp:
+        ref_path = str(Path(tmp) / "phase5_mini.pt")
+        torch.save(phase5["cloudsc mini scheme"], ref_path)
+        t1 = time.perf_counter()
+        reports = run_world(SHARD_RANKS, shard_world, (NPROMA, KLEV, ref_path),
+                            timeout_s=SHARD_WORLD_TIMEOUT_S)
+        out["b_seconds"] = time.perf_counter() - t1
+    if len(reports) != SHARD_RANKS or sorted(r["rank"] for r in reports) != list(range(SHARD_RANKS)):
+        raise AssertionError(f"phase 18 (b): {len(reports)} reports for {SHARD_RANKS} ranks")
+    out["b"] = reports
+    log(f"  (b) {SHARD_RANKS} ranks sharing one H100 ({reports[0]['device']}, collectives on "
+        f"{reports[0]['backend']}, {reports[0]['columns']} columns a rank), "
+        f"{out['b_seconds']:.1f} s with the spawn; times below are 2 ranks sharing one H100: "
+        f"not a scaling figure ({smi})")
+    for label in reports[0]["runs"]:
+        r0 = reports[0]["runs"][label]
+        log(f"    {label}: {r0['plan']['describe'].splitlines()[0]} "
+            f"{len(r0['plan']['describe'].splitlines()) - 2} nests; "
+            f"all-reduces {r0['plan']['reduces']}; max rel vs unsharded {r0.get('max_rel', 0):.2e}"
+            + (f" ({r0['held']})" if "held" in r0 else ""))
+        for r in reports:
+            x = r["runs"][label]
+            c = x["counts"]
+            log(f"      rank {r['rank']}: compile {x['compile_s']:.2f} s, first call "
+                f"{x['first_ms']:.1f} ms; a call {x['call_ms']:.3f} ms = shard-local "
+                f"{x['shard_local_ms']:.3f} + all-reduce {x['all_reduce_ms']:.3f} + gather "
+                f"{x['gather_ms']:.3f}; launches over both calls K1 {c['K1']} "
+                f"{c['K1 by kernel']}, K2 {c['K2']} ({c['K2 flat']} flat), K3 {c['K3']} "
+                f"({c['K3 split']} split); routed {c['routed']}; collectives {c['collectives']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18: {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4739,7 +5045,7 @@ def main(argv: list[str] | None = None) -> int:
     nkm.SPLIT["pallas_reduce"] = 0
     nkm.FLAT["pallas_nest"] = 0
     codegen.ROUTED.clear()
-    gemm_shapes, bench_times = main_path(torch)
+    gemm_shapes, bench_times, phase5 = main_path(torch)
     torch.cuda.synchronize()
     launches = {"gemm": kg.LAUNCHES["gemm"], "pallas_nest": nkm.EMITTED["pallas_nest"],
                 "pallas_reduce": nkm.EMITTED["pallas_reduce"]}
@@ -4764,6 +5070,18 @@ def main(argv: list[str] | None = None) -> int:
     if not gemm_shapes:
         raise AssertionError("phase 4's LARGE programs handed K1 no fp32 product")
     results["gemm"]["main_path_shapes"] = check_gemm_main_shapes(torch, gemm_shapes)
+
+    log(f"phase 18: the sharded Daisy path: (a) a mesh of one; (b) {SHARD_RANKS} ranks on the "
+        f"card: CLOUDSC column-sharded at {KLEV} x {NPROMA} through compile_scheme and "
+        "Daisy (K2), PolyBench LARGE gemm (K1), bicg and atax (K3, + all-reduce)")
+    sharded = shard_phase(torch, smi, phase5)
+    del phase5
+    for key, name in (("gemm", "K1"), ("pallas_nest", "K2"), ("pallas_reduce", "K3")):
+        results[key]["launches_phase_18"] = {
+            "(a) mesh of one": sharded["a_counts"][name],
+            **{f"(b) rank {r['rank']}": sum(x["counts"][name] for x in r["runs"].values())
+               for r in sharded["b"]}}
+    results["pallas_nest"]["phase_18"] = sharded
 
     # the model stack's paths: the counts start at 0 before each, read right after
     def model_counts():

@@ -12,8 +12,9 @@ of the real scheme:
 Stage 3 proves the normalizer's legality machinery on a real pattern: the
 JK-carried SCC stays atomic while every JL loop fissions and vectorizes.
 
-Port of ``repro/cloudsc/scheme.py``: the program builders and their inputs;
-``column_mesh`` and ``compile_scheme`` wait for the multi-device port.
+Port of ``repro/cloudsc/scheme.py``: the programs and their inputs,
+``column_mesh`` (a 1-D mesh over a ``torch.distributed`` world) and
+``compile_scheme`` (the scheme column-sharded over it).
 """
 from __future__ import annotations
 
@@ -245,6 +246,51 @@ def saturation_chain_inputs(
     for nm, _, nb in SPECIES:
         out[f"W_{nm}"] = rng.uniform(0.2, 1.0, size=(nb,))
     return out
+
+
+def column_mesh(n_devices: int | None = None, axis: str = "data", device=None):
+    """A 1-D mesh over the horizontal-column axis — the paper's NPROMA
+    posture: CLOUDSC is embarrassingly parallel over grid columns (JL), so
+    the whole scheme data-parallelizes across ``axis`` with zero collectives
+    (the JK recurrence stays inside each shard).  ``n_devices`` defaults to
+    the world's size when a process group is initialised, else 1 (a mesh of
+    one, no process group).  ``device`` as in ``launch.mesh.make_mesh``."""
+    import torch.distributed as dist
+
+    from ..launch.mesh import make_mesh
+
+    if n_devices is None:
+        live = dist.is_available() and dist.is_initialized()
+        n_devices = dist.get_world_size() if live else 1
+    return make_mesh((n_devices,), (axis,), device=device)
+
+
+def compile_scheme(
+    nproma: int = 128,
+    klev: int = 137,
+    mesh=None,
+    schedule=None,
+    fuse: bool = True,
+    device="cuda",
+):
+    """Normalize + compile the mini scheme, column-sharded when ``mesh`` is
+    given.  Returns ``(fn, ProgramPartition | None)``; the partition planner
+    discovers the JL column iterator of every canonical nest and shards it
+    over the mesh's ``data`` axis (all (klev, nproma) fields split along
+    columns, scalar-expanded temporaries along their JL extent).  The default
+    schedule is the reference's: torch ops, no kernel.  Without a mesh it
+    runs on ``device``, under one on the mesh's device."""
+    from ..core.codegen import Schedule, compile_torch
+    from ..core.fusion import optimization_pipeline
+    from ..core.partition import compile_sharded
+
+    prog = mini_cloudsc_program(nproma, klev)
+    norm = optimization_pipeline(fuse=fuse).run(prog)
+    sched = schedule if schedule is not None else Schedule(
+        mode="canonical", use_idioms=False, scan=True, shard_axis="data")
+    if mesh is None:
+        return compile_torch(norm, sched, device=device), None
+    return compile_sharded(norm, sched, mesh=mesh, axis="data")
 
 
 def scheme_inputs(nproma: int = 128, klev: int = 137, seed: int = 0) -> dict[str, np.ndarray]:

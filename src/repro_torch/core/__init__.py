@@ -8,6 +8,7 @@ Public API:
     fusion      — canonical-form re-fusion of adjacent elementwise nests
     codegen     — executable lowerings (numpy oracle, as-written, canonical)
     tiling      — the nest kernel's grid planner
+    partition   — the mesh partition planner and the sharded executor
     scheduler   — Daisy: pipeline -> idioms -> transfer-tune -> compile
 """
 from .ir import (  # noqa: F401
@@ -55,6 +56,14 @@ from .rewrite import (  # noqa: F401
     rewrite_passes,
 )
 from .codegen import Schedule, compile_torch, execute_numpy, run_torch  # noqa: F401
+from .partition import (  # noqa: F401
+    COLLECTIVES,
+    NestPartition,
+    ProgramPartition,
+    compile_sharded,
+    plan_program_partition,
+    run_sharded,
+)
 from .tiling import TilePlan, TilingError, plan_nest_tiling  # noqa: F401
 from .cache import CacheStats, CompilationCache, fingerprint_obj  # noqa: F401
 from .database import DatabaseCorruption, TuningDatabase  # noqa: F401

@@ -178,6 +178,12 @@ class Schedule:
     outside the tiled class goes to the generic lowering by a counted planner
     decision.  ``scan`` selects the per-step row-view lowering of carried
     loops (canonical mode only).
+
+    ``shard_axis`` opts the nest into the mesh partitioner
+    (``repro_torch.core.partition``): when ``compile_sharded`` runs over a
+    mesh axis of that name, the planner may shard the nest's outermost
+    parallel iterator across it (None keeps the nest replicated).  The flag
+    is inert under plain ``compile_torch``.
     """
 
     mode: str = "canonical"  # 'as_written' | 'canonical'
@@ -189,6 +195,7 @@ class Schedule:
     nest_tile: tuple[int, ...] | None = None  # trailing-axis tiles (+red last)
     unroll: int = 1  # in-kernel reduction unroll factor
     scan: bool = True  # row-view recurrences (canonical mode)
+    shard_axis: str | None = None  # mesh axis for the partition planner
 
 
 # Lowering counters (tests and the chip smoke read which path ran).

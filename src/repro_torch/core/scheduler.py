@@ -26,7 +26,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 from pathlib import Path
-from typing import Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -67,6 +67,14 @@ class ProgramPlan:
 
     program: Program  # normalized
     nests: list[NestPlan]
+    # filled by ``Daisy.compile`` under a mesh: the partition planner's
+    # whole-program sharding decision (None before compilation / no mesh)
+    partition: Any = None
+
+    @property
+    def normalized(self) -> bool:
+        """Plans are always built from the normalized program."""
+        return True
 
 
 def nest_program(program: Program, nest: Node) -> Program:
@@ -127,6 +135,16 @@ class Daisy:
     onto their ``einsum``/``vectorize`` equivalents).  ``device`` defaults to
     the card; with no card that raises — pass ``device='cpu'`` to run the
     kernels' plain versions on the CPU.
+
+    ``mesh`` (a ``repro_torch.launch.mesh.Mesh``) turns on the sharded
+    execution path: ``compile`` routes the normalized program through the
+    partition planner (``repro_torch.core.partition``), which shards each
+    canonical nest's outermost parallel iterator across ``mesh``'s
+    ``shard_axis`` and falls back to replication wherever the dependence
+    oracle vetoes.  A recipe's ``parallelize`` knob overrides the default
+    axis per nest.  Recipes are still resolved on the global normalized
+    program, so fingerprints never see the shard-local shapes.  Under a mesh
+    the program runs on ``mesh.device``.
     """
 
     def __init__(
@@ -136,12 +154,24 @@ class Daisy:
         fuse: bool = True,
         rewrite: bool = True,
         backend: str = "cuda",
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh: Any = None,
+        shard_axis: str = "data",
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r} (want one of {BACKENDS})")
+        if mesh is not None:
+            if shard_axis not in getattr(mesh, "shape", {}):
+                raise ValueError(f"the mesh has no axis {shard_axis!r}")
+            dev = None if device is None else torch.device(device)
+            if dev is not None and (dev.type != mesh.device.type or
+                                    dev.index not in (None, mesh.device.index)):
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.backend = backend
-        self.device = check_device(device)
+        self.device = check_device("cuda" if device is None else device)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.db = db if db is not None else TuningDatabase()
         self.fuse = fuse
         self.rewrite = rewrite
@@ -172,8 +202,13 @@ class Daisy:
 
     def _plan_key(self, fp: str, normalize_first: bool) -> tuple:
         # db.uid scopes entries to the database instance; generation expires
-        # plans resolved against older contents of the same database
-        return (fp, normalize_first, self.fuse, self.backend, str(self.device),
+        # plans resolved against older contents of the same database.  The
+        # mesh enters by value (axis names and sizes, the ranks, the device,
+        # the shard axis), not identity: two equal meshes address the same
+        # compiled fn, while meshes over other ranks stay distinct
+        mesh_sig = (tuple(self.mesh.shape.items()), self.mesh.ranks, str(self.mesh.device),
+                    self.shard_axis) if self.mesh is not None else None
+        return (fp, normalize_first, self.fuse, self.backend, str(self.device), mesh_sig,
                 self.db.uid, self.db.generation)
 
     def _backend_recipe(self, recipe: Recipe) -> Recipe:
@@ -218,9 +253,17 @@ class Daisy:
         if cached is not None:
             return cached
         plan = self.plan(program, normalize_first=normalize_first, _fp=fp)
-        per_nest = [schedule_from_recipe(self._backend_recipe(np_.recipe))
+        axis = self.shard_axis if self.mesh is not None else None
+        per_nest = [schedule_from_recipe(self._backend_recipe(np_.recipe), shard_axis=axis)
                     for np_ in plan.nests]
-        result = (compile_torch(plan.program, per_nest, device=self.device), plan)
+        if self.mesh is not None:
+            from .partition import compile_sharded
+
+            fn, plan.partition = compile_sharded(plan.program, per_nest, mesh=self.mesh,
+                                                 axis=self.shard_axis)
+        else:
+            fn = compile_torch(plan.program, per_nest, device=self.device)
+        result = (fn, plan)
         self.cache.put(key, result)
         return result
 

@@ -56,24 +56,37 @@ def default_recipe_for(idiom: IdiomMatch) -> Recipe:
     return Recipe(kind="vectorize", notes=f"idiom:{idiom.kind}")
 
 
-def schedule_from_recipe(recipe: Recipe) -> Schedule:
+def schedule_from_recipe(recipe: Recipe, shard_axis: str | None = None) -> Schedule:
     """Recipe -> Schedule.  The GEMM recipe's ``tile`` sized TPU blocks and
     has no counterpart (the CUDA GEMM's tiling is fixed); the nest kinds pass
-    ``tile`` and ``unroll`` to the nest kernel's planner."""
+    ``tile`` and ``unroll`` to the nest kernel's planner.  ``shard_axis`` is
+    the scheduler-level default mesh axis (``Daisy.shard_axis`` under a
+    mesh); the recipe's own ``parallelize`` knob, which the evolutionary
+    search may flip, wins when set: an axis name pins the nest to that axis,
+    the ``'none'`` sentinel disables sharding for the nest (None defers to
+    the default)."""
+    axis = recipe.parallelize or shard_axis
+    if axis == "none":
+        axis = None
     if recipe.kind == "einsum":
-        return Schedule(mode="canonical", use_idioms=True, vec_budget=recipe.vec_budget)
+        return Schedule(mode="canonical", use_idioms=True, vec_budget=recipe.vec_budget,
+                        shard_axis=axis)
     if recipe.kind == "pallas_gemm":
         return Schedule(mode="canonical", use_idioms=True, vec_budget=recipe.vec_budget,
-                        pallas_gemm=True)
+                        pallas_gemm=True, shard_axis=axis)
     if recipe.kind == "pallas_nest":
         return Schedule(mode="canonical", use_idioms=False, vec_budget=recipe.vec_budget,
-                        pallas_nest=True, nest_tile=recipe.tile, unroll=recipe.unroll)
+                        pallas_nest=True, nest_tile=recipe.tile, unroll=recipe.unroll,
+                        shard_axis=axis)
     if recipe.kind == "pallas_reduce":
         return Schedule(mode="canonical", use_idioms=False, vec_budget=recipe.vec_budget,
-                        pallas_reduce=True, nest_tile=recipe.tile, unroll=recipe.unroll)
+                        pallas_reduce=True, nest_tile=recipe.tile, unroll=recipe.unroll,
+                        shard_axis=axis)
     if recipe.kind == "sequential":
-        return Schedule(mode="as_written", use_idioms=False, vec_budget=recipe.vec_budget)
-    return Schedule(mode="canonical", use_idioms=False, vec_budget=recipe.vec_budget)
+        return Schedule(mode="as_written", use_idioms=False, vec_budget=recipe.vec_budget,
+                        shard_axis=axis)
+    return Schedule(mode="canonical", use_idioms=False, vec_budget=recipe.vec_budget,
+                    shard_axis=axis)
 
 
 def _mutate(recipe: Recipe, rng: random.Random) -> Recipe:
@@ -110,8 +123,8 @@ def _mutate(recipe: Recipe, rng: random.Random) -> Recipe:
         r = replace(r, unroll=rng.choice([1, 2, 4]))
     else:
         # cycle the mesh-axis knob (None = scheduler default, 'none' =
-        # sharding off for this nest, 'data' = pin).  Kept so the stream
-        # stays the reference's; one card never reads it.
+        # sharding off for this nest, 'data' = pin); read by
+        # ``schedule_from_recipe`` under a mesh (``Daisy(mesh=)``)
         cycle = {None: "data", "data": "none", "none": None}
         r = replace(r, parallelize=cycle.get(r.parallelize))
     return r

@@ -17,8 +17,9 @@ replay the exact same failure schedule every run::
     assert plan.fired                    # the log of (site, key, kind) strikes
 
 ``Heartbeat`` and ``StragglerMonitor`` (``:68-128``) are the trainer's
-(``train.Trainer``); ``compile_with_degradation``'s ``mesh`` and
-``shard_axis`` come with partitioning (ROADMAP queue 6).
+(``train.Trainer``); ``compile_with_degradation`` passes ``mesh`` and
+``shard_axis`` to each rung's ``Daisy`` (the sharded path,
+``repro_torch.core.partition``).
 """
 from __future__ import annotations
 
@@ -216,7 +217,7 @@ def compile_with_degradation(
     backends: tuple[str, ...] = ("cuda", "torch"),
     db=None,
     mesh=None,
-    shard_axis: str | None = None,
+    shard_axis: str = "data",
     fault_plan: FaultPlan | None = None,
     validate: bool = True,
     device="cuda",
@@ -234,14 +235,13 @@ def compile_with_degradation(
     every rung fails.  Injection site ``daisy.compile`` (key = backend)
     simulates compile failures per rung.  The ladder is taken only when a
     whole compile or its validation run fails, never around a live launch.
+    Under ``mesh`` every rung is a sharded ``Daisy`` on the mesh's device,
+    and every rank of the mesh must make the same call.
     """
     import torch
 
     from .core.scheduler import Daisy, random_inputs
 
-    if mesh is not None or shard_axis is not None:
-        raise NotImplementedError("compile_with_degradation: mesh and shard_axis are not "
-                                  "ported yet (see ROADMAP queue 6)")
     if not backends:
         raise ValueError("compile_with_degradation needs at least one backend")
     errors: list[tuple[str, Exception]] = []
@@ -249,7 +249,8 @@ def compile_with_degradation(
         try:
             if fault_plan is not None:
                 fault_plan.maybe_raise("daisy.compile", key=b)
-            d = Daisy(db=db, backend=b, device=device)
+            d = Daisy(db=db, backend=b, device=None if mesh is not None else device,
+                      mesh=mesh, shard_axis=shard_axis)
             fn, plan = d.compile(program)
             if validate:
                 fn(random_inputs(program))

@@ -193,7 +193,7 @@ def deployment_context(
     refused: the port runs on one device."""
     if mesh is not None:
         raise NotImplementedError("deployment_context: mesh placement is not ported yet "
-                                  "(see ROADMAP queue 1)")
+                                  "(see ROADMAP queue 1, item 6, step 3)")
     db = tuning_db if tuning_db is not None else deployment_database()
     if telemetry is None:
         from ..autotune import NestTelemetry

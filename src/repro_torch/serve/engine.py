@@ -49,7 +49,8 @@ Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
     ``serve.prefill`` / ``serve.decode`` / ``serve.logits`` /
     ``serve.step``, as in the reference.
 
-Not ported yet (the constructor refuses it): ``mesh`` (ROADMAP queue 6).
+Not ported yet (the constructor refuses it): ``mesh`` (ROADMAP queue 1, item 6, step 3:
+the model stack's sharding).
 torch runs eagerly, so no step function is traced.
 
 The engine runs on the device its parameters are on (the card unless the
@@ -242,7 +243,7 @@ class ServingEngine:
         ``tuner.check_every`` steps."""
         if mesh is not None:
             raise NotImplementedError(
-                "ServingEngine: mesh is not ported yet (see ROADMAP queue 6)")
+                "ServingEngine: mesh is not ported yet (see ROADMAP queue 1, item 6, step 3)")
         self.cfg, self.scfg = cfg, scfg
         if tuner is not None:
             if tuning_db is None:

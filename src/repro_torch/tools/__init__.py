@@ -1,1 +1,2 @@
-"""Command-line tools: the offline tune CLI and the pass-pipeline explainer."""
+"""Command-line tools: the offline tune CLI, the pass-pipeline explainer and
+the markdown link checker."""

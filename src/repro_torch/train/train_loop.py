@@ -65,11 +65,12 @@ def make_train_step(
     ``accum_steps`` > 1 splits the batch into microbatches run one after
     another: activation memory drops by the factor, FLOPs unchanged.
     Compressing a cross-pod all-reduce (``grad_codec`` over ``pod_axis``)
-    needs partitioning, which is not ported.
+    needs the model stack's sharding, which is not ported.
     """
     if pod_axis is not None:
-        raise NotImplementedError("make_train_step: grad_codec over a pod_axis needs "
-                                  "partitioning, which is not ported yet (see ROADMAP queue 6)")
+        raise NotImplementedError("make_train_step: grad_codec over a pod_axis needs the "
+                                  "model stack's sharding, which is not ported yet (see "
+                                  "ROADMAP queue 1, item 6, step 3)")
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)

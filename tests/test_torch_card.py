@@ -40,7 +40,10 @@ buckets, decode steps and misaligned views; ``test_torch_moe.py`` holds its
 plain versions against the reference.  The evolutionary search's
 ``measure_recipe`` times a K2 and a K3 nest on the card, and ``seed_nest``
 seeds a mini program's nests there; ``test_torch_search.py`` holds the
-search against the reference on the CPU.
+search against the reference on the CPU.  Two ranks spawned on the card
+(their collectives on gloo) run the column-sharded mini scheme,
+bit-identical to the unsharded card run; ``test_torch_partition_world.py``
+holds the sharded executor on the CPU.
 """
 import numpy as np
 import pytest
@@ -1004,3 +1007,29 @@ def test_seed_nest_on_card(card):
         assert np.isfinite(t) and t > 0 and prov.endswith((":search", ":idiom"))
         assert recipe.kind in ("einsum", "vectorize", "sequential", "pallas_gemm",
                                "pallas_nest", "pallas_reduce")
+
+
+def _scheme_on_card_world(nproma: int, klev: int):
+    """One rank of a world on the card: the column-sharded mini scheme."""
+    from repro_torch.cloudsc import column_mesh, compile_scheme, scheme_inputs
+
+    fn, plan = compile_scheme(nproma, klev, mesh=column_mesh())
+    env = fn(scheme_inputs(nproma, klev))
+    return plan, {k: v.cpu().numpy() for k, v in env.items()}
+
+
+@pytest.mark.cuda
+def test_sharded_scheme_on_card_is_bit_identical(card):
+    """Two ranks on the one card (their collectives on gloo) run the mini
+    scheme column-sharded at nproma 256: every nest sharded, none
+    all-reducing, the outputs bit-identical to the unsharded card run."""
+    from repro_torch.cloudsc import compile_scheme, scheme_inputs
+    from repro_torch.launch.mesh import run_world
+
+    plan, got = run_world(2, _scheme_on_card_world, (256, 137))
+    assert plan.sharded and all(n.iterator is not None and not n.reduces for n in plan.nests)
+    fn, _ = compile_scheme(256, 137, device=card)
+    want = fn(scheme_inputs(256, 137))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v.cpu().numpy(), err_msg=k)

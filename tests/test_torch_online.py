@@ -433,8 +433,11 @@ def test_compile_with_degradation_raises_when_every_rung_fails():
                                  device="cpu")
     assert isinstance(info.value.__cause__, FaultInjected)
     assert plan.fired == [("daisy.compile", "cuda", "error"), ("daisy.compile", "torch", "error")]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh now goes to every rung's Daisy, which refuses one without the
+    # shard axis: every rung fails
+    with pytest.raises(RuntimeError, match="all backends failed") as info:
         compile_with_degradation(PA.logit_pipeline_program(32, 2), mesh=object(), device="cpu")
+    assert isinstance(info.value.__cause__, ValueError)
 
 
 def test_truncate_file(tmp_path):
