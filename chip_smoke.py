@@ -250,7 +250,33 @@ Phases, in order (any failure exits nonzero):
    each of the Jamba cut (1 x 2048) and xLSTM-350M in fp32 (4 x 256);
    (d) xLSTM-350M whole: ``run_resilient(3, fail_at=2)`` with a checkpoint
    in the reference's ``periods`` layout, bit-identical to an uninterrupted
-   run.
+   run;
+19. sharded serving, last, with the earlier phases' models freed: (a)
+   H2O-Danube3-4B on ``make_mesh((1, 1), ("data", "model"))`` serves phase
+   7's traffic with its tokens and watched logits bit for bit; (b) Danube
+   whole (24 layers, bf16) on mesh (data 2, model 2), 4 ranks spawned on
+   the card (``run_world``, collectives on gloo), 8 slots x 4096, phase 7's
+   first 8 prompts, 32 new tokens: tokens identical on every rank, the
+   watched logits within LOGITS_REL_TOL of the fp32 plain forward and
+   SHARD_VS_UNSHARDED_REL of the unsharded engine, on their prompts no
+   further from the fp32 forward than SHARD_PLAIN_RATIO x the unsharded
+   engine, greedy tokens equal the
+   unsharded engine's up to its first near tie (SHARD_TIE_MARGIN), K4 and
+   K5's mma and decode kernels launched on every rank, and ``wo``'s shards
+   swapped between the model ranks caught by the logits gate; (c) Mixtral
+   8x7B cut to 4 of 32 layers (every width, all 8 experts) on mesh (data
+   1, model 2), 4 experts a rank, 16 requests through the same gates: the
+   unsharded engine prefills with the sharded engine's routing (bf16 moves
+   near ties of the router, and a token sent elsewhere changes by O(1)),
+   so each request's dropped assignments equal the unsharded engine's and
+   its prompt logits compare like with like; the decode steps route
+   themselves and are compared up to the first row the two route apart;
+   every kept assignment combined on exactly one rank; K6's wgmma and
+   decode kernels on both ranks.  Each rank's placement, peak memory,
+   prefill tok/s, decode-step host and stream ms, collective ms and
+   launches are printed beside ``nvidia-smi``'s name and power limit:
+   ranks sharing one card, collectives through the host, not a scaling
+   figure.
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -272,6 +298,8 @@ device beside SDPA (``F.rms_norm``) and its bound.
 
 K1-K3's rows in the kernels' JSON line carry ``launches_phase_18`` (the
 mesh of one, and each rank of the world); K2's carries phase 18's record.
+K4's, K5's and K6's rows (and their decode kernels') carry
+``launches_phase_19`` per rank; K5's carries phase 19's record.
 
 Phase 16's K4-bwd and K5-bwd rows join the kernels' JSON line; their
 ``launches`` are phase 16 (c)'s six steps.  Phase 17's K6-bwd row joins
@@ -286,6 +314,9 @@ call at atax ``t1``) with the ``repro_torch`` package under SRC, so that two
 trees are measured by one harness on one card, in turns, and counts the
 global loads and stores in the SASS of the mini nest's kernel (``cuobjdump
 -sass``); it ends with a JSON line and the ``nvidia-smi`` line.
+``python3 chip_smoke.py --serve-shard SRC`` likewise runs only phase 7's
+Danube traffic (which phase 19 (a) is held against) and phase 19 with the
+package under SRC.
 Without a card, or without ``src/repro_torch`` beside this file, it prints no
 result and exits nonzero.
 """
@@ -2421,6 +2452,87 @@ def mutants(torch, cfg, params):
                lambda logits, experts: torch.softmax(logits, dim=-1).gather(1, experts))
 
 
+def logit_digest(torch, prefill, decode) -> str:
+    """sha256 of a request's recorded logits (prefill positions, then each
+    decode step), bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [prefill, *decode]:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def plain_gate(torch, cfg, params, recs: dict) -> dict:
+    """The fp32 plain forward over each watched request's prompt and
+    generated tokens (all but the last) against the engine's logits there.
+    ``recs``: rid -> ``prompt``, ``tokens``, ``prefill`` (the prompt
+    positions' logits), ``decode`` (each step's), and for MoE
+    ``prefill_routes`` (per MoE layer: the prefill's experts over the
+    padded bucket and the watched request's router logits) and ``steps``
+    (per decode step, per MoE layer: the slot's experts and router logits):
+    the plain forward follows the engine's dispatch groups and near-ties.
+    Returns the per-position relative L2 errors, the plain logits, the
+    sequences and forward arguments, and the routing agreement."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+
+    moe = cfg.is_moe
+    seqs, engine_logits, fwd_kw = {}, {}, {}
+    for rid, r in recs.items():
+        p_len, g_len = r["prompt"].size, len(r["tokens"])
+        seqs[rid] = torch.as_tensor(np.concatenate([r["prompt"], r["tokens"][:-1]]), device="cuda")
+        engine_logits[rid] = torch.cat([r["prefill"].float().cuda(),
+                                        torch.stack(r["decode"][:g_len - 1]).float().cuda()])
+        if not (engine_logits[rid].shape[0] == p_len + g_len - 1
+                and (cfg.window is None or p_len + g_len - 1 < cfg.window)):
+            raise AssertionError(f"request {rid}: {engine_logits[rid].shape[0]} logits recorded "
+                                 f"for {p_len} + {g_len} tokens")
+        fwd_kw[rid] = {}
+        if cfg.family == "audio":  # the engine's stub frontend: zero frames
+            fwd_kw[rid]["embeds"] = torch.zeros((cfg.frontend_len, cfg.d_model),
+                                                dtype=M.dtype_of(cfg), device="cuda")
+        if moe:  # the engine's dispatch groups: the padded bucket, then one per token
+            padded = int(r["prefill_routes"][0][0].shape[0])
+            fwd_kw[rid]["moe_groups"] = (
+                [(0, p_len, padded)]
+                + [(t, t + 1, None) for t in range(p_len, p_len + g_len - 1)])
+    errs, refs, ties, agree_gap = [], {}, 0, 0.0
+    for rid, r in recs.items():
+        kw = dict(fwd_kw[rid])
+        p_len = r["prompt"].size
+        if moe:
+            steps = r["steps"][:len(r["tokens"]) - 1]
+            routes = r["prefill_routes"]
+            moe_layers = range(len(routes))  # the MoE layers, in order
+            kw["routing"] = [torch.cat([routes[l][0][:p_len].cuda()]
+                                       + [s[l][0][None].cuda() for s in steps])
+                             for l in moe_layers]
+            engine_router = [torch.cat([routes[l][1][:p_len].cuda()]
+                                       + [s[l][1][None].cuda() for s in steps])
+                             for l in moe_layers]
+            kw["stats"] = fstats = {}
+        refs[rid] = plain.forward(cfg, params, seqs[rid], **kw)
+        err = rel_l2(torch, engine_logits[rid], refs[rid])
+        errs.append(err)
+        extra = ""
+        if moe:
+            gap = router_agreement(torch, cfg, engine_router, fstats)
+            ties += fstats.get("near_ties", 0)
+            agree_gap = max(agree_gap, gap)
+            extra = (f"; routing: {fstats.get('near_ties', 0)} near-tie token-layers took the "
+                     f"engine's choice (largest gap {fstats.get('max_tie_gap', 0.0):.4f}), "
+                     f"largest |engine - plain| router logit where they agree {gap:.4f}")
+        log(f"  request {rid} ({p_len} + {len(r['tokens'])} tokens): engine vs fp32 "
+            f"plain, relative L2 per position: prefill max {float(err[:p_len].max()):.3e}, "
+            f"decode max {float(err[p_len:].max()):.3e}, median {float(err.median()):.3e}"
+            + extra)
+    return dict(errs=errs, refs=refs, seqs=seqs, fwd_kw=fwd_kw, ties=ties, agree_gap=agree_gap,
+                engine_logits=engine_logits)
+
+
 def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
                watched: tuple[int, ...], seed: int, max_len: int = 4096,
                prompt_lens: tuple[int, int] = (128, 2048), bucket: int = 2048,
@@ -2579,56 +2691,16 @@ def serve_path(torch, smi: str, cfg, params, *, slots: int, n_requests: int,
         stats.update(kept_per_expert(torch, cfg, handles, prefill_routes, watched))
 
     # correctness: prefill and decode logits against the fp32 plain forward
-    seqs, engine_logits, fwd_kw = {}, {}, {}
-    for rid in watched:
-        h = handles[rid]
-        p_len, g_len = h.prompt.size, len(h.tokens)
-        seqs[rid] = torch.as_tensor(np.concatenate([h.prompt, h.tokens[:-1]]), device="cuda")
-        engine_logits[rid] = torch.cat([rec_prefill[rid].float(),
-                                        torch.stack(rec_decode[rid][:g_len - 1]).float()])
-        if not (engine_logits[rid].shape[0] == p_len + g_len - 1
-                and (cfg.window is None or p_len + g_len - 1 < cfg.window)):
-            raise AssertionError(f"request {rid}: {engine_logits[rid].shape[0]} logits recorded "
-                                 f"for {p_len} + {g_len} tokens")
-        fwd_kw[rid] = {}
-        if cfg.family == "audio":  # the engine's stub frontend: zero frames
-            fwd_kw[rid]["embeds"] = torch.zeros((cfg.frontend_len, cfg.d_model),
-                                                dtype=M.dtype_of(cfg), device="cuda")
-        if moe:  # the engine's dispatch groups: the padded bucket, then one per token
-            padded = int(prefill_routes[rid][0][0].shape[0])
-            fwd_kw[rid]["moe_groups"] = (
-                [(0, p_len, padded)]
-                + [(t, t + 1, None) for t in range(p_len, p_len + g_len - 1)])
-    errs, refs, ties, agree_gap = [], {}, 0, 0.0
-    for rid in watched:
-        kw = dict(fwd_kw[rid])
-        if moe:
-            steps = rec_route[rid][:len(handles[rid].tokens) - 1]
-            p_len = handles[rid].prompt.size
-            moe_layers = range(len(prefill_routes[rid]))  # the MoE layers, in order
-            kw["routing"] = [torch.cat([prefill_routes[rid][l][0][:p_len]]
-                                       + [s[l][0][None] for s in steps])
-                             for l in moe_layers]
-            engine_router = [torch.cat([prefill_routes[rid][l][1][:p_len]]
-                                       + [s[l][1][None] for s in steps])
-                             for l in moe_layers]
-            kw["stats"] = fstats = {}
-        refs[rid] = plain.forward(cfg, params, seqs[rid], **kw)
-        err = rel_l2(torch, engine_logits[rid], refs[rid])
-        errs.append(err)
-        p_len = handles[rid].prompt.size
-        extra = ""
-        if moe:
-            gap = router_agreement(torch, cfg, engine_router, fstats)
-            ties += fstats.get("near_ties", 0)
-            agree_gap = max(agree_gap, gap)
-            extra = (f"; routing: {fstats.get('near_ties', 0)} near-tie token-layers took the "
-                     f"engine's choice (largest gap {fstats.get('max_tie_gap', 0.0):.4f}), "
-                     f"largest |engine - plain| router logit where they agree {gap:.4f}")
-        log(f"  request {rid} ({p_len} + {len(handles[rid].tokens)} tokens): engine vs fp32 "
-            f"plain, relative L2 per position: prefill max {float(err[:p_len].max()):.3e}, "
-            f"decode max {float(err[p_len:].max()):.3e}, median {float(err.median()):.3e}"
-            + extra)
+    recs = {rid: dict(prompt=handles[rid].prompt, tokens=list(handles[rid].tokens),
+                      prefill=rec_prefill[rid], decode=rec_decode[rid],
+                      prefill_routes=prefill_routes.get(rid), steps=rec_route[rid])
+            for rid in watched}
+    gate_out = plain_gate(torch, cfg, params, recs)
+    errs, refs, seqs, fwd_kw = (gate_out[k] for k in ("errs", "refs", "seqs", "fwd_kw"))
+    ties, agree_gap = gate_out["ties"], gate_out["agree_gap"]
+    stats["logit_digests"] = {
+        rid: logit_digest(torch, r["prefill"], r["decode"][:len(r["tokens"]) - 1])
+        for rid, r in recs.items()}
     engine_err = float(torch.cat(errs).max())
     if moe:
         log(f"  routing over the watched requests: {ties} near-tie token-layers took the "
@@ -4919,6 +4991,688 @@ class GmmPaths:
         return dict(sorted(out.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: sharded serving
+# ---------------------------------------------------------------------------
+SHARD_SERVE_RANKS, SHARD_SERVE_SHAPE = 4, (2, 2)  # (b): Danube over (data, model)
+SHARD_SERVE_REQUESTS = 8                          # phase 7's first 8 prompts, 8 slots
+SHARD_SERVE_WATCHED = (0, 3, 5, 7)                # slots of both data groups
+SHARD_MOE_RANKS, SHARD_MOE_SHAPE = 2, (1, 2)      # (c): Mixtral, 4 experts a rank
+SHARD_MOE_LAYERS = 4                              # of 32, every width, all 8 experts
+SHARD_MOE_REQUESTS = 16
+SHARD_MOE_WATCHED = (0, 5, 10, 15)
+# The sharded engine leaves a row-parallel product's partials in fp32 (a
+# bf16 GEMM's fp32 accumulator), sums them in fp32 and rounds once, as the
+# unsharded GEMM rounds its own fp32 sum; but its other products run at
+# other shapes (half the heads, half
+# the FFN columns), where cuBLAS rounds otherwise, so past the first layers
+# the two engines' bf16 roundings are independent.  Each engine is 1.5-1.8e-2
+# from the fp32 model (phase 7), so they are up to sqrt(2) x 1.8e-2 = 2.6e-2
+# apart (2.036-2.109e-2 read on an H100 80GB HBM3 at 700 W; PERF.md).
+# Held: the logits within this relative L2 of the unsharded engine's at
+# every position both engines reach from the same tokens ...
+SHARD_VS_UNSHARDED_REL = 3e-2
+# ... the sharded engine no further from the fp32 model than this multiple
+# of the unsharded engine's distance, over the watched prompts' positions
+# (the same inputs for both): sharding adds no error of its own ...
+SHARD_PLAIN_RATIO = 1.15
+# ... and its greedy tokens equal the unsharded engine's up to the first
+# token the unsharded engine took by a top-2 gap under this share of the
+# RMS of that position's logits (about 4 times the logit error that relative
+# L2 allows): there the engines' roundings may pick the other token.
+SHARD_TIE_MARGIN = 0.1
+
+
+class EngineRecorder:
+    """While installed on an engine (sharded or not): the whole-vocabulary
+    logits of the watched requests, their prompt positions at prefill and
+    each decode step; for MoE their routing (per MoE layer the experts and
+    router logits); every request's dropped assignments over its prefill
+    (padding included) and those this rank combined (``kept``), and its
+    experts per MoE layer at prefill (the padded
+    bucket) and at each decode step; with ``gaps``, every request's top-2 logit gap over
+    the RMS of the logits at each token it sampled.  On a rank of a mesh
+    the records are of the slots and prefills this rank runs; gathering the
+    vocabulary is a collective over ``model``, entered by every rank that
+    runs the call.  ``force`` (rid -> experts per MoE layer) routes those
+    requests' prefills as given, with the gates over the given experts'
+    router logits.  ``layer_drops`` holds each prefill's dropped
+    assignments per MoE layer; with ``router``, ``router`` holds its router
+    logits per MoE layer."""
+
+    def __init__(self, torch, eng, watched, gaps: bool = False, force: dict | None = None,
+                 router: bool = False):
+        self.torch, self.eng, self.watched, self.gaps_on = torch, eng, set(watched), gaps
+        self.force, self.router_on = force or {}, router
+        self.prefill, self.prefill_routes = {}, {}
+        self.decode = {r: [] for r in watched}
+        self.steps = {r: [] for r in watched}
+        self.gaps, self.drops, self.experts, self.decode_experts = {}, {}, {}, {}
+        self.kept, self.layer_drops, self.router = {}, {}, {}
+        self._route, self._cur = [], None
+
+    def _gap(self, lf) -> float:
+        top = lf.float().topk(2).values
+        return float((top[0] - top[1]) / lf.float().square().mean().sqrt().clamp_min(1e-30))
+
+    def _prefill(self, h):
+        self._cur, self._plen, self._route = h.rid, h.prompt.size, []
+        try:
+            last, state = self.real_prefill(h)
+        finally:
+            self._cur = None
+        if self.gaps_on:
+            self.gaps.setdefault(h.rid, []).append(self._gap(last))
+        return last, state
+
+    def _decode_step(self, cfg, params, state, tokens):
+        logits, state = self.real[0](cfg, params, state, tokens)
+        rid = self._cur
+        if rid in self.watched:
+            self.prefill[rid] = self.M.full_vocab(cfg, logits[0, :self._plen]).clone()
+            self.prefill_routes[rid] = list(self._route)
+        if rid is not None and self._route:
+            self.experts[rid] = [e.cpu() for e, _ in self._route]
+            if self.router_on:
+                self.router[rid] = [lg.cpu() for _, lg in self._route]
+        return logits, state
+
+    def _decode_slots(self, cfg, params, states, tokens):
+        self._route = []
+        logits, states = self.real[1](cfg, params, states, tokens)
+        eng = self.eng
+        mine = [(j, eng._slots[eng._base + j]) for j in range(logits.shape[0])]
+        mine = [(j, h) for j, h in mine if h is not None]
+        if self._route:
+            layers = [e.cpu() for e, _ in self._route]
+            for j, h in mine:
+                self.decode_experts.setdefault(h.rid, []).append([e[j] for e in layers])
+        if any(h.rid in self.watched for _, h in mine) or self.gaps_on:
+            full = self.M.full_vocab(cfg, logits)
+            for j, h in mine:
+                if h.rid in self.watched:
+                    self.decode[h.rid].append(full[j].clone())
+                    self.steps[h.rid].append([(e[j], lg[j]) for e, lg in self._route])
+                if self.gaps_on:
+                    self.gaps.setdefault(h.rid, []).append(self._gap(full[j]))
+        return logits, states
+
+    def _moe_route(self, x, router, k):
+        logits = x.float() @ router
+        forced = self.force.get(self._cur) if self._cur is not None else None
+        if forced is None:
+            gates, experts = self.real[2](x, router, k)
+        else:
+            experts = forced[len(self._route)].to(x.device)
+            gates = self.torch.softmax(logits.gather(1, experts), dim=-1).to(x.dtype)
+        self._route.append((experts, logits))
+        return gates, experts
+
+    def _moe_combine(self, y, route, t):
+        if self._cur is not None:  # the assignments this rank combines
+            self.kept[self._cur] = self.kept.get(self._cur, 0) + int(route[-1].sum())
+        return self.real[4](y, route, t)
+
+    def _moe_dispatch(self, experts, e, c):
+        order, dest, keep = self.real[3](experts, e, c)
+        if self._cur is not None:
+            n = int((~keep).sum())
+            self.drops[self._cur] = self.drops.get(self._cur, 0) + n
+            self.layer_drops.setdefault(self._cur, []).append(n)
+        return order, dest, keep
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+
+        self.M, self.L = M, L
+        self.real = (M.decode_step, M.decode_slots, L.moe_route, L.moe_dispatch, L.moe_combine)
+        M.decode_step, M.decode_slots = self._decode_step, self._decode_slots
+        L.moe_route, L.moe_dispatch = self._moe_route, self._moe_dispatch
+        L.moe_combine = self._moe_combine
+        self.real_prefill, self.eng._prefill = self.eng._prefill, self._prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.M.decode_step, self.M.decode_slots = self.real[:2]
+        self.L.moe_route, self.L.moe_dispatch, self.L.moe_combine = self.real[2:]
+        self.eng._prefill = self.real_prefill
+
+    def record(self, rid, prompt, tokens, device="cpu") -> dict:
+        """The watched request's record in ``plain_gate``'s form."""
+        move = lambda t: t.to(device)  # noqa: E731
+        return dict(prompt=prompt, tokens=list(tokens), prefill=move(self.prefill[rid]),
+                    decode=[move(t) for t in self.decode[rid]],
+                    prefill_routes=[(move(e), move(lg)) for e, lg in self.prefill_routes[rid]],
+                    steps=[[(move(e), move(lg)) for e, lg in s] for s in self.steps[rid]])
+
+
+class StepClock:
+    """While installed on an engine: each prefill's host seconds (the card
+    synchronized) and tokens, and each decode step's host ms and CUDA-event
+    ms (the step's stream time, the waits of gloo's host-staged collectives
+    included)."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.prefill_s, self.prefill_tokens, self.host_ms, self.stream_ms = 0.0, 0, [], []
+
+    def _prefill(self, h):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real_prefill(h)
+        self.torch.cuda.synchronize()
+        self.prefill_s += time.perf_counter() - t0
+        self.prefill_tokens += h.prompt.size
+        return out
+
+    def _step(self, *args):
+        torch = self.torch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = self.real_step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        self.stream_ms.append(start.elapsed_time(end))
+        return out
+
+    def __enter__(self):
+        eng = self.eng
+        self.real_prefill, eng._prefill = eng._prefill, self._prefill
+        self.real_step, eng._dispatch_greedy = eng._dispatch_greedy, self._step
+        return self
+
+    def __exit__(self, *exc):
+        self.eng._prefill, self.eng._dispatch_greedy = self.real_prefill, self.real_step
+
+
+class CollectiveClock:
+    """While installed: the host ms of the model stack's collectives
+    (``sharding.all_reduce_sum``, ``all_gather_cat``) and of the engine's
+    broadcasts, each between two synchronizations of the card."""
+
+    def __init__(self, torch, SH, dist):
+        self.torch, self.SH, self.dist = torch, SH, dist
+        self.ms: dict[str, float] = {}
+
+    def _wrap(self, owner, name):
+        real = getattr(owner, name)
+
+        def timed(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                self.torch.cuda.synchronize()
+                self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return real, timed
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name in ((self.SH, "all_reduce_sum"), (self.SH, "all_gather_cat"),
+                            (self.dist, "broadcast"), (self.dist, "broadcast_object_list")):
+            real, timed = self._wrap(owner, name)
+            self.saved.append((owner, name, real))
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def shard_launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import rmsnorm as kr
+
+    return {"K4": kr.LAUNCHES["rmsnorm"], "K5": dict(kf.PATHS),
+            "K6": dict(km.PATHS), "K6 launches": km.LAUNCHES["grouped_matmul"]}
+
+
+def reset_shard_counts() -> None:
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import moe_gmm as km
+    from repro_torch.kernels import rmsnorm as kr
+
+    kr.LAUNCHES["rmsnorm"] = km.LAUNCHES["grouped_matmul"] = 0
+    for d in (kf.PATHS, km.PATHS):
+        for k in d:
+            d[k] = 0
+
+
+def swap_wo_shards(torch, params) -> None:
+    """The mutant: every layer's ``wo`` with its two row halves swapped, so
+    that each rank of a model axis of 2 takes its neighbour's shard."""
+    for blk in params["layers"]:
+        wo = blk["mixer"]["wo"]
+        half = wo.shape[0] // 2
+        blk["mixer"]["wo"] = torch.cat([wo[half:], wo[:half]])
+        del wo
+
+
+def serve_shard_world(spec: dict) -> list:
+    """Phase 19 (b)/(c) on one rank of a world sharing the card: the engine
+    over ``spec["shape"]`` (data, model) serves the prompts; the watched
+    requests' records go to ``spec["out"]`` from the rank of model
+    coordinate 0 that ran them; returns every rank's report (gathered to
+    each)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    t_rank = time.perf_counter()
+    cfg = replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    mesh = make_mesh(spec["shape"], ("data", "model"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    keeper = mesh.local_rank("model") == 0
+    out = Path(spec["out"])
+    scfg = ServeConfig(batch_slots=spec["slots"], max_len=spec["max_len"], max_new_tokens=32)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, seeded_params(torch, cfg), scfg, mesh=mesh)
+    report = {"rank": mesh.rank, "data": mesh.local_rank("data"),
+              "model": mesh.local_rank("model"), "device": str(mesh.device),
+              "local_slots": (eng._n_local, eng._base), "place_s": time.perf_counter() - t0,
+              "local_gb": sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9}
+    with set_mesh(mesh):  # warm-up: one short prefill and one decode step on every rank
+        st = M.init_decode_state(cfg, 1, 256, ring=False, device="cuda")
+        M.decode_step(cfg, eng.params, st, torch.arange(1, 65, device="cuda")[None])
+        sl = M.init_slot_states(cfg, eng.scfg.batch_slots, 256, device="cuda")
+        M.decode_slots_greedy(cfg, eng.params, sl, torch.ones(eng._n_local, dtype=torch.int32,
+                                                               device="cuda"))
+        del st, sl
+    torch.cuda.synchronize()
+    reset_shard_counts()
+    SH.COLLECTIVES.clear()
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    with EngineRecorder(torch, eng, spec["watched"]) as rec, StepClock(torch, eng) as clock, \
+            CollectiveClock(torch, SH, dist) as coll:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p) for p in prompts]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report.update(
+        wall_s=wall, tokens=[list(h.tokens) for h in handles],
+        states=[h.state.value for h in handles], drops=dict(rec.drops),
+        layer_drops=dict(rec.layer_drops),
+        experts=dict(rec.experts), decode_experts=dict(rec.decode_experts),
+        kept=dict(rec.kept),
+        prefill_s=clock.prefill_s, prefill_tokens=clock.prefill_tokens,
+        steps=len(clock.host_ms), step_host_ms=clock.host_ms, step_stream_ms=clock.stream_ms,
+        collective_ms=dict(coll.ms),
+        collectives={k: dict(v) for k, v in SH.COLLECTIVES.items()},
+        counts=shard_launch_counts())
+    if keeper:
+        for rid in rec.prefill:
+            torch.save(rec.record(rid, prompts[rid], handles[rid].tokens),
+                       out / f"{spec['tag']}_{rid}.pt")
+    del eng, rec, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("mutant"):  # prefill only: each watched prompt alone
+        params = seeded_params(torch, cfg)
+        swap_wo_shards(torch, params)
+        eng = ServingEngine(cfg, params, replace(scfg, max_new_tokens=1), mesh=mesh)
+        del params
+        with EngineRecorder(torch, eng, range(len(spec["watched"]))) as rec:
+            for rid in spec["watched"]:
+                eng.submit(prompts[rid])
+            eng.drain()
+        if keeper:
+            for j, rid in enumerate(spec["watched"]):
+                if j in rec.prefill:
+                    torch.save(rec.prefill[j].cpu(), out / f"{spec['tag']}_mutant_{rid}.pt")
+        del eng, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["seconds"] = time.perf_counter() - t_rank
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, report)
+    return reports
+
+
+def unsharded_reference(torch, cfg, prompts, watched, scfg, force=None,
+                        router: bool = False) -> tuple:
+    """The unsharded engine on the same traffic, recorded (tokens, the
+    watched logits, every token's top-2 gap, the prefill drops); ``force``
+    and ``router`` as in ``EngineRecorder``."""
+    from repro_torch.serve import ServingEngine
+
+    eng = ServingEngine(cfg, seeded_params(torch, cfg), scfg)
+    with EngineRecorder(torch, eng, watched, gaps=True, force=force, router=router) as rec:
+        handles = [eng.submit(p) for p in prompts]
+        eng.drain()
+    torch.cuda.synchronize()
+    tokens = [list(h.tokens) for h in handles]
+    del eng
+    return tokens, rec
+
+
+def first_route_flip(prefill_a, decode_a, prefill_b, decode_b, p_len: int) -> int:
+    """The first logits row (prompt positions, then decode steps) whose
+    token two engines sent to different expert sets in some MoE layer;
+    past the last row if none."""
+    rows = [([e[t] for e in prefill_a], [e[t] for e in prefill_b]) for t in range(p_len)]
+    rows += list(zip(decode_a, decode_b))
+    for r, (a, b) in enumerate(rows):
+        if any(set(x.tolist()) != set(y.tolist()) for x, y in zip(a, b)):
+            return r
+    return len(rows)
+
+
+def check_free_routing(label: str, cfg, experts: dict, layer_drops: dict, free) -> dict:
+    """The sharded engine's prefills against the unsharded engine routing
+    itself (``free``, nothing forced).  Dropped assignments depend only on a
+    layer's routing and the capacity, so every MoE layer that routed all
+    rows of a request's bucket alike in both engines must drop alike.  A
+    request's first layer that routes a row apart saw inputs that differ by
+    rounding only, so each row routed apart there must be a near tie: the
+    sharded engine's experts within ``plain.ROUTER_MARGIN`` of the unsharded
+    router's k-th largest logit."""
+    from repro_torch.models import plain
+
+    rows = apart = alike = 0
+    bad_drops, far, worst = [], [], 0.0
+    for rid, layers in sorted(experts.items()):
+        first = True
+        for l, (a, b) in enumerate(zip(layers, free.experts[rid])):
+            differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+            rows, apart = rows + differ.numel(), apart + int(differ.sum())
+            if not bool(differ.any()):
+                alike += 1
+                if layer_drops[rid][l] != free.layer_drops[rid][l]:
+                    bad_drops.append((rid, l, layer_drops[rid][l], free.layer_drops[rid][l]))
+                continue
+            if first:
+                first = False
+                lg = free.router[rid][l]
+                kth = lg.topk(cfg.top_k, dim=-1).values[:, -1:]
+                gap = float((kth - lg.gather(1, a.long())).amax(-1)[differ].max())
+                worst = max(worst, gap)
+                if gap > plain.ROUTER_MARGIN:
+                    far.append((rid, l, round(gap, 4)))
+    log(f"  {label} free routing: the unsharded engine routing itself routes {apart} of "
+        f"{rows} prefill token-layers apart from the sharded engine "
+        f"({100 * apart / max(rows, 1):.2f}%); {alike} of "
+        f"{sum(len(v) for v in experts.values())} (request, MoE layer) pairs routed alike, each "
+        f"dropping alike; rows routed apart in a request's first such layer at most "
+        f"{worst:.4f} below the unsharded router's k-th logit (<= ROUTER_MARGIN "
+        f"{plain.ROUTER_MARGIN}); drops per request {dict(sorted(free.drops.items()))}")
+    if bad_drops:
+        raise AssertionError(f"phase 19 {label}: layers both engines routed alike, nothing "
+                             f"forced, drop otherwise (request, layer, sharded, unsharded): "
+                             f"{bad_drops}")
+    if far:
+        raise AssertionError(f"phase 19 {label}: rows routed apart from the unsharded engine "
+                             f"at more than ROUTER_MARGIN (request, layer, gap): {far}")
+    return dict(token_layers=rows, routed_apart=apart, layers_alike=alike,
+                max_first_apart_gap=worst, drops_free=dict(free.drops))
+
+
+def check_sharded_serving(torch, label: str, cfg, reports, tmp: Path, tag: str, prompts,
+                          watched, scfg, mutant: bool) -> dict:
+    """Phase 19 (b)/(c)'s gates on the world's reports and records."""
+    ranks = len(reports)
+    tokens = reports[0]["tokens"]
+    if any(r["tokens"] != tokens for r in reports):
+        raise AssertionError(f"phase 19 {label}: the ranks' tokens differ")
+    if any(s != "completed" for r in reports for s in r["states"]):
+        raise AssertionError(f"phase 19 {label}: a request did not complete")
+    for r in reports:
+        c = r["counts"]
+        need = {"K4": c["K4"], "K5 mma": c["K5"]["mma"], "K5 decode": c["K5"]["decode"]}
+        if cfg.is_moe:
+            need.update({"K6 wgmma": c["K6"]["wgmma"], "K6 decode": c["K6"]["decode"]})
+        if not all(n > 0 for n in need.values()):
+            raise AssertionError(f"phase 19 {label}: rank {r['rank']} launches {need}")
+    recs = {rid: torch.load(tmp / f"{tag}_{rid}.pt", weights_only=False) for rid in watched}
+    # MoE: bf16 moves near ties of the router (the plain gate holds the
+    # engine's choices to ROUTER_MARGIN of the fp32 router), and a token sent
+    # to other experts changes by O(1).  So the unsharded engine runs twice:
+    # routing itself (``check_free_routing``: drops layer by layer where the
+    # two route alike, near ties where they part), and forced onto the
+    # sharded engine's prefill routing, where its drops and prompt logits
+    # are compared like with like; its decode steps route themselves, and
+    # are compared up to the first row the two route apart.
+    flip, experts = {rid: 1 << 30 for rid in range(len(prompts))}, None
+    free = None
+    if cfg.is_moe:
+        experts, dexperts, layer_drops = {}, {}, {}
+        for r in reports:
+            experts.update(r["experts"])
+            dexperts.update(r["decode_experts"])
+            layer_drops.update(r["layer_drops"])
+        _, frec = unsharded_reference(torch, cfg, prompts, (), scfg, router=True)
+        free = check_free_routing(label, cfg, experts, layer_drops, frec)
+        del frec
+    u_tokens, urec = unsharded_reference(torch, cfg, prompts, watched, scfg, force=experts)
+    if cfg.is_moe:
+        flip = {rid: first_route_flip(experts[rid], dexperts.get(rid, []), urec.experts[rid],
+                                      urec.decode_experts.get(rid, []), prompts[rid].size)
+                for rid in range(len(prompts))}
+    params = seeded_params(torch, cfg)
+    gate = plain_gate(torch, cfg, params, recs)
+    plain_err = float(torch.cat(gate["errs"]).max())
+    if not plain_err <= LOGITS_REL_TOL:
+        raise AssertionError(f"phase 19 {label}: logits vs fp32 plain, relative L2 "
+                             f"{plain_err:.3e} > {LOGITS_REL_TOL}")
+    # against the unsharded engine: every position both reach from the same tokens
+    vs_unsharded, compared = 0.0, 0
+    for rid in watched:
+        mine = gate["engine_logits"][rid]
+        p_len = prompts[rid].size
+        theirs = [urec.prefill[rid].float()] + [t.float()[None] for t in urec.decode[rid]]
+        theirs = torch.cat(theirs)[:mine.shape[0]]
+        same = next((k for k, (a, b) in enumerate(zip(tokens[rid], u_tokens[rid])) if a != b),
+                    len(tokens[rid]))
+        n = min(p_len + same, theirs.shape[0], flip[rid])  # decode step k reads token k - 1
+        err = rel_l2(torch, mine[:n], theirs[:n].cuda())
+        routed = f", routing up to row {flip[rid]}" if cfg.is_moe else ""
+        forced = " (its prefill forced onto the sharded routing)" if cfg.is_moe else ""
+        log(f"  {label} request {rid}: vs the unsharded engine{forced} over {n} positions (tokens "
+            f"equal up to {same}{routed}): prompt max {float(err[:p_len].max()):.3e}, decode max "
+            f"{float(err[p_len:].max()) if n > p_len else 0.0:.3e}, worst at position "
+            f"{int(err.argmax())}")
+        vs_unsharded, compared = max(vs_unsharded, float(err.max())), compared + n
+    if not vs_unsharded <= SHARD_VS_UNSHARDED_REL:
+        raise AssertionError(f"phase 19 {label}: logits vs the unsharded engine, relative L2 "
+                             f"{vs_unsharded:.3e} > {SHARD_VS_UNSHARDED_REL}")
+    # both engines against the fp32 model on the prompts' positions
+    mine_err = max(float(e[:prompts[rid].size].max()) for rid, e in zip(watched, gate["errs"]))
+    their_err = max(float(rel_l2(torch, urec.prefill[rid].float(),
+                                 gate["refs"][rid][:prompts[rid].size]).max()) for rid in watched)
+    if not mine_err <= SHARD_PLAIN_RATIO * their_err:
+        raise AssertionError(f"phase 19 {label}: prompt logits vs fp32 plain {mine_err:.3e}, "
+                             f"more than {SHARD_PLAIN_RATIO} x the unsharded engine's "
+                             f"{their_err:.3e}")
+    # greedy tokens: equal up to the unsharded engine's first near tie
+    agree, diverged = 0, []
+    for rid, (a, b) in enumerate(zip(tokens, u_tokens)):
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            agree += 1
+            continue
+        gap = urec.gaps[rid][k]
+        if prompts[rid].size - 1 + k >= flip[rid]:  # routed apart at or before that row
+            diverged.append((rid, k, "routing"))
+            continue
+        if not gap < SHARD_TIE_MARGIN:
+            raise AssertionError(f"phase 19 {label}: request {rid} token {k}: {a[k]} sharded, "
+                                 f"{b[k]} unsharded at a top-2 gap of {gap:.3f} x RMS "
+                                 f">= {SHARD_TIE_MARGIN}")
+        diverged.append((rid, k, round(gap, 4)))
+    rec = dict(ranks=ranks, plain_rel_l2=plain_err, vs_unsharded_rel_l2=vs_unsharded,
+               positions_compared=compared, prompt_plain_rel_l2=mine_err,
+               unsharded_prompt_plain_rel_l2=their_err, requests_equal=agree,
+               diverged_at_near_tie=diverged)
+    log(f"  {label}: tokens identical on all {ranks} ranks; logits vs fp32 plain relative L2 "
+        f"max {plain_err:.3e} (<= {LOGITS_REL_TOL}); vs the unsharded engine {vs_unsharded:.3e} "
+        f"(<= {SHARD_VS_UNSHARDED_REL}, {compared} positions); on the prompts vs fp32 plain "
+        f"{mine_err:.3e} against the unsharded engine's {their_err:.3e} (<= "
+        f"{SHARD_PLAIN_RATIO} x); greedy tokens equal the "
+        f"unsharded engine's in {agree} of {len(tokens)} requests, the others from a near tie "
+        f"or a routing difference on (request, token, gap/RMS) {diverged}")
+    if cfg.is_moe:
+        # every rank routes all tokens at the unsharded capacity, so a
+        # prefill routed alike drops exactly what the unsharded engine drops
+        drops, kept = {}, {}
+        for r in reports:
+            drops.update(r["drops"])
+            for rid, n in r["kept"].items():
+                kept[rid] = kept.get(rid, 0) + n
+        # expert parallelism combines every kept assignment on exactly one rank
+        wrong = {rid: (kept[rid], drops[rid]) for rid in drops
+                 if kept[rid] + drops[rid] != sum(e.numel() for e in experts[rid])}
+        if wrong:
+            raise AssertionError(f"phase 19 {label}: assignments combined over the ranks and "
+                                 f"dropped do not add up to the routed ones: {wrong}")
+        if drops != urec.drops:
+            raise AssertionError(f"phase 19 {label}: dropped assignments per request, the "
+                                 f"unsharded engine forced onto the sharded routing: {drops} "
+                                 f"sharded, {dict(urec.drops)} unsharded")
+        rec.update(drops=drops, first_route_flip_row={rid: flip[rid] for rid in watched},
+                   free_routing=free)
+        log(f"  {label}: every prefill's kept assignments combined on exactly one rank; "
+            f"dropped assignments per request over its prefill (padding included) equal to "
+            f"those of the unsharded engine forced onto the sharded routing: {drops}")
+    if mutant:
+        worst = 0.0
+        for rid in watched:
+            got = torch.load(tmp / f"{tag}_mutant_{rid}.pt").float().cuda()
+            p_len = prompts[rid].size
+            worst = max(worst, float(rel_l2(torch, got, gate["refs"][rid][:p_len]).max()))
+        log(f"  {label}: mutant 'wo shards swapped between the model ranks' vs fp32 plain: "
+            f"prefill relative L2 max {worst:.3e}")
+        if not worst > LOGITS_REL_TOL:
+            raise AssertionError(f"phase 19 {label}: the logits gate does not catch the "
+                                 f"swapped wo shards ({worst:.3e})")
+        rec["mutant_rel_l2"] = worst
+    del params, gate, urec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def log_shard_reports(label: str, reports, smi: str) -> None:
+    for r in reports:
+        host, stream = r["step_host_ms"], r["step_stream_ms"]
+        coll = sum(r["collective_ms"].values())
+        log(f"    {label} rank {r['rank']} (data {r['data']}, model {r['model']}; slots "
+            f"{r['local_slots']}): weights {r['local_gb']:.2f} GB placed in {r['place_s']:.1f} "
+            f"s, peak {r['peak_gb']:.2f} GB; prefill {r['prefill_tokens']} tokens in "
+            f"{r['prefill_s']:.2f} s ({r['prefill_tokens'] / max(r['prefill_s'], 1e-9):.0f} "
+            f"tok/s); {r['steps']} decode steps, host {sum(host) / len(host):.2f} ms, stream "
+            f"{sum(stream) / len(stream):.2f} ms a step; collectives {coll:.0f} ms over the run "
+            f"({', '.join(f'{k} {v:.0f}' for k, v in r['collective_ms'].items())}); launches "
+            f"K4 {r['counts']['K4']}, K5 {r['counts']['K5']}, K6 {r['counts']['K6']}")
+    log(f"    ({len(reports)} ranks sharing one card, collectives on gloo through the host: "
+        f"not a scaling figure; {smi})")
+
+
+def sharded_serve_phase(torch, smi: str, phase7: dict) -> dict:
+    """Phase 19: (a) a mesh of one against phase 7, (b) Danube whole on 4
+    ranks sharing the card, (c) a Mixtral cut under expert parallelism on 2."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh, run_world
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    cfg = get_config(DANUBE)
+    # (a) a mesh of one: phase 7's traffic, bit for bit
+    t0 = time.perf_counter()
+    reset_shard_counts()
+    eng = ServingEngine(cfg, seeded_params(torch, cfg), phase7["scfg"],
+                        mesh=make_mesh((1, 1), ("data", "model"), device="cuda"))
+    with EngineRecorder(torch, eng, phase7["watched"]) as rec:
+        handles = [eng.submit(p) for p in phase7["prompts"]]
+        eng.drain()
+    torch.cuda.synchronize()
+    tokens = [list(h.tokens) for h in handles]
+    digests = {rid: logit_digest(torch, rec.prefill[rid], rec.decode[rid][:len(tokens[rid]) - 1])
+               for rid in phase7["watched"]}
+    if tokens != phase7["tokens"] or digests != phase7["digests"]:
+        raise AssertionError(f"phase 19 (a): a mesh of one differs from phase 7: tokens "
+                             f"{sum(a == b for a, b in zip(tokens, phase7['tokens']))} of "
+                             f"{len(tokens)} equal, logits of requests "
+                             f"{[r for r in digests if digests[r] != phase7['digests'][r]]} differ")
+    counts = shard_launch_counts()
+    if not (counts["K4"] > 0 and counts["K5"]["mma"] > 0 and counts["K5"]["decode"] > 0):
+        raise AssertionError(f"phase 19 (a): launches {counts}")
+    out["a"] = dict(requests=len(tokens), watched=list(phase7["watched"]), counts=counts,
+                    seconds=time.perf_counter() - t0)
+    log(f"  (a) mesh (data 1, model 1): {len(tokens)} requests, tokens and the watched "
+        f"requests' logits bit-identical to phase 7; launches {counts}; "
+        f"{out['a']['seconds']:.1f} s")
+    del eng, rec, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
+        tmp = Path(tmp)
+        # (b) Danube whole, (data 2, model 2)
+        prompts = phase7["prompts"][:SHARD_SERVE_REQUESTS]
+        scfg = replace(phase7["scfg"], batch_slots=SHARD_SERVE_REQUESTS)
+        spec = dict(arch=DANUBE, layers=cfg.n_layers, shape=SHARD_SERVE_SHAPE,
+                    slots=scfg.batch_slots, max_len=scfg.max_len, prompts=prompts,
+                    watched=SHARD_SERVE_WATCHED, out=str(tmp), tag="b", mutant=True)
+        t0 = time.perf_counter()
+        reports = run_world(SHARD_SERVE_RANKS, serve_shard_world, (spec,),
+                            timeout_s=SHARD_WORLD_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        log(f"  (b) {DANUBE} whole ({cfg.n_layers} layers, {cfg.dtype}) on mesh (data "
+            f"{SHARD_SERVE_SHAPE[0]}, model {SHARD_SERVE_SHAPE[1]}): {SHARD_SERVE_RANKS} ranks "
+            f"sharing the card, {len(prompts)} requests, {scfg.batch_slots} slots x "
+            f"{scfg.max_len}; the world {world_s:.1f} s with the spawn")
+        log_shard_reports("(b)", reports, smi)
+        out["b"] = check_sharded_serving(torch, "(b)", cfg, reports, tmp, "b", prompts,
+                                         SHARD_SERVE_WATCHED, scfg, mutant=True)
+        out["b"].update(world_s=world_s, reports=reports)
+        # (c) Mixtral cut to SHARD_MOE_LAYERS layers, (data 1, model 2): EP
+        mcfg = replace(get_config(MIXTRAL), n_layers=SHARD_MOE_LAYERS)
+        rng = np.random.default_rng(SEED + 19)
+        lens = rng.integers(128, 2049, SHARD_MOE_REQUESTS)
+        prompts = [rng.integers(0, mcfg.vocab, n).astype(np.int32) for n in lens]
+        scfg = ServeConfig(batch_slots=SHARD_MOE_REQUESTS, max_len=4096, max_new_tokens=32)
+        spec = dict(arch=MIXTRAL, layers=SHARD_MOE_LAYERS, shape=SHARD_MOE_SHAPE,
+                    slots=scfg.batch_slots, max_len=scfg.max_len, prompts=prompts,
+                    watched=SHARD_MOE_WATCHED, out=str(tmp), tag="c", mutant=False)
+        t0 = time.perf_counter()
+        reports = run_world(SHARD_MOE_RANKS, serve_shard_world, (spec,),
+                            timeout_s=SHARD_WORLD_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        log(f"  (c) {MIXTRAL} cut to {SHARD_MOE_LAYERS} of 32 layers (every width, all "
+            f"{mcfg.n_experts} experts) on mesh (data {SHARD_MOE_SHAPE[0]}, model "
+            f"{SHARD_MOE_SHAPE[1]}): {mcfg.n_experts // SHARD_MOE_SHAPE[1]} experts a rank, "
+            f"{SHARD_MOE_RANKS} ranks sharing the card, {len(prompts)} requests; the world "
+            f"{world_s:.1f} s with the spawn")
+        log_shard_reports("(c)", reports, smi)
+        out["c"] = check_sharded_serving(torch, "(c)", mcfg, reports, tmp, "c", prompts,
+                                         SHARD_MOE_WATCHED, scfg, mutant=False)
+        out["c"].update(world_s=world_s, reports=reports)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int, min_c: int) -> dict:
     """Fail unless the decode step (C = ``decode_c``) and every other launch
     below C = ``min_c`` (the warm-up, the short buckets) launched only the
@@ -4975,10 +5729,37 @@ def k2_only(torch, smi: str) -> int:
     return 0
 
 
+def serve_shard_only(torch, smi: str) -> int:
+    """``--serve-shard SRC``: phase 7's Danube traffic, then phase 19, with
+    the package under SRC; prints phase 19's record as one JSON line and
+    the card's name and power limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(build.cuda_library, ["gemm", "rmsnorm", "flash_attention", "moe_gmm"]))
+    log(f"serving with {build.__file__}; built in {time.perf_counter() - t0:.1f} s")
+    cfg = get_config(DANUBE)
+    served = serve_path(torch, smi, cfg, seeded_params(torch, cfg), slots=8,
+                        n_requests=N_REQUESTS, watched=WATCHED, seed=SEED, breakdown=False)
+    phase7 = dict(scfg=served["scfg"], prompts=served["prompts"], tokens=served["tokens"],
+                  digests=served["stats"]["logit_digests"], watched=WATCHED)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = sharded_serve_phase(torch, smi, phase7)
+    for part in ("b", "c"):
+        out[part].pop("reports")
+    print(json.dumps(out, default=str), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and (len(argv) != 2 or argv[0] != "--k2"):
-        print(f"usage: {Path(__file__).name} [--k2 SRC]", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] not in ("--k2", "--serve-shard")):
+        print(f"usage: {Path(__file__).name} [--k2 SRC | --serve-shard SRC]", file=sys.stderr)
         return 2
     src = Path(argv[1]).resolve() if argv else HERE / "src"
     try:
@@ -4997,7 +5778,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv:
-        return k2_only(torch, nvidia_smi())
+        return (k2_only if argv[0] == "--k2" else serve_shard_only)(torch, nvidia_smi())
 
     from repro_torch.configs import get_config
     from repro_torch.core import codegen
@@ -5118,6 +5899,8 @@ def main(argv: list[str] | None = None) -> int:
         launches[k] = serve_launches[k]
         if serve_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the serving path")
+    phase7 = dict(scfg=served["scfg"], prompts=served["prompts"], tokens=served["tokens"],
+                  digests=served["stats"]["logit_digests"], watched=WATCHED)
 
     log(f"phase 8: main path, forward of {DANUBE} on 8192 tokens (window {served['cfg'].window})")
     reset_counts()
@@ -5274,6 +6057,29 @@ def main(argv: list[str] | None = None) -> int:
     results["flash_attention_bwd"]["seamless_shapes"] = moe_training["seamless"]
     results["grouped_matmul_bwd"]["phase_17"] = {k: v for k, v in moe_training.items()
                                                  if k not in ("row", "seamless")}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 19: sharded serving: (a) {DANUBE} on a mesh of one against phase 7; (b) "
+        f"{DANUBE} whole on mesh (data {SHARD_SERVE_SHAPE[0]}, model {SHARD_SERVE_SHAPE[1]}), "
+        f"{SHARD_SERVE_RANKS} ranks sharing the card; (c) {MIXTRAL} cut to {SHARD_MOE_LAYERS} "
+        f"layers under expert parallelism, {SHARD_MOE_RANKS} ranks (collectives on gloo)")
+    sharded_serve = sharded_serve_phase(torch, smi, phase7)
+    for part in ("b", "c"):
+        for r in sharded_serve[part]["reports"]:
+            c, who = r["counts"], f"({part}) rank {r['rank']}"
+            results["rmsnorm"].setdefault("launches_phase_19", {})[who] = c["K4"]
+            results["flash_attention"].setdefault("launches_phase_19", {})[who] = c["K5"]["mma"]
+            results["flash_attention_decode"].setdefault("launches_phase_19", {})[who] = \
+                c["K5"]["decode"]
+            if part == "c":
+                results["grouped_matmul"].setdefault("launches_phase_19", {})[who] = \
+                    c["K6"]["wgmma"]
+                results["grouped_matmul_decode"].setdefault("launches_phase_19", {})[who] = \
+                    c["K6"]["decode"]
+    results["flash_attention"]["phase_19"] = {
+        k: ({kk: vv for kk, vv in v.items() if kk != "reports"} if isinstance(v, dict) else v)
+        for k, v in sharded_serve.items()}
 
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]

@@ -18,12 +18,18 @@ card while their collectives run on ``gloo`` (NCCL refuses two ranks on one
 device).  The backend is the caller's: ``nccl`` where every rank has a card
 of its own, ``gloo`` otherwise.
 
+``set_mesh(mesh)`` makes a mesh the one the model code reads
+(``current_mesh()``) inside a ``with`` block, as ``jax.set_mesh`` does for
+the reference's sharding hints.
+
 ``run_world(n, fn, args)`` runs ``fn(*args)`` on every rank of a fresh
 ``n``-rank world of spawned processes and returns rank 0's result; a
 rank's exception fails the whole call with its traceback.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import os
 import shutil
@@ -76,6 +82,15 @@ def _rank_device(device, rank: int) -> torch.device:
     return dev
 
 
+def _world_timeout():
+    """The default group's collective timeout, which the mesh's groups take
+    (None, the backend's default, where it cannot be read)."""
+    try:
+        return dist.group.WORLD._get_backend(torch.device("cpu")).options._timeout
+    except Exception:  # noqa: BLE001 — a backend without CPU options (nccl)
+        return None
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> Mesh:
     """A mesh of ``shape`` over the whole current world, named by ``axes``.
 
@@ -99,7 +114,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> Mesh:
             continue
         for line in np.moveaxis(grid, d, -1).reshape(-1, shape[d]):
             members = [int(r) for r in line]
-            g = dist.group.WORLD if len(members) == world else dist.new_group(members)
+            g = (dist.group.WORLD if len(members) == world
+                 else dist.new_group(members, timeout=_world_timeout()))
             if rank in members:
                 groups[ax] = g
     return Mesh(shape, axes, _rank_device(device, rank), groups,
@@ -116,6 +132,25 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 def dp_axes(mesh: Mesh) -> tuple[str, ...]:
     """The data-parallel axes (pod folds into DP for the batch dimension)."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """``with set_mesh(mesh):`` makes ``mesh`` (or None: no mesh) the one
+    ``current_mesh()`` returns, and restores the previous one after."""
+    token = _CURRENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.reset(token)
+
+
+def current_mesh():
+    """The mesh of the innermost ``set_mesh`` block, else None."""
+    return _CURRENT.get()
 
 
 # ---------------------------------------------------------------------------

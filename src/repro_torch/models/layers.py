@@ -7,8 +7,32 @@ Plain functions over dicts of tensors.  Attention goes through
 ``kernels.ops`` (K5 on the card), the MoE experts through
 ``ops.grouped_matmul`` (K6), projections stay ``x @ w`` in torch with
 the reference's ``(d_in, d_out)`` weight layout, as the reference leaves them
-to XLA outside any Pallas kernel.  The reference's ``constrain`` (sharding
-hints) has no counterpart: the port runs on one device.
+to XLA outside any Pallas kernel.
+
+Under a mesh (``launch.mesh.set_mesh``) the layers take this rank's shards
+of the weights (``launch.sharding.shard_params``) and run explicit
+collectives over ``model`` where the reference's ``constrain`` lets GSPMD
+place them.  A weight is read as the unsharded model's: one whose input
+dim is cut is row-parallel (``_mm``: this rank's slice of the input, the
+partial products summed over ``model`` in fp32), one whose output dim is
+cut gives this rank's columns.  A row-parallel partial leaves its GEMM in
+fp32 (a bf16 GEMM's fp32 accumulator on the card) and is rounded once,
+after the sum, as the unsharded GEMM rounds its own fp32 sum.  A dim is
+taken for a shard only where it is the full one over the ``model`` axis
+of the current mesh (``_split``); any other size raises.  Attention takes
+its head counts from the local ``wq``/``wk``; ``wo`` is row-parallel.
+Where the KV heads do not divide ``model``, ``wk``/``wv`` are cut on their
+contracting dim and every rank computes every KV head, then keeps those
+its query heads read (``sharding.attention_heads``).  The dense FFN is
+column- then row-parallel, one all-reduce.  The MoE FFN routes all T
+tokens on every rank (replicated router, the unsharded capacity), so its
+dropped assignments are the unsharded ones.  Under expert parallelism a
+rank fills and runs only its experts' rows of the dispatch buffer and the
+ranks' combined outputs are summed.  Where the experts do not divide
+``model`` their F is cut instead (the TP fallback) and the experts'
+partial outputs are summed before the combine; K6 has rounded each
+partial to the model's type, so that path rounds twice.  Without a mesh
+the local shapes are the full ones and nothing is reduced.
 
 KV caches are laid out ``(B, KV, S, Dh)`` — the reference's is
 ``(B, S, KV, Dh)`` — so that folding heads into K5's ``(B*KV, S, Dh)`` is a
@@ -32,6 +56,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..launch import sharding as SH
+from ..launch.mesh import current_mesh
 
 Params = dict[str, Any]
 
@@ -41,6 +67,59 @@ def _dense_init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     # scaled in place: a Jamba expert tensor is 12.9 GB in fp32
     return torch.randn(shape, generator=gen, device=gen.device).mul_(s).to(dtype)
+
+
+def _tp():
+    """(ranks along ``model``, this rank's coordinate, its group) of the
+    current mesh; (1, 0, None) without one."""
+    return SH.model_shards(current_mesh())
+
+
+def _split(n: int, full: int, what: str) -> bool:
+    """Whether a dim the unsharded model has ``full`` of, of which this
+    rank holds ``n``, is cut over ``model``: ``n`` is ``full`` over the
+    current mesh's ``model`` axis.  Any other size raises, so a leaf of the
+    wrong shape is never taken for a shard."""
+    if n == full:
+        return False
+    m = _tp()[0]
+    if m > 1 and n * m == full:
+        return True
+    raise ValueError(f"{what}: {n} of the model's {full}, with a model axis of {m}")
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with its fp32 sum unrounded: a bf16 GEMM writes its fp32
+    accumulator on the card; on the CPU the same products in fp32."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.view(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, full_in: int) -> torch.Tensor:
+    """``x @ w`` of the unsharded model.  A weight whose input dim is cut
+    (row-parallel) takes this rank's slice of ``x``'s last dim, unless
+    ``x`` is that slice already; the partial products are summed over
+    ``model`` in fp32 and rounded once to ``x``'s type, as the unsharded
+    product rounds its fp32 sum."""
+    k = w.shape[-2]
+    if not _split(k, full_in, "a weight's input dim"):
+        return x @ w
+    _, r, group = _tp()
+    if x.shape[-1] != k:
+        x = x[..., r * k:(r + 1) * k]
+    return SH.all_reduce_sum(_mm_f32(x, w), group).to(x.dtype)
+
+
+def _bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y + b``; a bias cut over ``model`` on an output that is whole
+    (the contracting-dim rule) is gathered first."""
+    if _split(b.shape[-1], y.shape[-1], "a bias"):
+        b = SH.all_gather_cat(b, _tp()[2])
+    return y + b
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -107,17 +186,24 @@ def attention(
     ``memory`` on every call, applies no rope, and runs K5 non-causal with no
     window and offset 0 (``repro/models/layers.py:134-171``)."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
 
     src = x if memory is None else memory
-    q = x @ p["wq"]
-    k = src @ p["wk"]
-    v = src @ p["wv"]
+    q = _mm(x, p["wq"], x.shape[-1])
+    k = _mm(src, p["wk"], src.shape[-1])
+    v = _mm(src, p["wv"], src.shape[-1])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = _bias(q, p["bq"]), _bias(k, p["bk"]), _bias(v, p["bv"])
+    h, kv = q.shape[-1] // dh, k.shape[-1] // dh  # this rank's heads
     q = q.view(b, s, h, dh)
     k = k.view(b, -1, kv, dh)
     v = v.view(b, -1, kv, dh)
+    if _split(h, cfg.n_heads, "query heads") and not _split(kv, cfg.n_kv_heads, "KV heads"):
+        # every KV head computed (contracting-dim rule): keep those of this
+        # rank's query heads' GQA groups
+        keep = torch.as_tensor(SH.attention_heads(cfg, current_mesh())[1], device=k.device)
+        k, v = k.index_select(2, keep), v.index_select(2, keep)
+        kv = keep.numel()
     if memory is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -139,7 +225,7 @@ def attention(
         q_offset=attn_offset if cache is not None else 0,
     )
     out = of.view(b, h, s, dh).transpose(1, 2).reshape(b, s, h * dh)
-    return out @ p["wo"]
+    return _mm(out, p["wo"], cfg.n_heads * dh)
 
 
 def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -151,8 +237,8 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def dense_ffn(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+def dense_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    return _mm(F.silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"], cfg.d_ff)
 
 
 def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -235,11 +321,14 @@ def moe_route_dispatch(x: torch.Tensor, p: Params, cfg: ModelConfig,
     (capacity overflow) contribute 0.
 
     Serving (no grad): ``route`` is ``(dest, st, sg, keep)`` in expert order,
-    the buffer filled by ``index_copy_``.  Training: ``route`` is ``(slot,
-    gw)`` in token order, each token's k rows of the buffer (``E * C``: the
-    overflow row) and gates with the dropped ones zeroed, so the backward of
-    the dispatch and the combine sums each token's k contributions in fp32
-    in a fixed order (``_Dispatch``, ``moe_combine``)."""
+    the buffer filled by ``index_copy_``.  Under expert parallelism the
+    buffer holds only this rank's experts, ``dest`` indexes it and ``keep``
+    marks the kept assignments of those experts.  Training: ``route`` is
+    ``(slot, gw)`` in token order, each token's k rows of the buffer (``E *
+    C``: the overflow row) and gates with the dropped ones zeroed, so the
+    backward of the dispatch and the combine sums each token's k
+    contributions in fp32 in a fixed order (``_Dispatch``,
+    ``moe_combine``)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = moe_capacity(cfg, t) if capacity is None else capacity
@@ -251,10 +340,14 @@ def moe_route_dispatch(x: torch.Tensor, p: Params, cfg: ModelConfig,
         slot = dest[inv].view(t, k)
         gw = gates * keep[inv].view(t, k).to(gates.dtype)
         return _Dispatch.apply(x, slot, e * c).view(e, c, d), (slot, gw)
+    el = p["wg"].shape[0]  # this rank's experts: rows [lo, lo + el * c) of the full buffer
+    lo = _tp()[1] * el * c if _split(el, e, "experts") else 0
+    keep = keep & (dest >= lo) & (dest < lo + el * c)
+    dest = torch.where(keep, dest - lo, el * c)
     st = torch.div(order, k, rounding_mode="floor")  # token of each sorted assignment
-    disp = x.new_zeros((e * c + 1, d))
-    disp.index_copy_(0, dest, x[st])  # kept rows are distinct; overflow rows land on e*c
-    return disp[: e * c].view(e, c, d), (dest, st, gates.reshape(-1)[order], keep)
+    disp = x.new_zeros((el * c + 1, d))
+    disp.index_copy_(0, dest, x[st])  # kept rows are distinct; the others land on el*c
+    return disp[: el * c].view(el, c, d), (dest, st, gates.reshape(-1)[order], keep)
 
 
 def moe_experts(disp: torch.Tensor, p: Params) -> torch.Tensor:
@@ -283,10 +376,18 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
     x (T, D) -> (T, D).  ``capacity`` defaults to ``moe_capacity(cfg, T)``, the
     reference's; assignments over it (capacity overflow) contribute 0.  The
     batched decode passes ``capacity=T``, which drops nothing, as the
-    reference's per-slot decode (T = 1, capacity 8) never does.
+    reference's per-slot decode (T = 1, capacity 8) never does.  On a shard
+    of the experts (serving), the sum over ``model`` follows the experts
+    (their F cut: the TP fallback) or the combine (expert parallelism).
     """
+    group = _tp()[2]
     disp, route = moe_route_dispatch(x, p, cfg, capacity)
-    return moe_combine(moe_experts(disp, p), route, x.shape[0])
+    y = moe_experts(disp, p)
+    if _split(p["wd"].shape[-2], cfg.d_ff, "the experts' wd rows"):
+        y = SH.all_reduce_sum(y, group)
+    out = moe_combine(y, route, x.shape[0])
+    return SH.all_reduce_sum(out, group) if _split(p["wg"].shape[0], cfg.n_experts,
+                                                   "experts") else out
 
 
 # ---------------------------------------------------------------------------

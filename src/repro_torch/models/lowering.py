@@ -15,8 +15,9 @@ kept in a plan are the reference's TPU presets (``recipes.GEMM_TILE_PRESETS``,
 sized for a 16 MB VMEM), so both packages give the same plan field for field.
 
 ``deployment_database`` and ``deployment_context`` give ``ServingEngine``
-its database, its content-keyed build cache and its telemetry sink.  The
-port runs on one device: a mesh is refused.
+its database, its content-keyed build cache and its telemetry sink, and
+under a mesh place the parameters with the sharding planner's specs
+(``launch.sharding``).
 """
 from __future__ import annotations
 
@@ -162,11 +163,18 @@ class DeploymentContext:
     # Live step-timing sink (``repro_torch.autotune.NestTelemetry``); a
     # disabled instance by default, so engines can observe unconditionally.
     telemetry: object = None
+    mesh: object = None
+    _specs: object = None
 
     def place(self, tree):
-        """A parameter-shaped tree placed like ``params``: one device, so as
-        it is."""
-        return tree
+        """A full parameter-shaped tree (e.g. optimizer moments) cut with the
+        specs ``params`` were placed with (in place, like
+        ``sharding.shard_params``); the identity without a mesh."""
+        if self._specs is None:
+            return tree
+        from ..launch.sharding import shard_params
+
+        return shard_params(tree, self._specs, self.mesh)
 
     def jitted(self, name: str, build, *key_parts):
         """Whatever ``build()`` returns, from the shared content-addressed
@@ -187,19 +195,31 @@ def deployment_context(
     tuning_db: TuningDatabase | None = None,
     telemetry=None,
 ) -> DeploymentContext:
-    """Resolve the deployment-time context: pick the tuning database
-    (caller-staged, else the shared ``deployment_database`` instance) and
-    attach a telemetry sink (caller-staged, else a disabled one).  A mesh is
-    refused: the port runs on one device."""
-    if mesh is not None:
-        raise NotImplementedError("deployment_context: mesh placement is not ported yet "
-                                  "(see ROADMAP queue 1, item 6, step 3)")
+    """Resolve the deployment-time context: place the full ``params`` on
+    ``mesh`` (any mesh of ``launch.mesh`` over the planner's axes) with
+    ``launch.sharding.param_specs``, cutting the tree in place to this
+    rank's shards, pick the tuning database (caller-staged, else the shared
+    ``deployment_database`` instance) and attach a telemetry sink
+    (caller-staged, else a disabled one).  The ``hybrid``, ``ssm`` and
+    ``audio`` families have no rules under a ``model`` axis of more than one
+    rank yet (ROADMAP queue 1, item 6, step 3a-iii) and raise there."""
     db = tuning_db if tuning_db is not None else deployment_database()
+    specs = None
+    if mesh is not None:
+        from ..launch.sharding import param_specs, shard_params
+
+        if cfg.family in ("hybrid", "ssm", "audio") and mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family under a model axis of "
+                f"{mesh.shape['model']} ranks is not ported yet (the mamba, xLSTM and "
+                "cross-attention rules: ROADMAP queue 1, item 6, step 3a-iii)")
+        specs = param_specs(params, mesh, cfg=cfg)
+        params = shard_params(params, specs, mesh)
     if telemetry is None:
         from ..autotune import NestTelemetry
 
         telemetry = NestTelemetry(enabled=False)
-    return DeploymentContext(cfg, db, params, telemetry)
+    return DeploymentContext(cfg, db, params, telemetry, mesh, specs)
 
 
 def plan_model(cfg: ModelConfig, seq: int, batch: int,

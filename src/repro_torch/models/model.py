@@ -42,6 +42,18 @@ The reference decodes slots one by one under ``vmap`` (T = 1, capacity 8:
 nothing is ever dropped); ``decode_slots`` dispatches all N slots in one
 call with a capacity of N per expert, which drops nothing either.
 
+Under a mesh (``launch.mesh.set_mesh``, the serving engine's) the
+parameters are this rank's shards (``launch.sharding``).  The embedding is
+vocab-parallel where its rows are cut (rows outside the rank's range give
+0, summed over ``model``: exact) and feature-parallel where its columns are
+(gathered over ``model``).  The logits come back vocab-local where the head
+is cut on the vocabulary (``lm_head``, or a tied vocab-parallel
+``embed``), whole where a tied feature-parallel ``embed`` makes the head
+row-parallel; ``full_vocab`` gathers them and ``decode_slots_greedy``
+takes a distributed argmax.  Caches hold this rank's KV heads
+(``sharding.attention_heads``) and ``init_slot_states`` only this rank's
+slots (``sharding.slot_layout``).
+
 State layout: ``{"len": int, "layers": ...}``; slot states have ``"len"`` as
 an int32 tensor of one length per slot and B = the slot count.
 
@@ -66,6 +78,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import expand_offsets
+from ..launch import sharding as SH
+from ..launch.mesh import current_mesh
 from . import layers as L
 
 Params = dict[str, Any]
@@ -180,7 +194,7 @@ def _apply_block(x, blk: Params, cfg: ModelConfig, l: int, positions, state=None
             y = L.moe_ffn(normed2.reshape(b * s, d), blk["ffn"], cfg,
                           capacity=moe_capacity).view(b, s, d)
         else:
-            y = L.dense_ffn(normed2, blk["ffn"])
+            y = L.dense_ffn(normed2, blk["ffn"], cfg)
         x = x + y
     return x, state
 
@@ -215,9 +229,34 @@ def _block_save_moe(x, blk: Params, cfg: ModelConfig, l: int, positions, memory)
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The logits: vocab-local where the head is cut on the vocabulary."""
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    L._split(head.shape[-1], cfg.vocab, "the head's vocabulary")  # a cut, or the whole
+    return L._mm(x, head, cfg.d_model)
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``, whole on every rank."""
+    e = params["embed"]
+    _, r, group = L._tp()
+    if L._split(e.shape[1], cfg.d_model, "embed's features"):  # feature-parallel
+        return SH.all_gather_cat(e[tokens], group)
+    if not L._split(e.shape[0], cfg.vocab, "embed's rows"):
+        return e[tokens]
+    lo = r * e.shape[0]  # vocab-parallel: rows outside [lo, lo + V/m) give 0
+    local = tokens - lo
+    mine = (local >= 0) & (local < e.shape[0])
+    x = e[local.clamp(0, e.shape[0] - 1)]
+    return SH.all_reduce_sum(torch.where(mine[..., None], x, torch.zeros_like(x)), group)
+
+
+def full_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary (gathered over ``model`` where they
+    are vocab-local)."""
+    if not L._split(logits.shape[-1], cfg.vocab, "logits"):
+        return logits
+    return SH.all_gather_cat(logits, L._tp()[2])
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -291,7 +330,7 @@ def _empty_state(cfg: ModelConfig, kind: str, b: int, s_cache: int, device) -> t
     d, f32 = cfg.d_model, torch.float32
     zeros = lambda shape, dt=f32: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
     if kind == "attn":
-        shape = (b, cfg.n_kv_heads, s_cache, cfg.head_dim)
+        shape = (b, _kv_heads(cfg), s_cache, cfg.head_dim)
         return (zeros(shape, dtype_of(cfg)), zeros(shape, dtype_of(cfg)))
     if kind == "mamba":
         din = cfg.mamba_expand * d
@@ -307,6 +346,11 @@ def _empty_state(cfg: ModelConfig, kind: str, b: int, s_cache: int, device) -> t
     raise ValueError(kind)
 
 
+def _kv_heads(cfg: ModelConfig) -> int:
+    """KV heads a cache holds on this rank."""
+    return len(SH.attention_heads(cfg, current_mesh())[1])
+
+
 def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
                       device: str | torch.device = "cuda") -> dict:
     check_family(cfg)
@@ -315,7 +359,7 @@ def init_decode_state(cfg: ModelConfig, b: int, s_max: int, ring: bool = True,
     if cfg.family in RECURRENT_FAMILIES:
         return {"len": 0, "layers": [_empty_state(cfg, cfg.layer_kind(l), b, s_cache, device)
                                      for l in range(cfg.n_layers)]}
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, s_cache, cfg.head_dim)
+    shape = (cfg.n_layers, b, _kv_heads(cfg), s_cache, cfg.head_dim)
     state = {"len": 0,
              "layers": (torch.zeros(shape, dtype=dt, device=device),
                         torch.zeros(shape, dtype=dt, device=device))}
@@ -370,7 +414,7 @@ def decode_step(cfg: ModelConfig, params: Params, state: dict, tokens: torch.Ten
     check_family(cfg)
     b, s = tokens.shape
     clen = int(state["len"])
-    x = params["embed"][tokens]
+    x = _embed(cfg, params, tokens)
     positions = (clen + torch.arange(s, dtype=torch.int32, device=x.device))[None, :].expand(b, s)
     wpos, aoff = _slots(cfg, clen, _cache_rows(cfg, state))
     logits = _run_layers(cfg, params, state, x, positions, wpos, aoff)
@@ -384,7 +428,9 @@ def decode_step(cfg: ModelConfig, params: Params, state: dict, tokens: torch.Ten
 def init_slot_states(cfg: ModelConfig, n_slots: int, s_max: int,
                      device: str | torch.device = "cuda") -> dict:
     """Decode states for ``n_slots`` independent request slots: full caches
-    with the slot as the batch dimension and one length per slot."""
+    with the slot as the batch dimension and one length per slot.  Under a
+    mesh whose DP axes divide ``n_slots``, this rank's slots only."""
+    n_slots = SH.slot_layout(n_slots, current_mesh())[0]
     st = init_decode_state(cfg, n_slots, s_max, ring=False, device=device)
     st["len"] = torch.zeros((n_slots,), dtype=torch.int32, device=device)
     return st
@@ -417,10 +463,11 @@ def decode_slots(cfg: ModelConfig, params: Params, states: dict, tokens: torch.T
     dropped."""
     check_family(cfg)
     clen = states["len"]
-    x = params["embed"][tokens][:, None, :]  # (N, 1, D)
+    x = _embed(cfg, params, tokens)[:, None, :]  # (N, 1, D)
     wpos, aoff = _slots(cfg, clen, _cache_rows(cfg, states))
-    # one K5 offset per q row (slot x head), expanded once for every layer
-    aoff = expand_offsets(aoff, x.shape[0] * cfg.n_heads, x.device)
+    # one K5 offset per q row (slot x this rank's heads), expanded once for every layer
+    heads = len(SH.attention_heads(cfg, current_mesh())[0])
+    aoff = expand_offsets(aoff, x.shape[0] * heads, x.device)
     logits = _run_layers(cfg, params, states, x, clen[:, None], wpos, aoff,
                          moe_capacity=x.shape[0])
     states["len"] = clen + 1
@@ -432,4 +479,7 @@ def decode_slots_greedy(cfg: ModelConfig, params: Params, states: dict, tokens: 
     ((N,) int32 next tokens, states), so the engine can feed them to the next
     step without waiting for them."""
     logits, states = decode_slots(cfg, params, states, tokens)
-    return torch.argmax(logits, dim=-1).to(torch.int32), states
+    if not L._split(logits.shape[-1], cfg.vocab, "logits"):
+        return torch.argmax(logits, dim=-1).to(torch.int32), states
+    _, r, group = L._tp()
+    return SH.argmax_sharded(logits, group, r * logits.shape[-1]).to(torch.int32), states

@@ -49,8 +49,25 @@ Ported from the reference's ``ServingEngine`` (``repro/serve/engine.py:208``):
     ``serve.prefill`` / ``serve.decode`` / ``serve.logits`` /
     ``serve.step``, as in the reference.
 
-Not ported yet (the constructor refuses it): ``mesh`` (ROADMAP queue 1, item 6, step 3:
-the model stack's sharding).
+Under a ``mesh`` (``launch.mesh.make_mesh`` over a ``torch.distributed``
+world, with ``data``/``model`` and optionally ``pod`` axes) every rank runs
+the same requests SPMD, as GSPMD runs the reference's engine: the
+parameters are cut to this rank's shards (``launch.sharding``: heads, dense
+FFN columns and rows and the vocabulary over ``model``, experts over
+``model``), and the batch slots go over the DP axes where they divide them,
+else every rank holds every slot.  Every rank runs the same host scheduler.
+A prefill runs on the ranks that own its slot and its last logits (whole
+vocabulary) are broadcast to every rank, each step's sampled tokens are
+gathered to every rank, and the sync path (temperature, logit program)
+gathers the whole-vocabulary logits of every slot, so every rank's handles,
+queues, random generator and results stay identical.  Request deadlines and
+``cancel()`` are decided on rank 0 and broadcast before each step (a
+cancellation takes effect at the next step): a decision that differed
+between ranks would leave one rank out of a collective the others enter.
+``tuner`` with a mesh of more than one rank raises (ROADMAP queue 1, item
+6, step 3a-iii), and so do the ``hybrid``, ``ssm`` and ``audio`` families
+under a ``model`` axis of more than one rank.  A mesh of one runs the
+unsharded path.
 torch runs eagerly, so no step function is traced.
 
 The engine runs on the device its parameters are on (the card unless the
@@ -75,9 +92,12 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..fault import FaultPlan
+from ..launch import sharding as SH
+from ..launch.mesh import dp_axes, set_mesh
 from ..models import model as M
 from ..models.lowering import deployment_context, kernel_report
 
@@ -180,7 +200,7 @@ class RequestHandle:
         if self.done:
             return False
         if self._engine is not None:
-            self._engine._cancel(self)
+            self._engine._request_cancel(self)
         else:
             self.state = RequestState.CANCELLED
         return True
@@ -240,11 +260,15 @@ class ServingEngine:
         its other input arrays (missing ones are zero-filled).  ``tuner`` (a
         ``SearchSupervisor`` over the same database) registers the program,
         receives per-step telemetry and is driven every
-        ``tuner.check_every`` steps."""
-        if mesh is not None:
+        ``tuner.check_every`` steps.  ``mesh``: serve SPMD over a
+        ``launch.mesh`` mesh (the module's docstring); the full ``params``
+        are cut in place to this rank's shards."""
+        self._world = mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1
+        if tuner is not None and self._world:
             raise NotImplementedError(
-                "ServingEngine: mesh is not ported yet (see ROADMAP queue 1, item 6, step 3)")
-        self.cfg, self.scfg = cfg, scfg
+                "ServingEngine: tuner under a mesh of more than one rank is not ported yet "
+                "(the tuner deciding on rank 0: ROADMAP queue 1, item 6, step 3a-iii)")
+        self.cfg, self.scfg, self.mesh = cfg, scfg, mesh
         if tuner is not None:
             if tuning_db is None:
                 tuning_db = tuner.db
@@ -254,12 +278,12 @@ class ServingEngine:
                     "supervisor must commit swaps into the database the "
                     "engine resolves recipes from")
         self._ctx = deployment_context(
-            cfg, params, tuning_db=tuning_db,
+            cfg, params, mesh=mesh, tuning_db=tuning_db,
             telemetry=tuner.telemetry if tuner is not None else None)
         self.params = self._ctx.params
         self.tuning_db = self._ctx.tuning_db
         self.telemetry = self._ctx.telemetry
-        self.device = params["embed"].device
+        self.device = self.params["embed"].device
         self.fault_plan = fault_plan
         self.tuner = tuner
         self._step_count = 0
@@ -284,13 +308,21 @@ class ServingEngine:
             from ..core.cache import fingerprint_obj
 
             self._telemetry_key = f"serve.step:{fingerprint_obj(cfg)[:12]}"
-            # looked up at call time, so a wrapped model function is seen
-            self._dispatch_greedy = lambda p, s, t: M.decode_slots_greedy(cfg, p, s, t)
-            self._dispatch_logits = lambda p, s, t: M.decode_slots(cfg, p, s, t)
+            # looked up at call time, so a wrapped model function is seen;
+            # both give every slot's output on every rank
+            self._dispatch_greedy = lambda p, s, t: self._all_slots(
+                *M.decode_slots_greedy(cfg, p, s, t))
+            self._dispatch_logits = lambda p, s, t: self._all_slots(
+                *self._full_logits(*M.decode_slots(cfg, p, s, t)))
         n = scfg.batch_slots
         self._buckets = prefill_buckets(scfg.max_len, scfg.min_bucket)
-        self._states = M.init_slot_states(cfg, n, scfg.max_len, device=self.device)
-        self._tokens = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        # this rank's slots [base, base + n_local): all of them unless the
+        # DP axes divide the slots
+        self._n_local, self._base = SH.slot_layout(n, mesh)
+        self._src = self._source_ranks()
+        with set_mesh(mesh):
+            self._states = M.init_slot_states(cfg, n, scfg.max_len, device=self.device)
+        self._tokens = torch.zeros((self._n_local,), dtype=torch.int32, device=self.device)
         self._slots: list[RequestHandle | None] = [None] * n
         self._queue: deque[RequestHandle] = deque()
         # in-flight dispatched steps: (host copy of tokens or logits, {slot: handle})
@@ -301,6 +333,9 @@ class ServingEngine:
         self._closed = False
         self._next_rid = 0
         self.rng = np.random.default_rng(scfg.seed)
+        # mesh of more than one rank: rank 0's decisions for the current step
+        self._overdue_rids: set[int] = set()
+        self._cancels: list[int] = []
 
     # -- public API ------------------------------------------------------------
     def submit(self, prompt, _legacy_prompt=None, *, rid: int | None = None,
@@ -364,7 +399,9 @@ class ServingEngine:
         if self.logit_program is not None:
             self._resolve_step_fns()  # picks up database commits (hot swap)
         t0 = time.perf_counter()
-        n = self._step_impl()
+        with set_mesh(self.mesh):
+            self._sync_decisions()
+            n = self._step_impl()
         if n:
             self.telemetry.observe(self._telemetry_key, time.perf_counter() - t0)
         self._step_count += 1
@@ -396,7 +433,7 @@ class ServingEngine:
                 # the next dispatch; the host reads them `depth` steps later
                 next_tok, self._states = self._dispatch_greedy(
                     self.params, self._states, self._tokens)
-                self._tokens = next_tok
+                self._tokens = self._mine(next_tok)
                 self._pending.append((_start_copy(next_tok), live))
         except Exception as e:  # noqa: BLE001 — batch-level dispatch failure
             # the whole step is lost: fail the requests that occupied slots,
@@ -528,7 +565,8 @@ class ServingEngine:
 
         def composite(sample_greedy: bool):
             def stepfn(params, states, tokens):
-                logits, states = M.decode_slots(cfg, params, states, tokens)
+                logits, states = self._all_slots(
+                    *self._full_logits(*M.decode_slots(cfg, params, states, tokens)))
                 env = dict(aux)
                 # (N, V) -> vocab-major (V, N); the program copies it into a
                 # contiguous float32 tensor, the layout the nest kernel takes
@@ -541,6 +579,69 @@ class ServingEngine:
 
         self._dispatch_greedy = composite(True)
         self._dispatch_logits = composite(False)
+
+    # -- the mesh ----------------------------------------------------------------
+    def _source_ranks(self) -> list[int]:
+        """The global rank whose outputs stand for each DP group's slots, in
+        slot order (its ``model`` coordinate 0); one rank when every rank
+        holds every slot."""
+        mesh = self.mesh
+        if not self._world:
+            return [0]
+        grid = np.asarray(mesh.ranks).reshape(tuple(mesh.shape.values()))
+        dp = dp_axes(mesh)
+        out = []
+        for j in range(self.scfg.batch_slots // self._n_local):
+            at = dict(zip(dp, np.unravel_index(j, tuple(mesh.shape[a] for a in dp))))
+            out.append(int(grid[tuple(int(at.get(a, 0)) for a in mesh.axis_names)]))
+        return out
+
+    def _local_slot(self, i: int) -> int | None:
+        """Slot ``i``'s index among this rank's slots, None if it is not one."""
+        j = i - self._base
+        return j if 0 <= j < self._n_local else None
+
+    def _mine(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slots of a tensor over every slot."""
+        if self._n_local == self.scfg.batch_slots:
+            return full
+        return full[self._base:self._base + self._n_local]
+
+    def _all_slots(self, out: torch.Tensor, states):
+        """(``out`` over this rank's slots gathered to every slot on every
+        rank, states); as it is without a mesh of more than one rank."""
+        if self._world:
+            out = SH.world_gather(out, self._src)
+        return out, states
+
+    def _full_logits(self, logits: torch.Tensor, states):
+        return M.full_vocab(self.cfg, logits), states
+
+    def _sync_decisions(self) -> None:
+        """Under a mesh of more than one rank: rank 0's overdue requests and
+        cancellations, broadcast to every rank before the step."""
+        if not self._world:
+            return
+        now = time.monotonic()
+        box = [(sorted(r for r, h in self._inflight.items() if h._overdue(now)), self._cancels)]
+        dist.broadcast_object_list(box, src=0)
+        overdue, cancels = box[0]
+        self._overdue_rids, self._cancels = set(overdue), []
+        for rid in cancels:
+            h = self._inflight.get(rid)
+            if h is not None and not h.done:
+                self._cancel(h)
+
+    def _is_overdue(self, h: RequestHandle, now: float) -> bool:
+        return h.rid in self._overdue_rids if self._world else h._overdue(now)
+
+    def _request_cancel(self, h: RequestHandle) -> None:
+        """``handle.cancel()``: at once without a mesh of more than one
+        rank; else rank 0's request takes effect at the next step."""
+        if self._world:
+            self._cancels.append(h.rid)
+        else:
+            self._cancel(h)
 
     # -- internals -------------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -569,7 +670,7 @@ class ServingEngine:
         # reset to the true length: the padded cache rows beyond it are
         # causally masked and get overwritten as decode proceeds
         state["len"] = s
-        return logits[0, s - 1], state
+        return M.full_vocab(cfg, logits[0, s - 1]), state
 
     def _sample_from(self, lf: np.ndarray) -> int:
         if self.scfg.temperature <= 0.0:
@@ -617,7 +718,7 @@ class ServingEngine:
     def _expire_queued(self) -> None:
         """TIMED_OUT sweep over requests still waiting for a slot."""
         now = time.monotonic()
-        for h in [h for h in self._queue if h._overdue(now)]:
+        for h in [h for h in self._queue if self._is_overdue(h, now)]:
             self._queue.remove(h)
             self._timeout(h)
 
@@ -627,14 +728,14 @@ class ServingEngine:
         or whose prefill logits are non-finite fails alone."""
         while self._queue and None in self._slots:
             h = self._queue.popleft()
-            if h._overdue(time.monotonic()):
+            if self._is_overdue(h, time.monotonic()):
                 self._timeout(h)
                 continue
+            i = self._slots.index(None)
             try:
                 fault = None if self.fault_plan is None else \
                     self.fault_plan.maybe_raise("serve.prefill", key=h.rid)
-                last_logits, state = self._prefill(h)
-                lf = last_logits.float().cpu().numpy()
+                lf, state = self._prefill_logits(h, i)
                 if fault is not None and fault.kind == "nan":
                     lf = np.full_like(lf, np.nan)
                 self._check_finite(lf, h)
@@ -647,10 +748,35 @@ class ServingEngine:
             if h.done:  # eos / max_new_tokens == 1: never occupies a slot
                 self._finish(h)
                 continue
-            i = self._slots.index(None)
             self._slots[i] = h
-            self._states = M.write_slot(self._states, i, state)
-            self._tokens[i] = t0
+            j = self._local_slot(i)
+            if j is not None:
+                self._states = M.write_slot(self._states, j, state)
+                self._tokens[j] = t0
+
+    def _prefill_logits(self, h: RequestHandle, i: int):
+        """``_prefill`` for slot ``i``: (its last logits on the host, whole
+        vocabulary, fp32; the b=1 state, None on a rank that does not own
+        the slot).  Under a mesh of more than one rank only the slot's
+        owners prefill and the logits are broadcast from one of them; a
+        prefill that raised there fails the request on every rank."""
+        if not self._world:
+            last, state = self._prefill(h)
+            return last.float().cpu().numpy(), state
+        src = self._src[i // self._n_local]
+        buf = torch.zeros((self.cfg.vocab + 1,), dtype=torch.float32)  # (failed, logits)
+        state, err = None, None
+        if self._local_slot(i) is not None:
+            try:
+                last, state = self._prefill(h)
+                buf[1:] = last.float().cpu()
+            except Exception as e:  # noqa: BLE001 — reported to every rank below
+                err, buf[0] = e, 1.0
+        dist.broadcast(buf, src=src)
+        if buf[0] != 0:
+            raise err if err is not None else RuntimeError(
+                f"request {h.rid}: prefill failed on rank {src}")
+        return buf[1:].numpy(), state
 
     def _harvest_one(self) -> None:
         """Wait for the oldest in-flight step's tokens (or logits) and credit
@@ -663,7 +789,7 @@ class ServingEngine:
         for i, h in live.items():
             if h.done:  # finished in a younger harvest; overshoot dropped
                 continue
-            if h._overdue(now):
+            if self._is_overdue(h, now):
                 self._timeout(h, slot=i)
                 continue
             try:
@@ -680,7 +806,9 @@ class ServingEngine:
                         lf = np.full_like(lf, np.nan)
                     self._check_finite(lf, h)
                     tok = self._sample_from(lf)
-                    self._tokens[i] = tok
+                    j = self._local_slot(i)
+                    if j is not None:
+                        self._tokens[j] = tok
                 h._append(tok, self.scfg)
             except Exception as e:  # noqa: BLE001 — request-scoped isolation
                 self._fail(h, e, slot=i)

@@ -17,7 +17,10 @@ the CPU autograd differentiates their plain versions.  Checkpoints keep the
 reference's layout (``hybrid`` and ``ssm`` layers as ``periods``).
 
 ``mesh`` and a ``grad_codec`` over a ``pod_axis`` raise
-``NotImplementedError``: the port trains on one device.
+``NotImplementedError``: the port trains on one device.  Sharded training
+(the Megatron collectives under autograd, the DP gradient all-reduce,
+restores that re-place the parameters and moments) is ROADMAP queue 1, item
+6, step 3a-ii; the compressed cross-pod all-reduce is step 3b.
 """
 from __future__ import annotations
 
@@ -68,9 +71,9 @@ def make_train_step(
     needs the model stack's sharding, which is not ported.
     """
     if pod_axis is not None:
-        raise NotImplementedError("make_train_step: grad_codec over a pod_axis needs the "
-                                  "model stack's sharding, which is not ported yet (see "
-                                  "ROADMAP queue 1, item 6, step 3)")
+        raise NotImplementedError("make_train_step: grad_codec over a pod_axis needs sharded "
+                                  "training, which is not ported yet (see ROADMAP queue 1, "
+                                  "item 6, steps 3a-ii and 3b)")
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
@@ -142,8 +145,13 @@ class Trainer:
         ``telemetry`` (a ``repro_torch.autotune.NestTelemetry``, e.g. a
         ``SearchSupervisor``'s) receives per-step wall times; without one the
         observations hit a disabled sink.  ``mesh`` raises: the port trains
-        on one device."""
+        on one device (sharded training is ROADMAP queue 1, item 6, step
+        3a-ii)."""
         from ..models.lowering import deployment_context
+
+        if mesh is not None:
+            raise NotImplementedError("Trainer: mesh is not ported yet (sharded training: see "
+                                      "ROADMAP queue 1, item 6, step 3a-ii)")
 
         self.cfg, self.opt_cfg, self.tcfg = cfg, opt_cfg, tcfg
         self.device = check_device(device)

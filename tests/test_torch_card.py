@@ -43,7 +43,11 @@ seeds a mini program's nests there; ``test_torch_search.py`` holds the
 search against the reference on the CPU.  Two ranks spawned on the card
 (their collectives on gloo) run the column-sharded mini scheme,
 bit-identical to the unsharded card run; ``test_torch_partition_world.py``
-holds the sharded executor on the CPU.
+holds the sharded executor on the CPU.  Two ranks on the card serve the
+reduced Danube and Mixtral over mesh (data 1, model 2) with the tokens of
+the unsharded engine, and a row-parallel partial of bf16 operands leaves
+its GEMM in fp32 (``-k sharded_engine``); ``test_torch_sharded_serve.py``
+holds the sharded engine against the reference on the CPU.
 """
 import numpy as np
 import pytest
@@ -1033,3 +1037,65 @@ def test_sharded_scheme_on_card_is_bit_identical(card):
     assert set(got) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v.cpu().numpy(), err_msg=k)
+
+
+def _engine_on_card_world(arch: str, prompts):
+    """One rank of a world on the card: the reduced model (fp32, seeded on
+    the card) served over mesh (data 1, model 2); its tokens and this
+    rank's K4/K5 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    mesh = make_mesh((1, 2), ("data", "model"))
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    before = p_rms.LAUNCHES["rmsnorm"], dict(p_flash.PATHS)
+    eng = ServingEngine(cfg, params, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6),
+                        mesh=mesh)
+    hs = [eng.submit(p) for p in prompts]
+    eng.drain()
+    k5 = {k: p_flash.PATHS[k] - before[1][k] for k in p_flash.PATHS}
+    return [h.tokens for h in hs], p_rms.LAUNCHES["rmsnorm"] - before[0], k5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b"])
+def test_sharded_engine_on_card_equals_unsharded(card, arch):
+    """Two ranks on the one card (collectives on gloo) serve the reduced
+    model over mesh (data 1, model 2) in fp32: heads, FFN columns and rows
+    and the vocabulary (or the experts) over model, on K4 and K5.  Greedy
+    tokens equal the unsharded engine's on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    prompts = [np.arange(1, n + 1, dtype=np.int32) % 500 for n in (5, 23, 40)]
+    tokens, k4, k5 = run_world(2, _engine_on_card_world, (arch, prompts))
+    assert k4 > 0 and sum(k5.values()) > 0, (k4, k5)
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(cfg, params, ServeConfig(batch_slots=2, max_len=64, max_new_tokens=6))
+    hs = [eng.submit(p) for p in prompts]
+    eng.drain()
+    assert tokens == [h.tokens for h in hs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1920, 3840), (300, 5120, 3840), (3, 72, 40)])
+def test_sharded_engine_partial_keeps_fp32_on_card(card, m, k, n):
+    """A row-parallel partial of bf16 operands leaves its GEMM in fp32
+    (``layers._mm_f32``): within fp32 rounding of the same products summed
+    in fp32 on the CPU, not rounded to bf16."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn((2, m, k), generator=g).bfloat16()
+    w = (torch.randn((k, n), generator=g) / k ** 0.5).bfloat16()
+    got = L._mm_f32(x.to(card), w.to(card))
+    want = L._mm_f32(x, w)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (2, m, n)
+    assert max_rel(got.cpu(), want) < 1e-5
+    assert not torch.equal(got.cpu(), got.cpu().bfloat16().float())  # not rounded to bf16

@@ -34,6 +34,7 @@ def test_every_module_is_listed():
               "repro_torch.train.train_loop", "repro_torch.train.fault",
               "repro_torch.launch", "repro_torch.launch.train",
               "repro_torch.core.partition", "repro_torch.launch.mesh",
+              "repro_torch.launch.sharding",
               "repro_torch.launch.analytic", "repro_torch.launch.roofline",
               "repro_torch.tools.check_links"):
         assert m in MODULES, m

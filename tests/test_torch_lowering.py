@@ -31,6 +31,7 @@ from repro_torch.configs import get_config as p_config
 from repro_torch.core.database import TuningDatabase, default_pretuned_path
 from repro_torch.kernels import gemm as p_gemm
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lowering as PL
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import ServeConfig, ServingEngine
@@ -123,6 +124,13 @@ def test_ops_matmul_refuses_what_k1_does_not_take():
         ops.matmul(torch.ones(2, 3, dtype=torch.float64), torch.ones(3, 4, dtype=torch.float64))
 
 
+class _FakeMesh:
+    """A mesh's axis sizes, with no world."""
+
+    def __init__(self, shape):
+        self.shape, self.axis_names = shape, tuple(shape)
+
+
 def test_deployment_context():
     cfg = p_config("minicpm-2b").reduced()
     params = {"embed": torch.zeros(2)}
@@ -135,8 +143,12 @@ def test_deployment_context():
     first = ctx.jitted("test.lowering", make, 7)
     assert PL.deployment_context(cfg, params).jitted("test.lowering", make, 7) is first
     assert built == [1]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PL.deployment_context(cfg, params, mesh=object())
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    placed = PL.deployment_context(cfg, dict(params), mesh=mesh)  # a mesh of one: as it is
+    assert placed.params["embed"] is params["embed"] and placed.mesh is mesh
+    jamba = p_config("jamba-1.5-large-398b").reduced()
+    with pytest.raises(NotImplementedError, match="3a-iii"):
+        PL.deployment_context(jamba, params, mesh=_FakeMesh({"data": 1, "model": 2}))
 
 
 def test_deployment_database_holds_the_pretuned_file_and_the_seed():
@@ -216,5 +228,6 @@ def test_engine_takes_tuning_db_and_still_refuses_mesh(minicpm):
     rhs = [reng.submit(p) for p in prompts]
     reng.drain()
     assert [h.tokens for h in hs] == [h.tokens for h in rhs]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(pcfg, pparams, ServeConfig(), tuning_db=db, mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):  # the tuner, under ranks
+        ServingEngine(pcfg, pparams, ServeConfig(), tuning_db=db, tuner=object(),
+                      mesh=_FakeMesh({"data": 1, "model": 2}))

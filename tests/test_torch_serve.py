@@ -161,11 +161,20 @@ def test_submit_rejects_bad_prompts(setup):
         eng.submit(np.array([2], np.int32), rid=5)
 
 
+class _Ranks:
+    """The axis sizes of a mesh of two ranks, with no world."""
+    shape, axis_names = {"data": 1, "model": 2}, ("data", "model")
+
+
+# what is not ported of each option: under a mesh of ranks, the tuner
+NOT_PORTED = {"mesh": dict(mesh=_Ranks(), tuner=object())}
+
+
 @pytest.mark.parametrize("option", ["mesh"])
 def test_options_not_ported_are_refused(setup, option):
     _, _, pcfg, pparams = setup
     with pytest.raises(NotImplementedError, match=option):
-        ServingEngine(pcfg, pparams, ServeConfig(), **{option: object()})
+        ServingEngine(pcfg, pparams, ServeConfig(), **NOT_PORTED[option])
 
 
 def test_non_finite_logits_fail_only_that_request():
