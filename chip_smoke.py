@@ -251,7 +251,7 @@ Phases, in order (any failure exits nonzero):
    (d) xLSTM-350M whole: ``run_resilient(3, fail_at=2)`` with a checkpoint
    in the reference's ``periods`` layout, bit-identical to an uninterrupted
    run;
-19. sharded serving, last, with the earlier phases' models freed: (a)
+19. sharded serving, with the earlier phases' models freed: (a)
    H2O-Danube3-4B on ``make_mesh((1, 1), ("data", "model"))`` serves phase
    7's traffic with its tokens and watched logits bit for bit; (b) Danube
    whole (24 layers, bf16) on mesh (data 2, model 2), 4 ranks spawned on
@@ -277,6 +277,31 @@ Phases, in order (any failure exits nonzero):
    launches are printed beside ``nvidia-smi``'s name and power limit:
    ranks sharing one card, collectives through the host, not a scaling
    figure.
+20. sharded training, last: one world of 4 ranks on the card (``run_world``,
+   collectives on gloo), mesh (data 2, model 2), ``Trainer(mesh=)``: (b)
+   MiniCPM-2B cut to 4 of 40 layers (every width; its odd vocabulary makes
+   the tied embedding feature-parallel and the head row-parallel) and (c)
+   Mixtral 8x7B cut to 1 of 32 layers (every width, 4 experts a rank), each
+   3 steps of 4 x 2048 tokens in 2 microbatches.  Gates: every rank's K4,
+   K5 and their backward kernels launched (K6 and K6-bwd in (c)), no plain
+   version; the loss of the first microbatch within TRAIN_LOSS_REL of the
+   fp32 plain model's; each gathered gradient within TRAIN_GRAD_REL_L2 of
+   the fp32 plain model's and, over all tensors, no further from it than
+   SHARD_PLAIN_RATIO x the unsharded bf16 port taken a row at a time (the
+   data-parallel split's roundings) and SHARD_WHOLE_RATIO x the unsharded
+   port on the whole microbatch; the data-parallel gradient sum exact in
+   fp32 (a sample of every rank's buffer before and after it); the
+   data-parallel replicas' parameters bit-identical after every step
+   (digests); (b) step 3 again in a fresh Trainer from step 2's checkpoint,
+   bit-identical; (b)'s two mutants caught: *f* without its backward
+   all-reduce (by the gradient gate) and the data-parallel sum in bf16 (by
+   the sum's check).  Each rank's host ms a step (the collectives' clock
+   synchronizes the card around each one; (b)'s resumed step runs without
+   it), tokens/s, collective ms by op (forward and backward apart), bytes
+   and peak memory are printed beside ``nvidia-smi``'s name and power
+   limit: ranks sharing one card, not a scaling figure.
+
+Every phase prints its wall seconds.
 
 In phases 4-5, kernel recipes are seeded by hand, per canonical nest, for
 every nest the nest planner or the BLAS-3 idiom accepts (``pallas_gemm`` for BLAS-3 nests,
@@ -299,7 +324,9 @@ device beside SDPA (``F.rms_norm``) and its bound.
 K1-K3's rows in the kernels' JSON line carry ``launches_phase_18`` (the
 mesh of one, and each rank of the world); K2's carries phase 18's record.
 K4's, K5's and K6's rows (and their decode kernels') carry
-``launches_phase_19`` per rank; K5's carries phase 19's record.
+``launches_phase_19`` per rank; K5's carries phase 19's record.  K4's,
+K5's, K6's and the backward kernels' rows carry ``launches_phase_20`` per
+part and rank; K5-bwd's carries phase 20's record.
 
 Phase 16's K4-bwd and K5-bwd rows join the kernels' JSON line; their
 ``launches`` are phase 16 (c)'s six steps.  Phase 17's K6-bwd row joins
@@ -316,7 +343,7 @@ global loads and stores in the SASS of the mini nest's kernel (``cuobjdump
 -sass``); it ends with a JSON line and the ``nvidia-smi`` line.
 ``python3 chip_smoke.py --serve-shard SRC`` likewise runs only phase 7's
 Danube traffic (which phase 19 (a) is held against) and phase 19 with the
-package under SRC.
+package under SRC, and ``--train-shard SRC`` only phase 20.
 Without a card, or without ``src/repro_torch`` beside this file, it prints no
 result and exits nonzero.
 """
@@ -376,6 +403,23 @@ K1_BF16_SHAPES = [(64, 32, 48, 0), (300, 264, 136, 0), (2048, 512, 1024, 0),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE: dict = {"name": None, "t0": 0.0}
+
+
+def start_phase(msg: str) -> None:
+    """Log the seconds of the phase that ends here, then ``msg`` ("phase N:
+    ..."): every phase's wall seconds, its helpers' own lines within."""
+    end_phase()
+    _PHASE.update(name=msg.split(":")[0].split()[1], t0=time.perf_counter())
+    log(msg)
+
+
+def end_phase() -> None:
+    if _PHASE["name"] is not None:
+        log(f"  phase {_PHASE['name']} wall: {time.perf_counter() - _PHASE['t0']:.1f} s")
+        _PHASE["name"] = None
 
 
 def nvidia_smi() -> str:
@@ -1174,7 +1218,7 @@ def main_path(torch) -> tuple[dict, dict, dict]:
     cuda_daisy = Daisy(db=db, backend="cuda")
     torch_daisy = Daisy(db=db, backend="torch")
 
-    log("phase 4: main path, PolyBench (numpy oracle at mini, then bench, then LARGE a/b)")
+    start_phase("phase 4: main path, PolyBench (numpy oracle at mini, then bench, then LARGE a/b)")
     oracle_programs = [(BENCHMARKS[n].make("a", "mini"), None, [BENCHMARKS[n].output], f"{n}/a")
                        for n in NAMES]
     oracle_programs += [
@@ -1201,7 +1245,7 @@ def main_path(torch) -> tuple[dict, dict, dict]:
                 run_program(torch, cuda_daisy, torch_daisy, prog, random_inputs(prog, seed=3),
                             [b.output], f"{name}/{var} LARGE {LARGE[name]}")
 
-    log(f"phase 5: main path, CLOUDSC at klev={KLEV}, nproma={NPROMA}")
+    start_phase(f"phase 5: main path, CLOUDSC at klev={KLEV}, nproma={NPROMA}")
     phase5: dict = {}
     for label, prog, inputs, outputs in cloudsc_programs():
         run_program(torch, cuda_daisy, torch_daisy, prog, inputs, outputs, label, keep=phase5)
@@ -5673,6 +5717,597 @@ def sharded_serve_phase(torch, smi: str, phase7: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sharded training.  One 4-rank world on the card (collectives on
+# gloo): (b) MiniCPM-2B cut to SHARD_TRAIN_MODELS' 4 of 40 layers (every
+# width: the odd vocabulary makes the tied embedding feature-parallel and
+# the head row-parallel) and (c) Mixtral 8x7B cut to 1 of 32 layers (every
+# width, 4 experts a rank), each on (data 2, model 2) through
+# ``Trainer(mesh=)``: global batch 4 x 2048 in 2 microbatches, 1 x 2048 a
+# rank and microbatch.  Two layers of Mixtral would not fit four ranks on one
+# card (about 14 GB a rank at 16 bytes a parameter for one layer).
+# ---------------------------------------------------------------------------
+SHARD_TRAIN_RANKS, SHARD_TRAIN_SHAPE = 4, (2, 2)
+SHARD_TRAIN_MODELS = {"b": (MINICPM, 4), "c": (MIXTRAL, 1)}
+SHARD_TRAIN_SEQ, SHARD_TRAIN_BATCH, SHARD_TRAIN_ACCUM, SHARD_TRAIN_STEPS = 2048, 4, 2, 3
+# the sharded gradient's distance from fp32 over the unsharded bf16 port's
+# on the whole microbatch: each data-parallel rank rounds its own rows'
+# gradient to bf16 before the fp32 sum (read 1.17 in (b), 1.38 in (c))
+SHARD_WHOLE_RATIO = 1.5
+DP_SUM_STRIDE = 1009  # the data-parallel sum's check reads every 1009th element
+
+
+def param_digest(torch, tree) -> list:
+    """Two integer sums of each leaf's bits (their sum, and their sum
+    weighted by position mod 65521), exact on the card: equal digests of two
+    replicas' parameters mean bit-identical parameters but for a collision."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    out, chunk = [], 1 << 24
+    for t in tree_leaves(tree):
+        x = t.detach().reshape(-1)
+        x = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+        s1 = s2 = 0
+        for c0 in range(0, x.numel(), chunk):
+            v = x[c0:c0 + chunk].to(torch.int64)
+            w = torch.arange(c0, c0 + v.numel(), device=v.device) % 65521 + 1
+            s1 += int(v.sum())
+            s2 += int((v * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+class TrainCollectiveClock:
+    """While installed: the host ms of every ``torch.distributed``
+    all-reduce and all-gather, each between two synchronizations of the
+    card, under the op name ``launch.sharding`` counted it with (backward
+    ops, which run on autograd's thread, under their own names); the rest
+    (the digests' and reports' object gathers) under ``other``."""
+
+    def __init__(self, torch, SH, dist):
+        self.torch, self.SH, self.dist = torch, SH, dist
+        self.ms: dict[str, float] = {}
+        self.op = None
+
+    def __enter__(self):
+        SH, dist = self.SH, self.dist
+        self.saved = [(SH, "_count", SH._count), (dist, "all_reduce", dist.all_reduce),
+                      (dist, "all_gather", dist.all_gather)]
+        real_count = SH._count
+
+        def count(op, t):
+            self.op = op
+            real_count(op, t)
+
+        def timed(real):
+            def call(*args, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kw)
+                finally:
+                    self.torch.cuda.synchronize()
+                    name = self.op or "other"
+                    self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+                    self.op = None
+            return call
+
+        SH._count = count
+        dist.all_reduce, dist.all_gather = timed(dist.all_reduce), timed(dist.all_gather)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+class DpSumRecorder:
+    """While installed: every ``launch.sharding.reduce_gradients_`` call's
+    buffer, read at every DP_SUM_STRIDE-th element and at the last (the
+    loss), before and after the sum; with ``bf16``, the sum is made in bf16
+    (operands and result rounded: the mutant)."""
+
+    def __init__(self, torch, SH, bf16: bool = False):
+        self.torch, self.SH, self.bf16, self.calls = torch, SH, bf16, []
+
+    def __enter__(self):
+        SH, real = self.SH, self.SH.reduce_gradients_
+        self.real = real
+
+        def sample(flat):
+            idx = self.torch.cat([self.torch.arange(0, flat.numel() - 1, DP_SUM_STRIDE,
+                                                    device=flat.device),
+                                  self.torch.tensor([flat.numel() - 1], device=flat.device)])
+            return flat[idx].cpu()
+
+        def reduce(flat, group):
+            before = sample(flat)
+            if self.bf16:
+                flat.copy_(flat.bfloat16())
+            out = real(flat, group)
+            if self.bf16:
+                out.copy_(out.bfloat16())
+            self.calls.append((before, sample(out)))
+            return out
+
+        SH.reduce_gradients_ = reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.SH.reduce_gradients_ = self.real
+
+
+def dp_sum_exact(torch, samples: list) -> bool:
+    """``samples``: each rank's (data, model, calls of a DpSumRecorder).
+    True when every call's sum equals, on every rank, the fp32 sum of its
+    model coordinate's buffers in data order (exact for two operands)."""
+    by_model: dict = {}
+    for d, m, calls in sorted(samples, key=lambda x: (x[1], x[0])):
+        by_model.setdefault(m, []).append(calls)
+    for ranks in by_model.values():
+        for i, (_, after) in enumerate(ranks[0]):
+            want = ranks[0][i][0].clone()
+            for calls in ranks[1:]:
+                want += calls[i][0]
+            if not all(torch.equal(calls[i][1], want) for calls in ranks):
+                return False
+    return bool(by_model) and all(len(r[0]) > 0 for r in by_model.values())
+
+
+class RouteRecorder:
+    """While installed: the experts each ``moe_route`` call chose (the
+    forward's calls first; remat repeats them in the backward); with
+    ``force``, every call takes those experts (one MoE layer), its gates
+    the softmax of its own router logits over them."""
+
+    def __init__(self, torch, force=None):
+        self.torch, self.force, self.routes = torch, force, []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.L, self.real = L, L.moe_route
+
+        def route(x, router, k):
+            if self.force is None:
+                gates, experts = self.real(x, router, k)
+            else:
+                experts = self.force.to(x.device)
+                logits = x.float() @ router
+                gates = self.torch.softmax(logits.gather(1, experts), dim=-1).to(x.dtype)
+            self.routes.append(experts.detach())
+            return gates, experts
+
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self.real
+
+
+def train_shard_part(torch, spec: dict, part: str, mesh) -> dict:
+    """Phase 20 (b) or (c) on this rank: the gradient gate's sharded
+    gradient (and for (b) the mutant's) gathered to rank 0, the steps with
+    their launches, collectives and replica digests, (b)'s resume; then, on
+    rank 0 alone with every trainer freed, the unsharded bf16 port and the
+    fp32 plain model on the gate's microbatch.  Returns this rank's report."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import train_loop as T
+
+    t_part = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, layers = SHARD_TRAIN_MODELS[part]
+    cfg = replace(get_config(arch), n_layers=layers)
+    root = mesh.rank == 0
+    ocfg = AdamWConfig(schedule="wsd", lr=LEARN_LR, total_steps=SHARD_TRAIN_STEPS,
+                       warmup_steps=1)
+    dcfg = DataConfig(seq_len=SHARD_TRAIN_SEQ, global_batch=SHARD_TRAIN_BATCH, vocab=cfg.vocab,
+                      seed=SEED + 20)
+    ckpt = Path(spec["tmp"]) / part
+    tcfg = TrainerConfig(ckpt_dir=str(ckpt), accum_steps=SHARD_TRAIN_ACCUM,
+                         ckpt_every=2 if part == "b" else 100)
+    rep: dict = {"rank": mesh.rank, "data": mesh.local_rank("data"),
+                 "model": mesh.local_rank("model")}
+
+    def all_ranks(obj):
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ocfg, dcfg, tcfg, seed=SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    specs = tr._ctx.specs
+    rep["build_s"] = time.perf_counter() - t0
+    rep["local_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(tr.params)) / 1e9
+    rep["local_params"] = sum(t.numel() for t in tree_leaves(tr.params))
+    # the gradient gate: the first microbatch (global rows 0-1), one row a DP rank
+    raw = tr.data.batch_at(0)
+    micro = {k: torch.from_numpy(v[:SHARD_TRAIN_BATCH // SHARD_TRAIN_ACCUM]).cuda()
+             for k, v in raw.items()}
+    grads_of = T.make_grads(cfg, 1, mesh)
+    t0 = time.perf_counter()
+    with RouteRecorder(torch) as rr, DpSumRecorder(torch, SH) as dp_sum:
+        loss, grads = grads_of(tr.params, micro)
+    torch.cuda.synchronize()
+    rep["gate_s"] = time.perf_counter() - t0
+    dp_sums = {"sharded": all_ranks((rep["data"], rep["model"], dp_sum.calls))}
+    n_moe = sum(cfg.layer_is_moe(l) for l in range(cfg.n_layers))
+    routes = all_ranks([r.cpu() for r in rr.routes[:n_moe]] if rep["model"] == 0 else None)
+    gathered = {"sharded": SH.gather_to_root(tree_unflatten(tr.params, list(grads)), specs,
+                                             mesh)}
+    rep["gate_loss"] = float(loss)
+    del grads
+    if part == "b":  # the mutant: *f* without its backward all-reduce
+        real = SH.column_entry
+        SH.column_entry = lambda x, group: x
+        try:
+            _, grads = grads_of(tr.params, micro)
+        finally:
+            SH.column_entry = real
+        gathered["mutant"] = SH.gather_to_root(tree_unflatten(tr.params, list(grads)), specs,
+                                               mesh)
+        del grads
+        # the mutant of the data-parallel sum: made in bf16
+        with DpSumRecorder(torch, SH, bf16=True) as dp_sum:
+            _, grads = grads_of(tr.params, micro)
+        dp_sums["dp mutant"] = all_ranks((rep["data"], rep["model"], dp_sum.calls))
+        gathered["dp mutant"] = SH.gather_to_root(tree_unflatten(tr.params, list(grads)),
+                                                  specs, mesh)
+        del grads
+    rep["dp_sum_exact"] = {k: dp_sum_exact(torch, v) for k, v in dp_sums.items()}
+    del dp_sums
+    torch.cuda.empty_cache()
+    # the steps: the main path, every count from 0
+    saved, real_save = {}, tr.save
+
+    def timed_save():
+        t0 = time.perf_counter()
+        real_save()
+        saved["s"] = time.perf_counter() - t0
+
+    tr.save = timed_save
+    reset_train_counts()
+    SH.COLLECTIVES.clear()
+    steps = []
+    with TrainCollectiveClock(torch, SH, dist) as clock:
+        for s in range(SHARD_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+            digest = param_digest(torch, tr.params)
+            rec = dict(tr.history[-1], host_ms=host * 1e3, save_s=saved.pop("s", 0.0))
+            replicas: dict = {}
+            for m, d in all_ranks((rep["model"], digest)):  # a model coordinate's replicas
+                replicas.setdefault(m, []).append(d)
+            rec["replicas_identical"] = all(d == ds[0] for ds in replicas.values() for d in ds)
+            steps.append(rec)
+    del tr.save, timed_save, real_save  # no cycle keeps the trainer alive
+    rep["steps"] = steps
+    rep["counts"] = train_counts()
+    rep["collective_ms"] = dict(clock.ms)
+    rep["collectives"] = {k: dict(v) for k, v in SH.COLLECTIVES.items()}
+    rep["final_digest"] = digest
+    rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if part == "b":  # step 3 again from step 2's checkpoint, in a fresh Trainer
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fresh = Trainer(cfg, ocfg, dcfg, tcfg, seed=SEED, mesh=mesh)
+        restored = fresh.try_restore()
+        torch.cuda.synchronize()
+        rep["restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.run(1)  # without the collectives' clock
+        torch.cuda.synchronize()
+        rep["resume"] = dict(restored=restored, step=fresh.step, loss=fresh.history[-1]["loss"],
+                             host_ms=(time.perf_counter() - t0) * 1e3,
+                             identical=param_digest(torch, fresh.params) == digest)
+        tr = fresh
+        del fresh
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if root:
+        rep["gate"] = shard_train_references(torch, cfg, micro, gathered, routes, n_moe)
+    del gathered
+    gc.collect()
+    dist.barrier()
+    rep["seconds"] = time.perf_counter() - t_part
+    return rep
+
+
+def unsharded_by_row(torch, cfg, params, micro: dict, rows, n_moe: int) -> list:
+    """The unsharded bf16 port's gradient of the microbatch taken a row at a
+    time and summed in fp32 (then divided): the roundings of the
+    data-parallel split, whose ranks each round their row's gradient to the
+    model's type before the fp32 sum.  An MoE layer takes the sharded run's
+    experts, the whole microbatch's capacity and each row's queues after
+    the rows before it, as the data-parallel ranks route."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_loop as T
+
+    n = micro["tokens"].shape[0]
+    real_cap, real_dispatch = L.moe_capacity, L.moe_dispatch
+    acc, base = None, None
+    try:
+        L.moe_capacity = lambda c, t: real_cap(c, t * n)
+        for j in range(n):
+            if n_moe:
+                L.moe_dispatch = lambda e, ne, c, _b=None, base=base: real_dispatch(e, ne, c, base)
+            row = {k: v[j:j + 1] for k, v in micro.items()}
+            with RouteRecorder(torch, force=rows[j][0] if n_moe else None):
+                _, g = T.make_grads(cfg, 1)(params, row)
+            acc = [x.float() for x in g] if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+            del g
+            if n_moe:
+                done = torch.bincount(rows[j][0].reshape(-1).to(acc[0].device),
+                                      minlength=cfg.n_experts)
+                base = done if base is None else base + done
+    finally:
+        L.moe_capacity, L.moe_dispatch = real_cap, real_dispatch
+    return [a.div_(n) for a in acc]
+
+
+def shard_train_references(torch, cfg, micro: dict, gathered: dict, routes, n_moe: int) -> dict:
+    """On rank 0, every trainer freed: the unsharded bf16 port's gradient
+    of the gate's microbatch (whole, and a row at a time) and the fp32 plain
+    model's (all on the sharded run's expert choices, the plain model's
+    queues over the whole microbatch), and every gradient's relative L2 from
+    the plain one, per tensor and over all, on the card."""
+    from repro_torch.models import model as M
+    from repro_torch.models import plain
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.train import train_loop as T
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    rows = [r for r in routes if r is not None]  # one list a data rank, in rank order
+    force = torch.cat([r[0] for r in rows]) if n_moe else None
+    if n_moe > 1:
+        raise AssertionError("phase 20 forces one MoE layer's routing")
+    t0 = time.perf_counter()
+    with RouteRecorder(torch, force=force):
+        loss_u, grads = T.make_grads(cfg, 1)(params, micro)
+    names = [n for n, _ in _named_leaves(params)]
+    out = {"unsharded": list(grads)}  # kept on the card: rank 0 is alone there now
+    del grads
+    out["unsharded by row"] = unsharded_by_row(torch, cfg, params, micro, rows, n_moe)
+    p32 = [t.detach().float().requires_grad_() for t in tree_leaves(params)]
+    tree32 = tree_unflatten(params, p32)
+    del params
+    torch.cuda.empty_cache()
+    s = micro["tokens"].shape[1]
+    total = micro["tokens"].numel()
+    loss32, grads32, queued = 0.0, None, None
+    for j in range(micro["tokens"].shape[0]):
+        kw = {}
+        if n_moe:
+            kw = dict(routing=[rows[j][0]], moe_groups=[(0, s, total)],
+                      moe_queued=queued)
+        logits = plain.forward(cfg, tree32, micro["tokens"][j], **kw)
+        lj = T.cross_entropy(logits[None], micro["labels"][j:j + 1]) / micro["tokens"].shape[0]
+        del logits
+        g = torch.autograd.grad(lj, p32)
+        grads32 = list(g) if grads32 is None else [a + b for a, b in zip(grads32, g)]
+        loss32 += float(lj.detach())
+        if n_moe:
+            done = torch.bincount(rows[j][0].reshape(-1).cuda(), minlength=cfg.n_experts)
+            queued = [done if queued is None else queued[0] + done]
+        del g
+    want = grads32
+    del p32, tree32
+    torch.cuda.empty_cache()
+
+    def rel(pairs) -> float:
+        num = den = 0.0
+        for got, ref in pairs:
+            num += float((got.to(ref.device).float() - ref).norm()) ** 2
+            den += float(ref.norm()) ** 2
+        return math.sqrt(num / max(den, 1e-60))
+
+    res = dict(loss_plain=loss32, loss_unsharded=float(loss_u), seconds=time.perf_counter() - t0)
+    for name in [n for n in ("sharded", "mutant", "dp mutant") if n in gathered] + list(out):
+        got = out[name] if name in out else tree_leaves(gathered[name])
+        res[name] = dict(per_tensor={n: rel([(g, w)]) for n, g, w in zip(names, got, want)},
+                         global_rel_l2=rel(zip(got, want)))
+    return res
+
+
+def train_shard_world(spec: dict) -> list:
+    """Phase 20 on one rank of the world sharing the card: (b), then (c).
+    Returns every rank's report (gathered to each)."""
+    import os
+
+    # four processes share the card: a rank's freed blocks are returned in
+    # place rather than held in fixed segments its neighbours cannot use
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(spec["shape"], ("data", "model"), device="cuda")
+    report = {part: train_shard_part(torch, spec, part, mesh) for part in ("b", "c")}
+    reports = [None] * dist.get_world_size()
+    dist.all_gather_object(reports, report)
+    return reports
+
+
+def coll_bytes(collectives: dict) -> str:
+    return ", ".join(f"{k} {v['bytes'] / 1e9:.3f} GB in {v['calls']}"
+                     for k, v in sorted(collectives.items()))
+
+
+def check_sharded_training(torch, part: str, reports: list, smi: str) -> dict:
+    """Phase 20's gates on the ranks' reports of (b) or (c); logs them.
+    Returns the record, its ``failures`` listed (the caller raises after
+    both parts are logged)."""
+    failures = []
+    arch, layers = SHARD_TRAIN_MODELS[part]
+    reps = [r[part] for r in reports]
+    gate = reps[0]["gate"]
+    want_k6 = part == "c"
+    for r in reps:
+        c, steps = r["counts"], r["steps"]
+        host = [s["host_ms"] for s in steps]
+        net = sorted(s["host_ms"] - s["save_s"] * 1e3 for s in steps)
+        coll = r["collective_ms"]
+        tokens = SHARD_TRAIN_BATCH // SHARD_TRAIN_SHAPE[0] * SHARD_TRAIN_SEQ
+        log(f"    ({part}) rank {r['rank']} (data {r['data']}, model {r['model']}): "
+            f"{r['local_params'] / 1e9:.3f} B parameters, {r['local_gb']:.2f} GB, built in "
+            f"{r['build_s']:.1f} s, the gate's gradient {r['gate_s']:.1f} s, peak "
+            f"{r['peak_gb']:.2f} GB; losses "
+            + " ".join(f"{s['loss']:.4f}" for s in steps)
+            + f"; host ms a step {' '.join(f'{x:.0f}' for x in host)} (the checkpoint's save "
+            f"{sum(s['save_s'] for s in steps):.1f} s within) "
+            f"({tokens / (net[len(net) // 2] / 1e3):.0f} tokens/s a rank, the save out); "
+            "collective "
+            f"ms over the steps: {', '.join(f'{k} {v:.0f}' for k, v in sorted(coll.items()))}; "
+            f"bytes: {coll_bytes(r['collectives'])}; "
+            f"launches K4 {c['K4']}, K4-bwd {c['K4-bwd']} {c['K4-bwd kernels']}, K5 "
+            f"{c['K5 kernels']}, K5-bwd {c['K5-bwd']} {c['K5-bwd kernels']}, K6 {c['K6']}, "
+            f"K6-bwd {c['K6-bwd']}; plain {c['plain']}")
+        need = ["K4", "K4-bwd", "K5", "K5-bwd"] + (["K6", "K6-bwd"] if want_k6 else [])
+        if any(c[k] <= 0 for k in need) or any(c["plain"].values()):
+            failures.append(f"phase 20 ({part}) rank {r['rank']}: launches {c}")
+        if not all(s["replicas_identical"] for s in steps):
+            failures.append(f"phase 20 ({part}): the data-parallel replicas' parameters "
+                                 f"differ after a step: {[s['replicas_identical'] for s in steps]}")
+        if any(s["skipped"] or not math.isfinite(s["loss"]) for s in steps):
+            failures.append(f"phase 20 ({part}): steps {steps}")
+    losses = [[s["loss"] for s in r["steps"]] for r in reps]
+    if any(x != losses[0] for x in losses):
+        failures.append(f"phase 20 ({part}): the ranks report other losses: {losses}")
+    sh, un, whole = gate["sharded"], gate["unsharded by row"], gate["unsharded"]
+    worst = sorted(((e, n) for n, e in sh["per_tensor"].items()), reverse=True)[:5]
+    loss_err = abs(reps[0]["gate_loss"] - gate["loss_plain"]) / abs(gate["loss_plain"])
+    log(f"    ({part}) gradient gate, {arch} ({layers} layers), the first microbatch "
+        f"({SHARD_TRAIN_BATCH // SHARD_TRAIN_ACCUM} x {SHARD_TRAIN_SEQ}): loss "
+        f"{reps[0]['gate_loss']:.6f} sharded, {gate['loss_unsharded']:.6f} unsharded, "
+        f"{gate['loss_plain']:.6f} fp32 plain (relative {loss_err:.3e}, limit {TRAIN_LOSS_REL}); "
+        f"gradient relative L2 from fp32 plain: sharded {sh['global_rel_l2']:.4e}, unsharded "
+        f"bf16 a row at a time {un['global_rel_l2']:.4e} (ratio "
+        f"{sh['global_rel_l2'] / un['global_rel_l2']:.3f}, limit {SHARD_PLAIN_RATIO}), unsharded "
+        f"bf16 on the whole microbatch {whole['global_rel_l2']:.4e} (ratio "
+        f"{sh['global_rel_l2'] / whole['global_rel_l2']:.3f}, limit {SHARD_WHOLE_RATIO}); the "
+        f"data-parallel sum {'exact' if reps[0]['dp_sum_exact']['sharded'] else 'NOT EXACT'} "
+        f"in fp32 (every {DP_SUM_STRIDE}th element); worst tensors "
+        + ", ".join(f"{n} {e:.3e} (unsharded by row {un['per_tensor'][n]:.3e}, whole "
+                    f"{whole['per_tensor'][n]:.3e})" for e, n in worst)
+        + f"; references {gate['seconds']:.1f} s on rank 0")
+
+    def beyond(g) -> list:
+        """The gradient gate's tensors beyond the limit and ratios missed."""
+        out = [n for n, e in g["per_tensor"].items() if not e <= TRAIN_GRAD_REL_L2]
+        if not g["global_rel_l2"] <= SHARD_PLAIN_RATIO * un["global_rel_l2"]:
+            out.append("ratio by row")
+        if not g["global_rel_l2"] <= SHARD_WHOLE_RATIO * whole["global_rel_l2"]:
+            out.append("ratio whole")
+        return out
+
+    bad = beyond(sh)
+    if loss_err > TRAIN_LOSS_REL or bad or not reps[0]["dp_sum_exact"]["sharded"]:
+        failures.append(f"phase 20 ({part}): loss {loss_err:.3e}, gradient gate failed by "
+                        f"{bad}, global {sh['global_rel_l2']:.4e} vs unsharded by row "
+                        f"{un['global_rel_l2']:.4e}, whole {whole['global_rel_l2']:.4e}; "
+                        f"data-parallel sum exact: {reps[0]['dp_sum_exact']}")
+    out = dict(gate_loss=reps[0]["gate_loss"], loss_plain=gate["loss_plain"],
+               loss_unsharded=gate["loss_unsharded"], loss_rel=loss_err,
+               sharded_rel_l2=sh["global_rel_l2"], unsharded_by_row_rel_l2=un["global_rel_l2"],
+               unsharded_rel_l2=whole["global_rel_l2"],
+               dp_sum_exact=reps[0]["dp_sum_exact"]["sharded"],
+               worst_tensors=[(n, e, un["per_tensor"][n], whole["per_tensor"][n])
+                              for e, n in worst],
+               losses=losses[0], seconds=max(r["seconds"] for r in reps))
+    if "mutant" in gate:
+        mu = gate["mutant"]
+        mbad = sorted(((e, n) for n, e in mu["per_tensor"].items() if not e <= TRAIN_GRAD_REL_L2),
+                      reverse=True)
+        caught = bool(beyond(mu))
+        log(f"    ({part}) mutant (column-parallel entry without its backward all-reduce): "
+            f"global {mu['global_rel_l2']:.4e}, {len(mbad)} tensors beyond {TRAIN_GRAD_REL_L2} "
+            f"(worst {', '.join(f'{n} {e:.3e}' for e, n in mbad[:3])}): "
+            f"{'caught' if caught else 'NOT CAUGHT'}")
+        if not caught:
+            failures.append(f"phase 20 ({part}): the mutant passed the gradient gate")
+        dm = gate["dp mutant"]
+        dm_exact = reps[0]["dp_sum_exact"]["dp mutant"]
+        log(f"    ({part}) mutant (the data-parallel sum in bf16): global {dm['global_rel_l2']:.4e}"
+            f" (ratio by row {dm['global_rel_l2'] / un['global_rel_l2']:.3f}, whole "
+            f"{dm['global_rel_l2'] / whole['global_rel_l2']:.3f}; the gradient gate "
+            f"{'fails it by ' + str(beyond(dm)) if beyond(dm) else 'passes it'}); the sum's "
+            f"check: {'NOT CAUGHT' if dm_exact else 'caught'}")
+        if dm_exact:
+            failures.append(f"phase 20 ({part}): the bf16 data-parallel sum passed its check")
+        out.update(mutant_rel_l2=mu["global_rel_l2"], mutant_tensors_beyond=len(mbad),
+                   dp_mutant_rel_l2=dm["global_rel_l2"], dp_mutant_gate=beyond(dm),
+                   dp_mutant_caught=not dm_exact)
+    if "resume" in reps[0]:
+        res = [r["resume"] for r in reps]
+        unclocked = " ".join(f"{x['host_ms']:.0f}" for x in res)
+        clocked = " ".join(f"{r['steps'][-1]['host_ms']:.0f}" for r in reps)
+        log(f"    ({part}) step {SHARD_TRAIN_STEPS} again in a fresh Trainer from step 2's "
+            f"checkpoint (restored in {max(r['restore_s'] for r in reps):.1f} s): loss "
+            f"{res[0]['loss']:.6f}, host ms without the collectives' clock {unclocked} (step "
+            f"{SHARD_TRAIN_STEPS} with it: {clocked}); parameters "
+            f"{'bit-identical' if all(x['identical'] for x in res) else 'DIFFER'} on every rank")
+        if not all(x["restored"] and x["step"] == SHARD_TRAIN_STEPS and x["identical"]
+                   and x["loss"] == losses[0][-1] for x in res):
+            failures.append(f"phase 20 ({part}): the resumed step differs: {res}")
+        out["resume"] = res[0]
+    out["launches"] = {f"rank {r['rank']}": {k: r["counts"][k] for k in
+                                             ("K4", "K4-bwd", "K5", "K5-bwd", "K6", "K6-bwd")}
+                       for r in reps}
+    out["ranks"] = [{k: r[k] for k in ("rank", "data", "model", "local_gb", "peak_gb",
+                                       "build_s", "collective_ms", "collectives")}
+                    | {"host_ms": [s["host_ms"] for s in r["steps"]]} for r in reps]
+    log(f"    ({SHARD_TRAIN_RANKS} ranks sharing one card, collectives on gloo through the "
+        f"host: not a scaling figure; {smi})")
+    out["failures"] = failures
+    return out
+
+
+def sharded_train_phase(torch, smi: str) -> dict:
+    """Phase 20: (b) and (c) in one world of SHARD_TRAIN_RANKS ranks."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        reports = run_world(SHARD_TRAIN_RANKS, train_shard_world,
+                            (dict(shape=SHARD_TRAIN_SHAPE, tmp=tmp),),
+                            timeout_s=SHARD_WORLD_TIMEOUT_S)
+    out = {"card": smi}
+    for part in ("b", "c"):
+        arch, layers = SHARD_TRAIN_MODELS[part]
+        log(f"  ({part}) {arch} cut to {layers} layers (every width) on mesh (data "
+            f"{SHARD_TRAIN_SHAPE[0]}, model {SHARD_TRAIN_SHAPE[1]}), {SHARD_TRAIN_STEPS} steps of "
+            f"{SHARD_TRAIN_BATCH} x {SHARD_TRAIN_SEQ} in {SHARD_TRAIN_ACCUM} microbatches")
+        out[part] = check_sharded_training(torch, part, reports, smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['seconds']:.1f} s")
+    failures = out["b"]["failures"] + out["c"]["failures"]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def check_k6_paths(phase: str, paths: GmmPaths, decode_c: int, min_c: int) -> dict:
     """Fail unless the decode step (C = ``decode_c``) and every other launch
     below C = ``min_c`` (the warm-up, the short buckets) launched only the
@@ -5756,10 +6391,27 @@ def serve_shard_only(torch, smi: str) -> int:
     return 0
 
 
+def train_shard_only(torch, smi: str) -> int:
+    """``--train-shard SRC``: phase 20 alone with the package under SRC;
+    prints its record as one JSON line and the card's name and power
+    limit."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(build.cuda_library, ["gemm", "rmsnorm", "flash_attention", "moe_gmm"]))
+    log(f"training with {build.__file__}; built in {time.perf_counter() - t0:.1f} s")
+    out = sharded_train_phase(torch, smi)
+    print(json.dumps(out, default=str), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and (len(argv) != 2 or argv[0] not in ("--k2", "--serve-shard")):
-        print(f"usage: {Path(__file__).name} [--k2 SRC | --serve-shard SRC]", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] not in ("--k2", "--serve-shard", "--train-shard")):
+        print(f"usage: {Path(__file__).name} [--k2 SRC | --serve-shard SRC | --train-shard SRC]",
+              file=sys.stderr)
         return 2
     src = Path(argv[1]).resolve() if argv else HERE / "src"
     try:
@@ -5778,7 +6430,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv:
-        return (k2_only if argv[0] == "--k2" else serve_shard_only)(torch, nvidia_smi())
+        return {"--k2": k2_only, "--serve-shard": serve_shard_only,
+                "--train-shard": train_shard_only}[argv[0]](torch, nvidia_smi())
 
     from repro_torch.configs import get_config
     from repro_torch.core import codegen
@@ -5791,10 +6444,10 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.models import model as M
 
     smi = nvidia_smi()
-    log(f"phase 1: device {torch.cuda.get_device_name(0)} "
-        f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}")
+    start_phase(f"phase 1: device {torch.cuda.get_device_name(0)} "
+                f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}")
 
-    log("phase 2: build (one nvcc per source, all at once)")
+    start_phase("phase 2: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
     sources = {"gemm": "K1", "rmsnorm": "K4", "flash_attention": "K5", "moe_gmm": "K6"}
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -5808,7 +6461,7 @@ def main(argv: list[str] | None = None) -> int:
                 log(f"    ptxas: {line.strip()}")
 
     results: dict[str, dict] = {}
-    log("phase 3: kernels against their plain versions")
+    start_phase("phase 3: kernels against their plain versions")
     check_gemm(torch, results)
     check_nest_kernel(torch, results)
     check_rmsnorm(torch, results)
@@ -5834,7 +6487,7 @@ def main(argv: list[str] | None = None) -> int:
     flat_runs = nkm.FLAT["pallas_nest"]
     routed = dict(codegen.ROUTED)
 
-    log("phase 6: counts over phases 4-5")
+    start_phase("phase 6: counts over phases 4-5")
     log(f"  launches: K1 gemm {launches['gemm']}, K2 nest {launches['pallas_nest']} "
         f"({flat_runs} of them flattened), K3 reduce {launches['pallas_reduce']} "
         f"({split_runs} of them split)")
@@ -5852,9 +6505,10 @@ def main(argv: list[str] | None = None) -> int:
         raise AssertionError("phase 4's LARGE programs handed K1 no fp32 product")
     results["gemm"]["main_path_shapes"] = check_gemm_main_shapes(torch, gemm_shapes)
 
-    log(f"phase 18: the sharded Daisy path: (a) a mesh of one; (b) {SHARD_RANKS} ranks on the "
-        f"card: CLOUDSC column-sharded at {KLEV} x {NPROMA} through compile_scheme and "
-        "Daisy (K2), PolyBench LARGE gemm (K1), bicg and atax (K3, + all-reduce)")
+    start_phase(f"phase 18: the sharded Daisy path: (a) a mesh of one; (b) {SHARD_RANKS} "
+                f"ranks on the "
+                f"card: CLOUDSC column-sharded at {KLEV} x {NPROMA} through compile_scheme and "
+                "Daisy (K2), PolyBench LARGE gemm (K1), bicg and atax (K3, + all-reduce)")
     sharded = shard_phase(torch, smi, phase5)
     del phase5
     for key, name in (("gemm", "K1"), ("pallas_nest", "K2"), ("pallas_reduce", "K3")):
@@ -5881,7 +6535,7 @@ def main(argv: list[str] | None = None) -> int:
         for k in nkm.EMITTED:
             nkm.EMITTED[k] = 0
 
-    log(f"phase 7: main path, serving {DANUBE} at full width through ServingEngine")
+    start_phase(f"phase 7: main path, serving {DANUBE} at full width through ServingEngine")
     reset_counts()
     with PrefillPaths(M, kf) as prefill_paths:
         served = serve_path(torch, smi, get_config(DANUBE),
@@ -5902,7 +6556,8 @@ def main(argv: list[str] | None = None) -> int:
     phase7 = dict(scfg=served["scfg"], prompts=served["prompts"], tokens=served["tokens"],
                   digests=served["stats"]["logit_digests"], watched=WATCHED)
 
-    log(f"phase 8: main path, forward of {DANUBE} on 8192 tokens (window {served['cfg'].window})")
+    start_phase(f"phase 8: main path, forward of {DANUBE} on 8192 tokens (window "
+                f"{served['cfg'].window})")
     reset_counts()
     forward_path(torch, served["cfg"], served["params"])
     torch.cuda.synchronize()
@@ -5918,8 +6573,9 @@ def main(argv: list[str] | None = None) -> int:
                              f"{fwd_launches['k5']}")
     k5_paths["forward"] = fwd_launches["k5"]
 
-    log(f"phase 15: online tuning inside serving on {DANUBE} (phase 7's weights): the logit "
-        "program on K2 in every decode step, the online loop (sync, then on a thread), faults")
+    start_phase(f"phase 15: online tuning inside serving on {DANUBE} (phase 7's weights): "
+                f"the logit "
+                "program on K2 in every decode step, the online loop (sync, then on a thread), faults")
     reset_counts()
     online = online_phase(torch, smi, served["cfg"], served["params"])
     del served
@@ -5927,9 +6583,10 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
 
     mcfg = replace(get_config(MIXTRAL), n_layers=MIXTRAL_LAYERS)
-    log(f"phase 9: main path, serving {MIXTRAL} cut in depth to {MIXTRAL_LAYERS} of 32 layers "
-        f"(every width, all {mcfg.n_experts} experts, top-{mcfg.top_k}: one stage of a two-stage "
-        f"pipeline over two H100s) through ServingEngine")
+    start_phase(f"phase 9: main path, serving {MIXTRAL} cut in depth to {MIXTRAL_LAYERS} of "
+                f"32 layers "
+                f"(every width, all {mcfg.n_experts} experts, top-{mcfg.top_k}: one stage of a two-stage "
+                f"pipeline over two H100s) through ServingEngine")
     torch.cuda.reset_peak_memory_stats()
     mparams = seeded_params(torch, mcfg)
     reset_counts()
@@ -5962,19 +6619,21 @@ def main(argv: list[str] | None = None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 10: seeding and transfer on the card (the tune CLI, then Daisy.pretuned())")
+    start_phase("phase 10: seeding and transfer on the card (the tune CLI, then Daisy.pretuned())")
     seeding_path(torch, nkm, codegen, bench_times)
 
     families = {}
-    log(f"phase 11: main path, {LLAVA} at full width (vlm): ServingEngine (text-only, as the "
-        f"reference serves it), forward with {LLAVA_TEXT} tokens after the patch positions, "
-        "ops.matmul (K1)")
+    start_phase(f"phase 11: main path, {LLAVA} at full width (vlm): ServingEngine "
+                f"(text-only, as the "
+                f"reference serves it), forward with {LLAVA_TEXT} tokens after the patch positions, "
+                "ops.matmul (K1)")
     families["11"] = family_phase(torch, smi, 11, LLAVA, slots=8, max_len=4096,
                                   prompt_lens=(128, 2048), n_text=LLAVA_TEXT, bucket=2048,
                                   reset_counts=reset_counts, model_counts=model_counts)
-    log(f"phase 12: main path, {SEAMLESS} at full width (audio): ServingEngine (the encoder "
-        f"over zero frames per request, as the reference's stub), forward with {SEAMLESS_TEXT} "
-        "tokens over 4096 seeded frames")
+    start_phase(f"phase 12: main path, {SEAMLESS} at full width (audio): ServingEngine (the "
+                f"encoder "
+                f"over zero frames per request, as the reference's stub), forward with {SEAMLESS_TEXT} "
+                "tokens over 4096 seeded frames")
     families["12"] = family_phase(torch, smi, 12, SEAMLESS, slots=8, max_len=2048,
                                   prompt_lens=(16, 512), n_text=SEAMLESS_TEXT, bucket=512,
                                   reset_counts=reset_counts, model_counts=model_counts)
@@ -6005,14 +6664,15 @@ def main(argv: list[str] | None = None) -> int:
 
     recurrent = {}
     jcfg = replace(get_config(JAMBA), n_layers=JAMBA_LAYERS)
-    log(f"phase 13: main path, {JAMBA} (hybrid) cut in depth to its first {JAMBA_LAYERS} of 72 "
-        f"layers (every width, all {jcfg.n_experts} experts, top-{jcfg.top_k}: the first stage "
-        f"of an 18-stage pipeline): ServingEngine (exact-length prefill), forward on "
-        f"{RECURRENT_TEXT} tokens")
+    start_phase(f"phase 13: main path, {JAMBA} (hybrid) cut in depth to its first "
+                f"{JAMBA_LAYERS} of 72 "
+                f"layers (every width, all {jcfg.n_experts} experts, top-{jcfg.top_k}: the first stage "
+                f"of an 18-stage pipeline): ServingEngine (exact-length prefill), forward on "
+                f"{RECURRENT_TEXT} tokens")
     recurrent["13"] = recurrent_phase(torch, smi, 13, jcfg, bucket=2048,
                                       reset_counts=reset_counts, model_counts=model_counts)
-    log(f"phase 14: main path, {XLSTM} (ssm) whole: ServingEngine (exact-length prefill), "
-        f"forward on {RECURRENT_TEXT} tokens")
+    start_phase(f"phase 14: main path, {XLSTM} (ssm) whole: ServingEngine (exact-length prefill), "
+                f"forward on {RECURRENT_TEXT} tokens")
     recurrent["14"] = recurrent_phase(torch, smi, 14, get_config(XLSTM), bucket=512,
                                       reset_counts=reset_counts, model_counts=model_counts,
                                       fp32_gate=True)
@@ -6033,8 +6693,8 @@ def main(argv: list[str] | None = None) -> int:
     del recurrent
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 16: training {MINICPM} whole (40 layers, every width) through "
-        "repro_torch.train.Trainer on K4/K5 and their backward kernels")
+    start_phase(f"phase 16: training {MINICPM} whole (40 layers, every width) through "
+                "repro_torch.train.Trainer on K4/K5 and their backward kernels")
     training = training_phase(torch, smi)
     results.update(training["rows"])
     trained = training["train"]["launches"]
@@ -6045,8 +6705,9 @@ def main(argv: list[str] | None = None) -> int:
     results["flash_attention_bwd"]["phase_16"] = {k: v for k, v in training.items()
                                                   if k != "rows"}
 
-    log(f"phase 17: MoE and recurrent training: K6-bwd; {MIXTRAL} cut to {MOE_TRAIN_LAYERS} of "
-        f"32 layers (every width, all 8 experts) through Trainer; the {JAMBA} cut and {XLSTM}")
+    start_phase(f"phase 17: MoE and recurrent training: K6-bwd; {MIXTRAL} cut to "
+                f"{MOE_TRAIN_LAYERS} of "
+                f"32 layers (every width, all 8 experts) through Trainer; the {JAMBA} cut and {XLSTM}")
     moe_training = moe_training_phase(torch, smi)
     results["grouped_matmul_bwd"] = moe_training["row"]
     trained = moe_training["train"]["launches"]
@@ -6060,10 +6721,10 @@ def main(argv: list[str] | None = None) -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 19: sharded serving: (a) {DANUBE} on a mesh of one against phase 7; (b) "
-        f"{DANUBE} whole on mesh (data {SHARD_SERVE_SHAPE[0]}, model {SHARD_SERVE_SHAPE[1]}), "
-        f"{SHARD_SERVE_RANKS} ranks sharing the card; (c) {MIXTRAL} cut to {SHARD_MOE_LAYERS} "
-        f"layers under expert parallelism, {SHARD_MOE_RANKS} ranks (collectives on gloo)")
+    start_phase(f"phase 19: sharded serving: (a) {DANUBE} on a mesh of one against phase 7; (b) "
+                f"{DANUBE} whole on mesh (data {SHARD_SERVE_SHAPE[0]}, model {SHARD_SERVE_SHAPE[1]}), "
+                f"{SHARD_SERVE_RANKS} ranks sharing the card; (c) {MIXTRAL} cut to {SHARD_MOE_LAYERS} "
+                f"layers under expert parallelism, {SHARD_MOE_RANKS} ranks (collectives on gloo)")
     sharded_serve = sharded_serve_phase(torch, smi, phase7)
     for part in ("b", "c"):
         for r in sharded_serve[part]["reports"]:
@@ -6080,6 +6741,25 @@ def main(argv: list[str] | None = None) -> int:
     results["flash_attention"]["phase_19"] = {
         k: ({kk: vv for kk, vv in v.items() if kk != "reports"} if isinstance(v, dict) else v)
         for k, v in sharded_serve.items()}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_phase(f"phase 20: sharded training, {SHARD_TRAIN_RANKS} ranks sharing the card on "
+                f"mesh (data {SHARD_TRAIN_SHAPE[0]}, model {SHARD_TRAIN_SHAPE[1]}) through "
+                f"Trainer(mesh=): (b) {MINICPM} cut to {SHARD_TRAIN_MODELS['b'][1]} layers; (c) "
+                f"{MIXTRAL} cut to {SHARD_TRAIN_MODELS['c'][1]} layer under expert and data "
+                "parallelism (collectives on gloo)")
+    sharded_train = sharded_train_phase(torch, smi)
+    end_phase()
+    for part in ("b", "c"):
+        for who, n in sharded_train[part]["launches"].items():
+            for key, name in (("rmsnorm", "K4"), ("flash_attention", "K5"),
+                              ("grouped_matmul", "K6"), ("rmsnorm_bwd", "K4-bwd"),
+                              ("flash_attention_bwd", "K5-bwd"),
+                              ("grouped_matmul_bwd", "K6-bwd")):
+                if n[name]:
+                    results[key].setdefault("launches_phase_20", {})[f"({part}) {who}"] = n[name]
+    results["flash_attention_bwd"]["phase_20"] = sharded_train
 
     # the decode kernels' launches: phases 7 and 9 (K5), phase 9 (K6)
     launches["flash_attention_decode"] = (k5_paths["serving decode"]["decode"]
@@ -6104,6 +6784,7 @@ def main(argv: list[str] | None = None) -> int:
             row["logit_nest"] = online["k2"]
             row["online_phase_15"] = {k: v for k, v in online.items() if k != "k2"}
         kernels.append(row)
+    end_phase()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -8,9 +8,10 @@ gradient all-reduce.  A production mesh is built only over a world of
 exactly that size: it never shrinks to fit.
 
 A :class:`Mesh` names its axes and holds the size of each, this rank's
-process group along each, the global ranks laid out row-major over the
-shape, and the device this rank computes on.  The partition planner reads
-only the axis sizes (``mesh.shape``).  It is the port's own class and not
+process group along each (and along the data-parallel axes together, the
+gradient all-reduce's group, where there are two), the global ranks laid
+out row-major over the shape, and the device this rank computes on.  The
+partition planner reads only the axis sizes (``mesh.shape``).  It is the port's own class and not
 ``torch.distributed.device_mesh.DeviceMesh`` because a mesh of one needs no
 process group (``DeviceMesh`` starts one), and because its device and its
 collective backend are chosen apart: two ranks on one card compute on the
@@ -59,8 +60,12 @@ class Mesh:
         """The number of ranks along ``axis``."""
         return self.shape[axis]
 
-    def get_group(self, axis: str):
-        """This rank's process group along ``axis`` (None in a mesh of one)."""
+    def get_group(self, axis):
+        """This rank's process group along ``axis`` (None in a mesh of one),
+        or along several axes together (a tuple of names, the data-parallel
+        axes ``dp_axes`` included)."""
+        if isinstance(axis, tuple):
+            return self._groups[axis[0] if len(axis) == 1 else axis]
         return self._groups[axis]
 
     def local_rank(self, axis: str) -> int:
@@ -107,17 +112,24 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> Mesh:
     if n != world:
         raise ValueError(f"a mesh of shape {shape} needs {n} ranks; the world has {world}")
     grid = np.arange(n).reshape(shape)
-    groups: dict[str, Any] = {}
-    for d, ax in enumerate(axes):
-        groups[ax] = None
+    groups: dict[Any, Any] = {}
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    # one group per line of ranks along each axis, and along the DP axes
+    # together (the gradient all-reduce's group) where there are two
+    for along in [(ax,) for ax in axes] + ([dp] if len(dp) > 1 else []):
+        key = along[0] if len(along) == 1 else along
+        groups[key] = None
         if not live:
             continue
-        for line in np.moveaxis(grid, d, -1).reshape(-1, shape[d]):
+        inner = [axes.index(a) for a in along]
+        outer = [d for d in range(len(axes)) if d not in inner]
+        lines = np.transpose(grid, outer + inner).reshape(-1, math.prod(shape[d] for d in inner))
+        for line in lines:
             members = [int(r) for r in line]
             g = (dist.group.WORLD if len(members) == world
                  else dist.new_group(members, timeout=_world_timeout()))
             if rank in members:
-                groups[ax] = g
+                groups[key] = g
     return Mesh(shape, axes, _rank_device(device, rank), groups,
                 tuple(int(r) for r in grid.reshape(-1)), rank)
 

@@ -32,11 +32,23 @@ layer for ``hybrid`` and ``ssm``) where the reference's are ``(L, B, S, KV,
 Dh)``.
 
 ``shard_params`` is the counterpart of ``jax.device_put(params, specs)``:
-it cuts a full tree to this rank's local tree, and ``gather_params`` is its
-inverse.  The collectives the sharded model runs (``all_reduce_sum``,
+it cuts a full tree to this rank's local tree, and ``gather_to_root`` is
+its inverse on the first rank (each cut dim gathered over its own axes).
+The collectives the sharded model runs (``all_reduce_sum``,
 ``all_gather_cat``, ``argmax_sharded``) count their calls and bytes in
 ``COLLECTIVES``; a row-parallel partial sum is up-cast to fp32, reduced and
 rounded once.
+
+Under grad they are Megatron's pair (where the reference's pjit lets XLA
+transpose its collectives): ``all_reduce_sum`` is *g* (backward the
+identity), ``column_entry`` is *f* (forward the identity, backward the fp32
+sum of the input's gradient over ``model``), ``model_slice`` takes a
+row-parallel product's slice of a whole input (backward: the slices'
+gradients gathered) and ``all_gather_cat``'s backward takes this rank's
+part.  Their backward collectives count under their own names
+(``all_reduce_bwd``, ``all_gather_bwd``), the vocabulary-parallel loss's
+maximum under ``all_reduce_max`` and the data-parallel gradient sum
+(``reduce_gradients_``) under ``dp_all_reduce``.
 """
 from __future__ import annotations
 
@@ -340,32 +352,43 @@ def copy_tree(tree: Pytree) -> Pytree:
     return tree
 
 
-def gather_params(params: Pytree, specs: Pytree, mesh) -> Pytree:
-    """The full tree back from every rank's local tree (each rank gets it):
-    the inverse of ``shard_params``.  Every rank must call it."""
-
-    world = None if dist.get_world_size() == 1 else dist.group.WORLD
+@torch.no_grad()
+def gather_to_root(params: Pytree, specs: Pytree, mesh) -> Pytree | None:
+    """The full tree in the host memory of the mesh's first rank (None on
+    the others): the inverse of ``shard_params``.  Every rank must call it.
+    Only the ranks at coordinate 0 along the axes no spec cuts (the
+    data-parallel replicas, which hold the same values) take part: each cut
+    dim is gathered over the group of its axes alone, so no replica's copy
+    crosses the host twice."""
+    cut = {a for spec in leaf_specs(params, specs) for a in cut_axes(spec, mesh)}
+    if any(mesh.local_rank(a) != 0 for a in mesh.axis_names if a not in cut):
+        return None
+    root = mesh.rank == mesh.ranks[0]
 
     def full(path, leaf, _):
-        spec = _lookup(specs, path)
-        if all(shard_index(mesh, e)[0] == 1 for e in spec):
-            return leaf
-        parts = all_gather_cat(leaf[None], world, dim=0)  # one per global rank
-        out = leaf.new_empty([s * shard_index(mesh, e)[0] for s, e in zip(leaf.shape, spec)])
-        for r, part in enumerate(parts):
-            coords = np.unravel_index(mesh.ranks.index(r), tuple(mesh.shape.values()))
-            at = dict(zip(mesh.axis_names, (int(c) for c in coords)))
-            view = out
-            for d, e in enumerate(spec):
-                n, i = 1, 0
-                for a in _entry_axes(e):
-                    n, i = n * mesh.shape[a], i * mesh.shape[a] + at[a]
-                if n > 1:
-                    view = view.narrow(d, i * leaf.shape[d], leaf.shape[d])
-            view.copy_(part)
-        return out
+        out = leaf.detach().cpu()  # the shards cross to the host once, before the gather
+        for d, e in enumerate(_lookup(specs, path)):
+            if shard_index(mesh, e)[0] > 1:
+                out = all_gather_cat(out.contiguous(), mesh.get_group(tuple(_entry_axes(e))), d)
+        return out if root else None
 
-    return _walk(params, full)
+    tree = _walk(params, full)
+    return tree if root else None
+
+
+def leaf_specs(tree: Pytree, specs: Pytree, path: tuple = ()) -> list:
+    """The spec of each leaf of ``tree`` in ``optim.adamw.tree_leaves``
+    order (a dict's keys sorted)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in leaf_specs(tree[k], specs, path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [s for i, t in enumerate(tree) for s in leaf_specs(t, specs, path + (str(i),))]
+    return [_lookup(specs, "/".join(path))]
+
+
+def cut_axes(spec, mesh) -> tuple[str, ...]:
+    """The axes of more than one rank that ``spec`` cuts a dim over."""
+    return tuple(a for e in spec for a in _entry_axes(e) if mesh.shape[a] > 1)
 
 
 def _lookup(tree, path: str):
@@ -437,31 +460,135 @@ def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: the sum over ``group`` in fp32, rounded once.  Backward: the
+    identity (Megatron's *g*): what follows the sum is the same on every
+    rank, so each rank's gradient of the sum is already its partial's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        _count("all_reduce", y)
+        dist.all_reduce(y, group=group)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x``, accumulated in fp32 and rounded once
-    to ``x``'s type."""
+    to ``x``'s type; under grad, its backward is the identity (*g*)."""
     if _size(group) == 1:
         return x
-    y = x.float().contiguous() if x.dtype != torch.float32 else x.contiguous()
-    _count("all_reduce", y)
-    dist.all_reduce(y, group=group)
-    return y.to(x.dtype)
+    return _AllReduceSum.apply(x, group)
 
 
-def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order (bf16,
-    which gloo does not take, moves as its bytes)."""
-    n = _size(group)
-    if n == 1:
+class _ColumnEntry(torch.autograd.Function):
+    """Megatron's *f*: forward the identity; backward the sum of the
+    input's gradient over ``group`` in fp32, rounded once.  It stands where
+    an activation that is the same on every rank meets a weight whose output
+    dim is cut (or where each rank reads its own part of such an
+    activation): each rank's backward gives only its part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        _count("all_reduce_bwd", y)
+        dist.all_reduce(y, group=ctx.group)
+        return y.to(g.dtype), None
+
+
+def column_entry(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; under grad, its gradient is summed over ``group`` (*f*)."""
+    if _size(group) == 1:
         return x
+    return _ColumnEntry.apply(x, group)
+
+
+class _ModelSlice(torch.autograd.Function):
+    """This rank's ``k`` columns of an ``x`` that is the same on every rank
+    of ``group``; backward: the ranks' gradients gathered (each rank's
+    columns' gradient is complete)."""
+
+    @staticmethod
+    def forward(ctx, x, group, k: int):
+        ctx.group = group
+        r = dist.get_rank(group)
+        return x[..., r * k:(r + 1) * k]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.group, -1, "all_gather_bwd"), None, None
+
+
+def model_slice(x: torch.Tensor, group, k: int) -> torch.Tensor:
+    """``x[..., r*k:(r+1)*k]`` for this rank's coordinate r along ``group``
+    (a row-parallel product's slice of a whole ``x``)."""
+    if _size(group) == 1:
+        return x
+    return _ModelSlice.apply(x, group, k)
+
+
+def _gather(x: torch.Tensor, group, dim: int, op: str) -> torch.Tensor:
+    n = _size(group)
     y = x.contiguous()
     if y.dtype == torch.bfloat16:
         y = y.view(torch.uint8)  # the last dim doubles: each element's bytes stay together
     parts = [torch.empty_like(y) for _ in range(n)]
-    _count("all_gather", y)
+    _count(op, y)
     dist.all_gather(parts, y, group=group)
     out = torch.cat(parts, dim=dim)
     return out.view(torch.bfloat16) if x.dtype == torch.bfloat16 else out
+
+
+class _AllGatherCat(torch.autograd.Function):
+    """Forward: the ranks' ``x`` concatenated along ``dim``.  Backward: this
+    rank's part of the gradient (what follows is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.group, ctx.dim, ctx.k = group, dim, x.shape[dim]
+        return _gather(x, group, dim, "all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.k, ctx.k), None, None
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (bf16,
+    which gloo does not take, moves as its bytes); under grad, its backward
+    takes this rank's part."""
+    if _size(group) == 1:
+        return x
+    return _AllGatherCat.apply(x, group, dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over ``group`` (no gradient)."""
+    if _size(group) == 1:
+        return x
+    y = x.detach().clone()
+    _count("all_reduce_max", y)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+def reduce_gradients_(flat: torch.Tensor, group) -> torch.Tensor:
+    """The data-parallel gradient sum: ``flat`` (fp32, every gradient in
+    one buffer in a fixed order) summed over ``group`` in place."""
+    if _size(group) > 1:
+        _count("dp_all_reduce", flat)
+        dist.all_reduce(flat, group=group)
+    return flat
 
 
 def argmax_sharded(x: torch.Tensor, group, offset: int) -> torch.Tensor:

@@ -34,6 +34,21 @@ partial outputs are summed before the combine; K6 has rounded each
 partial to the model's type, so that path rounds twice.  Without a mesh
 the local shapes are the full ones and nothing is reduced.
 
+Under grad (sharded training) the same layers put Megatron's *f*
+(``sharding.column_entry``) where an input that is the same on every rank
+meets a column-parallel weight (q/k/v, the FFN's wg/wu, a vocabulary-cut
+head, the TP fallback's experts) and before the KV heads a rank keeps under
+the contracting-dim rule; a row-parallel product's slice gathers its
+gradient and its fp32 partial's backward runs ``x @ w``'s two bf16 GEMMs
+(``_MmF32``).  Under expert parallelism each rank's dispatch and combine
+see only its experts, so the tokens and gates enter them through *f* and
+the combine's fp32 sum over ``model`` is rounded once; the router's
+gradient is then the unsharded one on every rank.  Under ``global_batch``
+(``model.forward`` under a mesh) the MoE layers route the whole batch split
+over the data-parallel axes: capacity of the whole batch, each rank's
+tokens queued after the ranks before it (the experts' counts gathered), as
+the reference's pjit routes the global batch.
+
 KV caches are laid out ``(B, KV, S, Dh)`` — the reference's is
 ``(B, S, KV, Dh)`` — so that folding heads into K5's ``(B*KV, S, Dh)`` is a
 view and not a copy of the whole cache on every step.  Caches are updated
@@ -47,6 +62,8 @@ return their new state; they never write the one they were given.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any
 
@@ -57,7 +74,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..launch import sharding as SH
-from ..launch.mesh import current_mesh
+from ..launch.mesh import current_mesh, dp_axes
 
 Params = dict[str, Any]
 
@@ -88,15 +105,47 @@ def _split(n: int, full: int, what: str) -> bool:
     raise ValueError(f"{what}: {n} of the model's {full}, with a model axis of {m}")
 
 
+def _mm2_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D bf16 (or fp16) operands, its fp32 sum unrounded: a
+    bf16 GEMM writes its fp32 accumulator on the card (a split of the
+    contracting dim is then reduced in fp32 too); on the CPU the same
+    products in fp32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MmF32(torch.autograd.Function):
+    """``x @ w`` of bf16 (or fp16) operands with its fp32 sum unrounded
+    (``_mm2_f32``).  The backward runs the two GEMMs of ``x @ w``'s own
+    backward on the gradient, which arrives exactly representable in the
+    operands' type (it is the gradient of the rounded sum), each with its
+    fp32 sum rounded once: the head's input gradient contracts over the
+    whole vocabulary, where a bf16 split-K reduction would round each
+    split's partial."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm2_f32(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, g.shape[-1])
+        gx = (_mm2_f32(g, w.T).to(x.dtype).view(x.shape)
+              if ctx.needs_input_grad[0] else None)
+        gw = (_mm2_f32(x.reshape(-1, x.shape[-1]).T, g).to(w.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with its fp32 sum unrounded: a bf16 GEMM writes its fp32
-    accumulator on the card; on the CPU the same products in fp32."""
+    """``x @ w`` with its fp32 sum unrounded (``_MmF32``); fp32 operands
+    take ``x @ w``."""
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.view(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
+    return _MmF32.apply(x, w)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, full_in: int) -> torch.Tensor:
@@ -104,14 +153,21 @@ def _mm(x: torch.Tensor, w: torch.Tensor, full_in: int) -> torch.Tensor:
     (row-parallel) takes this rank's slice of ``x``'s last dim, unless
     ``x`` is that slice already; the partial products are summed over
     ``model`` in fp32 and rounded once to ``x``'s type, as the unsharded
-    product rounds its fp32 sum."""
+    product rounds its fp32 sum.  Under grad the slice's backward gathers
+    the ranks' slices and the sum's is the identity."""
     k = w.shape[-2]
     if not _split(k, full_in, "a weight's input dim"):
         return x @ w
-    _, r, group = _tp()
+    group = _tp()[2]
     if x.shape[-1] != k:
-        x = x[..., r * k:(r + 1) * k]
+        x = SH.model_slice(x, group, k)
     return SH.all_reduce_sum(_mm_f32(x, w), group).to(x.dtype)
+
+
+def _column(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where it meets weights whose output dim is cut over ``model``:
+    under grad its gradient is summed over ``model`` (Megatron's *f*)."""
+    return SH.column_entry(x, _tp()[2])
 
 
 def _bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -189,9 +245,14 @@ def attention(
     dh = cfg.head_dim
 
     src = x if memory is None else memory
-    q = _mm(x, p["wq"], x.shape[-1])
-    k = _mm(src, p["wk"], src.shape[-1])
-    v = _mm(src, p["wv"], src.shape[-1])
+    # a replicated input meets column-parallel weights through *f*, once
+    q_cut = _split(p["wq"].shape[-1], cfg.n_heads * dh, "wq's columns")
+    kv_cut = _split(p["wk"].shape[-1], cfg.n_kv_heads * dh, "wk's columns")
+    xq = _column(x) if q_cut else x
+    xkv = (xq if memory is None and q_cut else _column(src)) if kv_cut else src
+    q = _mm(xq, p["wq"], x.shape[-1])
+    k = _mm(xkv, p["wk"], src.shape[-1])
+    v = _mm(xkv, p["wv"], src.shape[-1])
     if "bq" in p:
         q, k, v = _bias(q, p["bq"]), _bias(k, p["bk"]), _bias(v, p["bv"])
     h, kv = q.shape[-1] // dh, k.shape[-1] // dh  # this rank's heads
@@ -200,9 +261,11 @@ def attention(
     v = v.view(b, -1, kv, dh)
     if _split(h, cfg.n_heads, "query heads") and not _split(kv, cfg.n_kv_heads, "KV heads"):
         # every KV head computed (contracting-dim rule): keep those of this
-        # rank's query heads' GQA groups
+        # rank's query heads' GQA groups.  Ranks keep different heads, so
+        # the whole K and V's gradients are summed over model (*f*) before
+        # the row-parallel product's backward reads them
         keep = torch.as_tensor(SH.attention_heads(cfg, current_mesh())[1], device=k.device)
-        k, v = k.index_select(2, keep), v.index_select(2, keep)
+        k, v = _column(k).index_select(2, keep), _column(v).index_select(2, keep)
         kv = keep.numel()
     if memory is None:
         q = rope(q, positions, cfg.rope_theta)
@@ -238,6 +301,9 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
 
 
 def dense_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU; under a model axis column- then row-parallel."""
+    if _split(p["wg"].shape[-1], cfg.d_ff, "the FFN's columns"):
+        x = _column(x)
     return _mm(F.silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"], cfg.d_ff)
 
 
@@ -265,14 +331,17 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
     return torch.softmax(top, dim=-1).to(x.dtype), experts
 
 
-def moe_dispatch(experts: torch.Tensor, n_experts: int, capacity: int):
+def moe_dispatch(experts: torch.Tensor, n_experts: int, capacity: int,
+                 base: torch.Tensor | None = None):
     """Sort-based dispatch of the flattened (token, choice) assignments.
 
     Returns ``(order, dest, keep)``: ``order`` sorts the assignments by expert,
     stable, so each expert's assignments stay in token order and capacity keeps
     the first ``capacity`` of them; ``dest`` is each sorted assignment's row of
     the ``(E * capacity)`` dispatch buffer, or ``E * capacity`` (an overflow
-    row) where ``keep`` is False.  No host synchronisation.
+    row) where ``keep`` is False.  ``base`` (E,): the place of these tokens'
+    first assignment in each expert's queue, where earlier tokens of the
+    same dispatch lie on other ranks.  No host synchronisation.
     """
     fe = experts.reshape(-1)
     order = torch.argsort(fe, stable=True)  # jnp.argsort is stable, torch's default is not
@@ -281,9 +350,40 @@ def moe_dispatch(experts: torch.Tensor, n_experts: int, capacity: int):
     counts.scatter_add_(0, fe, torch.ones_like(fe))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(fe.numel(), device=fe.device) - starts[se]
+    if base is not None:
+        pos = pos + base[se]
     keep = pos < capacity
     dest = torch.where(keep, se * capacity + pos, n_experts * capacity)
     return order, dest, keep
+
+
+_GLOBAL_BATCH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_global_batch",
+                                                               default=False)
+
+
+@contextlib.contextmanager
+def global_batch(on: bool = True):
+    """``with global_batch():`` the tokens of a call are this rank's rows of
+    a batch split over the current mesh's data-parallel axes in rank order
+    (``forward`` under a mesh): the MoE layers route the whole batch's
+    tokens, as the reference's pjit does, at ``moe_capacity`` of the whole
+    batch, each rank's tokens after those of the ranks before it."""
+    token = _GLOBAL_BATCH.set(on)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.reset(token)
+
+
+def _dp_batch():
+    """(ranks, this rank's place, group) of the data-parallel axes a batch
+    is split over (``global_batch``), else None."""
+    mesh = current_mesh()
+    if not _GLOBAL_BATCH.get() or mesh is None:
+        return None
+    axes = dp_axes(mesh)
+    n, i = SH.shard_index(mesh, axes)
+    return (n, i, mesh.get_group(axes)) if n > 1 else None
 
 
 def _training(*ts) -> bool:
@@ -318,30 +418,48 @@ def moe_route_dispatch(x: torch.Tensor, p: Params, cfg: ModelConfig,
     """Route the tokens x (T, D) and fill the dispatch buffer: ``(disp (E, C,
     D), route)``, ``route`` what ``moe_combine`` needs.  ``capacity``
     defaults to ``moe_capacity(cfg, T)``, the reference's; assignments over it
-    (capacity overflow) contribute 0.
+    (capacity overflow) contribute 0.  Under ``global_batch`` T is the whole
+    batch's tokens and each expert's queue starts with the other ranks'
+    earlier tokens (their counts gathered over the data-parallel axes); the
+    buffer keeps the whole queue's rows, this rank's filled.
 
     Serving (no grad): ``route`` is ``(dest, st, sg, keep)`` in expert order,
     the buffer filled by ``index_copy_``.  Under expert parallelism the
     buffer holds only this rank's experts, ``dest`` indexes it and ``keep``
     marks the kept assignments of those experts.  Training: ``route`` is
-    ``(slot, gw)`` in token order, each token's k rows of the buffer (``E *
-    C``: the overflow row) and gates with the dropped ones zeroed, so the
-    backward of the dispatch and the combine sums each token's k
-    contributions in fp32 in a fixed order (``_Dispatch``,
-    ``moe_combine``)."""
+    ``(slot, gw, group)`` in token order, each token's k rows of the buffer
+    (its last row + 1: the overflow row) and gates with the dropped ones
+    zeroed, so the backward of the dispatch and the combine sums each
+    token's k contributions in fp32 in a fixed order (``_Dispatch``,
+    ``moe_combine``); under expert parallelism the rows of this rank's
+    experts, the tokens and gates entering through *f* (each rank's
+    dispatch and combine see its experts only) and ``group`` the ``model``
+    group the combine sums over (else None)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    c = moe_capacity(cfg, t) if capacity is None else capacity
+    dp = _dp_batch()
+    c = moe_capacity(cfg, t * (dp[0] if dp else 1)) if capacity is None else capacity
     gates, experts = moe_route(x, p["router"], k)
-    order, dest, keep = moe_dispatch(experts, e, c)
+    if dp:  # this rank's tokens come after those of the DP ranks before it
+        counts = torch.bincount(experts.reshape(-1), minlength=e)
+        every = SH.all_gather_cat(counts[None], dp[2], dim=0)
+        order, dest, keep = moe_dispatch(experts, e, c, every[:dp[1]].sum(0))
+    else:
+        order, dest, keep = moe_dispatch(experts, e, c)
+    el = p["wg"].shape[0]  # this rank's experts: rows [lo, lo + el * c) of the full buffer
+    ep = _split(el, e, "experts")
+    _, r, group = _tp()
+    lo = r * el * c if ep else 0
     if _training(x, *(p[n] for n in ("router", "wg", "wu", "wd"))):
         inv = torch.empty_like(order)
         inv[order] = torch.arange(order.numel(), device=order.device)
         slot = dest[inv].view(t, k)
         gw = gates * keep[inv].view(t, k).to(gates.dtype)
-        return _Dispatch.apply(x, slot, e * c).view(e, c, d), (slot, gw)
-    el = p["wg"].shape[0]  # this rank's experts: rows [lo, lo + el * c) of the full buffer
-    lo = _tp()[1] * el * c if _split(el, e, "experts") else 0
+        if ep:
+            slot = torch.where((slot >= lo) & (slot < lo + el * c), slot - lo, el * c)
+            x, gw = _column(x), _column(gw)
+        return (_Dispatch.apply(x, slot, el * c).view(el, c, d),
+                (slot, gw, group if ep else None))
     keep = keep & (dest >= lo) & (dest < lo + el * c)
     dest = torch.where(keep, dest - lo, el * c)
     st = torch.div(order, k, rounding_mode="floor")  # token of each sorted assignment
@@ -350,20 +468,28 @@ def moe_route_dispatch(x: torch.Tensor, p: Params, cfg: ModelConfig,
     return disp[: el * c].view(el, c, d), (dest, st, gates.reshape(-1)[order], keep)
 
 
-def moe_experts(disp: torch.Tensor, p: Params) -> torch.Tensor:
-    """The experts' SwiGLU FFN on the dispatch buffer: three K6 products."""
+def moe_experts(disp: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The experts' SwiGLU FFN on the dispatch buffer: three K6 products.
+    Where the experts' F is cut over ``model`` (the TP fallback) the buffer
+    enters through *f* and the partial outputs are summed over ``model``."""
+    tp_f = _split(p["wg"].shape[-1], cfg.d_ff, "the experts' columns")
+    if tp_f:
+        disp = _column(disp)
     h = ops.grouped_matmul(disp, p["wg"])
     u = ops.grouped_matmul(disp, p["wu"])
-    return ops.grouped_matmul(F.silu(h) * u, p["wd"])  # (E, C, D)
+    y = ops.grouped_matmul(F.silu(h) * u, p["wd"])  # (E, C, D)
+    return SH.all_reduce_sum(y, _tp()[2]) if tp_f else y
 
 
 def moe_combine(y: torch.Tensor, route, t: int) -> torch.Tensor:
     """The experts' outputs y (E, C, D) back to the T tokens, gate-weighted."""
     e, c, d = y.shape
     y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
-    if len(route) == 2:  # training: each token's k rows, summed in fp32 in choice order
-        slot, gw = route
-        return (y_flat[slot] * gw[..., None]).float().sum(1).to(y.dtype)
+    if len(route) == 3:  # training: each token's k rows, summed in fp32 in choice order
+        slot, gw, group = route  # under EP this rank's experts' part, summed over model
+        out = (y_flat[slot] * gw[..., None]).float().sum(1)
+        return SH.all_reduce_sum(out, group).to(y.dtype) if group is not None else out.to(
+            y.dtype)
     dest, st, sg, keep = route
     contrib = y_flat[dest] * (sg * keep.to(sg.dtype))[:, None]
     return y.new_zeros((t, d)).index_add_(0, st, contrib)
@@ -377,17 +503,14 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
     reference's; assignments over it (capacity overflow) contribute 0.  The
     batched decode passes ``capacity=T``, which drops nothing, as the
     reference's per-slot decode (T = 1, capacity 8) never does.  On a shard
-    of the experts (serving), the sum over ``model`` follows the experts
-    (their F cut: the TP fallback) or the combine (expert parallelism).
+    of the experts, the sum over ``model`` follows the experts (their F
+    cut: the TP fallback) or the combine (expert parallelism).
     """
-    group = _tp()[2]
     disp, route = moe_route_dispatch(x, p, cfg, capacity)
-    y = moe_experts(disp, p)
-    if _split(p["wd"].shape[-2], cfg.d_ff, "the experts' wd rows"):
-        y = SH.all_reduce_sum(y, group)
-    out = moe_combine(y, route, x.shape[0])
-    return SH.all_reduce_sum(out, group) if _split(p["wg"].shape[0], cfg.n_experts,
-                                                   "experts") else out
+    out = moe_combine(moe_experts(disp, p, cfg), route, x.shape[0])
+    if len(route) == 4 and _split(p["wg"].shape[0], cfg.n_experts, "experts"):
+        return SH.all_reduce_sum(out, _tp()[2])  # serving under EP
+    return out
 
 
 # ---------------------------------------------------------------------------

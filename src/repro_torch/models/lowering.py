@@ -164,17 +164,17 @@ class DeploymentContext:
     # disabled instance by default, so engines can observe unconditionally.
     telemetry: object = None
     mesh: object = None
-    _specs: object = None
+    specs: object = None  # the spec of each leaf of ``params`` (under a mesh)
 
     def place(self, tree):
         """A full parameter-shaped tree (e.g. optimizer moments) cut with the
         specs ``params`` were placed with (in place, like
         ``sharding.shard_params``); the identity without a mesh."""
-        if self._specs is None:
+        if self.specs is None:
             return tree
         from ..launch.sharding import shard_params
 
-        return shard_params(tree, self._specs, self.mesh)
+        return shard_params(tree, self.specs, self.mesh)
 
     def jitted(self, name: str, build, *key_parts):
         """Whatever ``build()`` returns, from the shared content-addressed

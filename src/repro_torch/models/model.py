@@ -42,7 +42,8 @@ The reference decodes slots one by one under ``vmap`` (T = 1, capacity 8:
 nothing is ever dropped); ``decode_slots`` dispatches all N slots in one
 call with a capacity of N per expert, which drops nothing either.
 
-Under a mesh (``launch.mesh.set_mesh``, the serving engine's) the
+Under a mesh (``launch.mesh.set_mesh``, the serving engine's and the
+trainer's) the
 parameters are this rank's shards (``launch.sharding``).  The embedding is
 vocab-parallel where its rows are cut (rows outside the rank's range give
 0, summed over ``model``: exact) and feature-parallel where its columns are
@@ -52,7 +53,11 @@ is cut on the vocabulary (``lm_head``, or a tied vocab-parallel
 row-parallel; ``full_vocab`` gathers them and ``decode_slots_greedy``
 takes a distributed argmax.  Caches hold this rank's KV heads
 (``sharding.attention_heads``) and ``init_slot_states`` only this rank's
-slots (``sharding.slot_layout``).
+slots (``sharding.slot_layout``).  ``forward`` (the training path, under
+the trainer's mesh) embeds through the same ``_embed``, whose collectives
+are differentiable, takes this rank's rows of a batch split over the
+data-parallel axes, and refuses ``cfg.seq_parallel`` (ROADMAP queue 1,
+item 6, step 3b); remat's recompute re-enters the mesh (``_in_mesh``).
 
 State layout: ``{"len": int, "layers": ...}``; slot states have ``"len"`` as
 an int32 tensor of one length per slot and B = the slot count.
@@ -79,7 +84,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import expand_offsets
 from ..launch import sharding as SH
-from ..launch.mesh import current_mesh
+from ..launch.mesh import current_mesh, set_mesh
 from . import layers as L
 
 Params = dict[str, Any]
@@ -214,7 +219,7 @@ def _moe_combined(x, y, *route):
     return x + L.moe_combine(y, route, b * s).view(b, s, d)
 
 
-def _block_save_moe(x, blk: Params, cfg: ModelConfig, l: int, positions, memory):
+def _block_save_moe(x, blk: Params, cfg: ModelConfig, l: int, positions, memory, mesh=None):
     """``remat="block_save_moe"`` on an MoE block: three checkpoints split at
     the dispatch buffer and the experts' outputs, so the backward keeps those
     two tensors (the reference's ``save_only_these_names("moe_dispatch",
@@ -222,32 +227,37 @@ def _block_save_moe(x, blk: Params, cfg: ModelConfig, l: int, positions, memory)
     same values as ``"block"``; every tensor that crosses a split takes at
     most two gradient contributions, whose sum does not depend on their
     order, so the gradients are bit-identical to ``"block"``'s."""
-    x, disp, *route = checkpoint(_moe_dispatched, x, blk, cfg, l, positions, memory,
-                                 use_reentrant=False)
-    y = checkpoint(L.moe_experts, disp, blk["ffn"], use_reentrant=False)
-    return checkpoint(_moe_combined, x, y, *route, use_reentrant=False)
+    x, disp, *route = checkpoint(_in_mesh(_moe_dispatched, mesh), x, blk, cfg, l, positions,
+                                 memory, use_reentrant=False)
+    y = checkpoint(_in_mesh(L.moe_experts, mesh), disp, blk["ffn"], cfg, use_reentrant=False)
+    return checkpoint(_in_mesh(_moe_combined, mesh), x, y, *route, use_reentrant=False)
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """The logits: vocab-local where the head is cut on the vocabulary."""
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    L._split(head.shape[-1], cfg.vocab, "the head's vocabulary")  # a cut, or the whole
+    if L._split(head.shape[-1], cfg.vocab, "the head's vocabulary"):  # column-parallel
+        x = L._column(x)
     return L._mm(x, head, cfg.d_model)
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``tokens``, whole on every rank."""
+    """The embedding rows of ``tokens``, whole on every rank.  The gather
+    is indexing's (``F.embedding``), whose backward sums each row's
+    gradients in fp32 in a fixed order, where indexing's sums them in the
+    parameters' type with atomics (6.4e-2 relative L2 on MiniCPM-2B's bf16
+    embedding gradient against fp32, PERF.md)."""
     e = params["embed"]
     _, r, group = L._tp()
     if L._split(e.shape[1], cfg.d_model, "embed's features"):  # feature-parallel
-        return SH.all_gather_cat(e[tokens], group)
+        return SH.all_gather_cat(F.embedding(tokens, e), group)
     if not L._split(e.shape[0], cfg.vocab, "embed's rows"):
-        return e[tokens]
+        return F.embedding(tokens, e)
     lo = r * e.shape[0]  # vocab-parallel: rows outside [lo, lo + V/m) give 0
     local = tokens - lo
     mine = (local >= 0) & (local < e.shape[0])
-    x = e[local.clamp(0, e.shape[0] - 1)]
+    x = F.embedding(local.clamp(0, e.shape[0] - 1), e)
     return SH.all_reduce_sum(torch.where(mine[..., None], x, torch.zeros_like(x)), group)
 
 
@@ -261,15 +271,27 @@ def full_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """batch: tokens (B, S) [+ 'embeds' (B, Sf, D) for the vlm/audio
-    frontends] -> logits (B, S, V) of the text positions."""
+    frontends] -> logits (B, S, V) of the text positions.
+
+    Under a mesh (the trainer's): the parameters are this rank's shards,
+    the batch is this rank's rows of a batch split over the mesh's
+    data-parallel axes in rank order (the MoE layers route the whole
+    batch, ``layers.global_batch``), and the logits are vocab-local where
+    the head is cut on the vocabulary.  ``cfg.seq_parallel`` raises."""
     check_family(cfg)
+    if cfg.seq_parallel:
+        raise NotImplementedError(f"{cfg.name}: seq_parallel (Megatron sequence parallelism "
+                                  "between the blocks) is not ported yet (ROADMAP queue 1, "
+                                  "item 6, step 3b)")
+    mesh = current_mesh()
+    with L.global_batch(mesh is not None):
+        return _forward(cfg, params, batch, mesh)
+
+
+def _forward(cfg: ModelConfig, params: Params, batch: dict, mesh) -> torch.Tensor:
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    # the same gather as indexing; its backward sums each row's gradients in
-    # fp32 in a fixed order, where indexing's sums them in the parameters'
-    # type with atomics (6.4e-2 relative L2 on MiniCPM-2B's bf16 embedding
-    # gradient against fp32, PERF.md)
-    x = F.embedding(tokens, params["embed"])
+    x = _embed(cfg, params, tokens)
     n_front, memory = 0, None
     if cfg.frontend is not None and cfg.family == "vlm":
         emb = batch["embeds"].to(x.dtype)  # precomputed patch embeddings
@@ -283,12 +305,26 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) ->
         if not _remat(cfg, x, blk, memory):
             x, _ = _apply_block(x, blk, cfg, l, positions, memory=memory)
         elif cfg.remat == "block_save_moe" and cfg.layer_is_moe(l):
-            x = _block_save_moe(x, blk, cfg, l, positions, memory)
+            x = _block_save_moe(x, blk, cfg, l, positions, memory, mesh)
         else:
-            x, _ = checkpoint(_apply_block, x, blk, cfg, l, positions, memory=memory,
-                              use_reentrant=False)
+            x, _ = checkpoint(_in_mesh(_apply_block, mesh), x, blk, cfg, l, positions,
+                              memory=memory, use_reentrant=False)
     logits = _logits(cfg, params, x)
     return logits[:, n_front:] if n_front else logits
+
+
+def _in_mesh(fn, mesh):
+    """``fn`` run under ``mesh`` and ``forward``'s global batch: remat's
+    recompute runs in the backward, on autograd's thread for the card,
+    where the caller's ``set_mesh`` is not in effect.  ``fn`` itself
+    without a mesh."""
+    if mesh is None:
+        return fn
+
+    def run(*args, **kw):
+        with set_mesh(mesh), L.global_batch():
+            return fn(*args, **kw)
+    return run
 
 
 def _remat(cfg: ModelConfig, x, blk: Params, memory) -> bool:

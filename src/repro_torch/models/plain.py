@@ -26,6 +26,10 @@ optional arguments let it follow how the engine dispatched a sequence:
   (``None``: nothing dropped).  A served request is its prompt,
   ``(0, p_len, bucket)``, then one no-drop span per decoded token.  Default:
   one group of all S tokens, the reference's ``forward``.
+* ``moe_queued`` — per MoE layer, in layer order, the (E,) assignments
+  queued before this sequence in its first group's dispatch (the earlier
+  sequences of a batch dispatched together, the reference's ``forward`` on
+  a batch): each expert's queue for the group starts after them.
 * ``routing`` — the engine's experts per MoE layer, in layer order,
   ``(S, top_k)`` each.  Where
   they differ from this forward's own fp32 top-k, the engine's choice is taken
@@ -118,9 +122,10 @@ def _route(logits, chosen, k: int, stats):
     return torch.where(differ[:, None], chosen, own)
 
 
-def _moe(cfg: ModelConfig, y, m, gid, caps, chosen, stats, f):
+def _moe(cfg: ModelConfig, y, m, gid, caps, chosen, stats, f, queued=None):
     """fp32 MoE FFN of y (S, D), per expert over the tokens routed to it and
-    kept by their group's capacity (first come, in position order)."""
+    kept by their group's capacity (first come, in position order, after
+    ``queued`` (E,) assignments in group 0)."""
     e, k = cfg.n_experts, cfg.top_k
     logits = y @ f(m["router"])
     experts = _route(logits, chosen, k, stats)
@@ -135,6 +140,8 @@ def _moe(cfg: ModelConfig, y, m, gid, caps, chosen, stats, f):
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(key)
     rank[order] = torch.arange(key.numel(), device=y.device) - starts[key[order]]
+    if queued is not None:
+        rank = rank + torch.where(key < e, queued.to(y.device)[key % e], 0)
     keep = rank < caps.to(y.device)[key // e]
     out = torch.zeros_like(y)
     flat = experts.reshape(-1)
@@ -268,13 +275,14 @@ _MIXERS = {"mamba": _mamba, "mlstm": _mlstm, "slstm": _slstm}
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None,
-            moe_groups=None, routing=None, stats: dict | None = None) -> torch.Tensor:
+            moe_groups=None, routing=None, moe_queued=None,
+            stats: dict | None = None) -> torch.Tensor:
     """tokens (S,) -> fp32 logits (S, V) of one sequence.
 
     ``embeds`` (Sf, D): for ``vlm`` patch embeddings put before the text (their
     logits are dropped; None: text only, as the engine serves it), for
-    ``audio`` the frame embeddings the encoder reads.  ``moe_groups`` and
-    ``routing`` as in the module docstring.  A ``stats`` dict receives
+    ``audio`` the frame embeddings the encoder reads.  ``moe_groups``,
+    ``moe_queued`` and ``routing`` as in the module docstring.  A ``stats`` dict receives
     ``near_ties`` (positions that took the engine's choice), ``max_tie_gap``
     and, per MoE layer, ``router_logits`` and ``experts``.
     """
@@ -308,7 +316,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, embeds=None
         y = ref.rmsnorm(x, f(blk["norm2"]), eps=cfg.norm_eps)
         if cfg.layer_is_moe(l):
             x = x + _moe(cfg, y, blk["ffn"], gid, caps,
-                         None if routing is None else routing[n_moe], stats, f)
+                         None if routing is None else routing[n_moe], stats, f,
+                         None if moe_queued is None else moe_queued[n_moe])
             n_moe += 1
         else:
             x = x + _ffn(y, blk["ffn"], f)

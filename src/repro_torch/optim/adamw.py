@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 Tree = Any
+_CHUNK = 1 << 24  # elements a leaf's update takes at a time
 
 
 @dataclass(frozen=True)
@@ -103,21 +104,44 @@ def adamw_init(params: Tree) -> dict:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in fp32 (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+def global_norm(grads: Tree, mesh=None, specs: Tree | None = None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in fp32 (a 0-d tensor).
+
+    Under a mesh, ``grads`` are this rank's shards cut by ``specs``: the
+    norm is the whole model's, and the same on every rank.  A leaf adds its
+    squares on the ranks at coordinate 0 along every axis of more than one
+    rank that it is not cut over (a replicated leaf: along every axis), and
+    one sum over the mesh gives each rank the total.  A rank that adds
+    nothing adds its squares times 0, so a non-finite gradient on any rank
+    makes the norm non-finite on every rank."""
+    leaves = tree_leaves(grads)
+    squares = [torch.sum(torch.square(g.float())) for g in leaves]
+    axes = [a for a in mesh.axis_names if mesh.shape[a] > 1] if mesh is not None else []
+    if not axes:
+        return torch.sqrt(sum(squares))
+    from ..launch import sharding as SH
+
+    total = torch.zeros((), dtype=torch.float32, device=squares[0].device)
+    for sq, spec in zip(squares, SH.leaf_specs(grads, specs)):
+        cut = SH.cut_axes(spec, mesh)
+        counted = all(mesh.local_rank(a) == 0 for a in axes if a not in cut)
+        total = total + (sq if counted else sq * 0.0)
+    for a in axes:
+        total = SH.all_reduce_sum(total, mesh.get_group(a))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
-                 state: dict) -> tuple[Tree, dict, dict]:
+                 state: dict, mesh=None, specs: Tree | None = None) -> tuple[Tree, dict, dict]:
     """One AdamW step: (params, state, metrics), the parameters and moments
     updated in place.  NaN/inf gradients skip the step (fault tolerance: a
     poisoned micro-batch must not corrupt the weights).  ``metrics``:
     ``grad_norm`` (before clipping) and ``skipped`` as 0-d tensors on the
-    device, ``lr`` as a float."""
+    device, ``lr`` as a float.  Under a mesh the norm that clips and skips
+    is the whole model's (``global_norm``), the same on every rank."""
     step = int(state["step"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     finite = torch.isfinite(gnorm)
     scale = torch.where(finite & (gnorm > cfg.grad_clip),
                         cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -130,6 +154,13 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
     zero = torch.zeros((), device=gnorm.device)
 
     def upd(p, g, m, v):
+        if p.numel() > _CHUNK and all(t.is_contiguous() for t in (p, g, m, v)):
+            # elementwise, so a chunk at a time gives the same bits with a
+            # chunk's temporaries live instead of the leaf's (a Mixtral
+            # expert tensor's are 0.9 GB each)
+            for a in range(0, p.numel(), _CHUNK):
+                upd(*(t.view(-1)[a:a + _CHUNK] for t in (p, g, m, v)))
+            return
         g = torch.where(finite, g.float() * scale, zero)
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)

@@ -143,12 +143,12 @@ def _unflatten(template: Tree, flat: dict[str, np.ndarray]) -> Tree:
     for key, val in flat.items():
         if key.endswith(BF16_TAG):
             key = key[: -len(BF16_TAG)]
-            decoded[key] = torch.from_numpy(np.array(val).view(np.int16)).view(
+            decoded[key] = torch.from_numpy(np.asarray(val).view(np.int16)).view(
                 torch.bfloat16)
         elif "::" in key:
             raise ValueError(f"checkpoint: {key} has a type this package does not read")
         else:
-            decoded[key] = torch.from_numpy(np.array(val))  # a copy; keeps 0-d arrays 0-d
+            decoded[key] = torch.from_numpy(np.asarray(val))  # np.load's own array, 0-d kept
 
     def build(t, path, i=None, n=None):
         """``t``'s structure; a stackable list's items take row ``i`` of

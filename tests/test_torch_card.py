@@ -47,7 +47,11 @@ holds the sharded executor on the CPU.  Two ranks on the card serve the
 reduced Danube and Mixtral over mesh (data 1, model 2) with the tokens of
 the unsharded engine, and a row-parallel partial of bf16 operands leaves
 its GEMM in fp32 (``-k sharded_engine``); ``test_torch_sharded_serve.py``
-holds the sharded engine against the reference on the CPU.
+holds the sharded engine against the reference on the CPU.  The
+row-parallel product's backward runs on the card, and two ranks on the card
+take the reduced bf16 model's gradient with block remat (its recompute on
+autograd's thread) as the unsharded model does (``-k sharded_train``);
+``test_torch_sharded_train*.py`` hold sharded training on the CPU.
 """
 import numpy as np
 import pytest
@@ -1099,3 +1103,88 @@ def test_sharded_engine_partial_keeps_fp32_on_card(card, m, k, n):
     assert got.dtype == want.dtype == torch.float32 and got.shape == (2, m, n)
     assert max_rel(got.cpu(), want) < 1e-5
     assert not torch.equal(got.cpu(), got.cpu().bfloat16().float())  # not rounded to bf16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1920, 3840), (300, 5120, 3840), (3, 72, 40)])
+def test_sharded_train_row_parallel_backward_on_card(card, m, k, n):
+    """The row-parallel product's backward (``layers._MmF32``) runs on the
+    card: the two bf16 GEMMs of ``x @ w``'s own backward on the gradient of
+    the fp32 sum, equal to autograd's of the bf16 ``x @ w``."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn((2, m, k), generator=g).bfloat16().to(card).requires_grad_()
+    w = (torch.randn((k, n), generator=g) / k ** 0.5).bfloat16().to(card).requires_grad_()
+    dy = torch.randn((2, m, n), generator=g).bfloat16().to(card)
+    y = L._mm_f32(x, w)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    got = torch.autograd.grad(y.to(torch.bfloat16), [x, w], dy)
+    want = torch.autograd.grad(x @ w, [x, w], dy)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        assert max_rel(a.float().cpu(), b.float().cpu()) < 1e-2
+
+
+def _train_on_card_world(arch: str):
+    """One rank of a world on the card: the reduced model in bf16 with block
+    remat over mesh (data 1, model 2), the gradient of one batch gathered;
+    the remat's recompute runs on autograd's thread for the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.train import train_loop as T
+
+    mesh = make_mesh((1, 2), ("data", "model"))
+    cfg = replace(get_config(arch).reduced(), dtype="bfloat16", remat="block")
+    full = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    specs = SH.param_specs(full, mesh, cfg=cfg)
+    local = SH.shard_params(full, specs, mesh)
+    for t in tree_leaves(local):
+        t.requires_grad_(True)
+    raw = LMDataPipeline(DataConfig(seq_len=64, global_batch=2, vocab=cfg.vocab,
+                                    seed=3)).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    before = p_rms.LAUNCHES["rmsnorm_bwd"], p_flash.LAUNCHES["flash_attention_bwd"]
+    loss, grads = T.make_grads(cfg, 1, mesh)(local, batch)
+    bwd = p_rms.LAUNCHES["rmsnorm_bwd"] - before[0], \
+        p_flash.LAUNCHES["flash_attention_bwd"] - before[1]
+    full = SH.gather_to_root(tree_unflatten(local, list(grads)), specs, mesh)
+    return float(loss), None if full is None else [g.float() for g in tree_leaves(full)], bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mixtral-8x7b"])
+def test_sharded_train_on_card_equals_unsharded(card, arch):
+    """Two ranks on the one card (collectives on gloo) take the gradient of
+    the reduced bf16 model with block remat over mesh (data 1, model 2):
+    K4-bwd and K5-bwd launched, the loss and every gathered gradient within
+    bf16 rounding of the unsharded model's on the card (relative L2 2e-2)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import train_loop as T
+
+    loss, grads, bwd = run_world(2, _train_on_card_world, (arch,))
+    assert all(n > 0 for n in bwd), bwd
+    cfg = replace(get_config(arch).reduced(), dtype="bfloat16", remat="block")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    raw = LMDataPipeline(DataConfig(seq_len=64, global_batch=2, vocab=cfg.vocab,
+                                    seed=3)).batch_at(0)
+    want_loss, want = T.make_grads(cfg, 1)(params, {k: torch.from_numpy(v).cuda()
+                                                    for k, v in raw.items()})
+    assert loss == pytest.approx(float(want_loss), rel=1e-2)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        w = w.float().cpu()
+        assert float((g - w).norm()) <= 2e-2 * float(w.norm()) + 1e-6, i

@@ -365,14 +365,17 @@ def test_tuner_under_a_mesh_of_ranks_is_refused():
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
+    """What sharded training still refuses: the recurrent and audio
+    families under a mesh of more than one rank (step 3a-iii)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_loop import Trainer, TrainerConfig
 
-    pcfg = p_config("minicpm-2b").reduced()
-    with pytest.raises(NotImplementedError, match="3a-ii"):
-        Trainer(pcfg, AdamWConfig(), DataConfig(seq_len=8, global_batch=2, vocab=pcfg.vocab),
-                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=WORLD2, device="cpu")
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m", "seamless-m4t-large-v2"):
+        pcfg = p_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="3a-iii"):
+            Trainer(pcfg, AdamWConfig(), DataConfig(seq_len=8, global_batch=2, vocab=pcfg.vocab),
+                    TrainerConfig(ckpt_dir=str(tmp_path)), mesh=WORLD2, device="cpu")
 
 
 NARROW = {  # leaf -> (path, dim cut in half)

@@ -210,12 +210,50 @@ def test_three_train_steps_match_reference(params, accum):
                 _assert_close_scaled(got.numpy(), np.asarray(want), GRAD_TOL, name)
 
 
-def test_pod_axis_and_mesh_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError):
+def test_pod_axis_and_mesh_are_refused(tmp_path, params):
+    """Still refused: a ``grad_codec`` over a ``pod_axis`` (step 3b),
+    ``seq_parallel`` (3b) and the recurrent and audio families under a mesh
+    of more than one rank (3a-iii).  A mesh of one trains bit for bit as no
+    mesh does."""
+    from repro_torch.launch.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="3b"):
         make_train_step(PCFG, AdamWConfig(), grad_codec="int8", pod_axis="pod")
-    with pytest.raises(NotImplementedError):
-        Trainer(PCFG, AdamWConfig(), _dcfg(), TrainerConfig(ckpt_dir=str(tmp_path)),
-                mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="3b"):
+        PT.loss_fn(replace(PCFG, seq_parallel=True), _port_params(params[1]),
+                   _tbatch(LMDataPipeline(_dcfg()).batch_at(0)))
+
+    class TwoRanks:
+        shape, axis_names = {"data": 1, "model": 2}, ("data", "model")
+
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="3a-iii"):
+            Trainer(p_config(arch).reduced(), AdamWConfig(), _dcfg(),
+                    TrainerConfig(ckpt_dir=str(tmp_path)), mesh=TwoRanks(), device="cpu")
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20, grad_clip=0.05)
+    runs = []
+    for mesh in (None, make_mesh((1, 1), ("data", "model"), device="cpu")):
+        tr = Trainer(PCFG, ocfg, _dcfg(), TrainerConfig(ckpt_dir=str(tmp_path / str(mesh)),
+                                                        accum_steps=2, ckpt_every=100),
+                     mesh=mesh, device="cpu")
+        tr.run(2)
+        runs.append(tr)
+    assert [h["loss"] for h in runs[0].history] == [h["loss"] for h in runs[1].history]
+    for a, b in zip(tree_leaves(runs[0].params) + tree_leaves(runs[0].opt_state),
+                    tree_leaves(runs[1].params) + tree_leaves(runs[1].opt_state)):
+        assert torch.equal(a, b)
+
+
+def test_trainer_refuses_a_device_other_than_the_meshs(tmp_path):
+    """Under a mesh the mesh decides the device: naming another raises."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="not the mesh's"):
+        Trainer(PCFG, AdamWConfig(), _dcfg(), TrainerConfig(ckpt_dir=str(tmp_path)), mesh=mesh,
+                device="cuda")
+    tr = Trainer(PCFG, AdamWConfig(), _dcfg(), TrainerConfig(ckpt_dir=str(tmp_path)), mesh=mesh)
+    assert tr.device == mesh.device
 
 
 def test_trainer_asks_for_the_card_by_default(tmp_path, monkeypatch):

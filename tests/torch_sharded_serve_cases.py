@@ -154,8 +154,9 @@ def run_case(label: str, tree) -> dict:
     out: dict = {"local_bytes": sum(t.numel() * t.element_size() for t in _leaves(local))}
     if cfg.is_moe:
         out["expert_shape"] = tuple(local["layers"][0]["ffn"]["wg"].shape)
-    back = SH.gather_params(local, specs, mesh)
-    out["roundtrip"] = all(torch.equal(a, b) for a, b in zip(_leaves(back), _leaves(full)))
+    back = SH.gather_to_root(local, specs, mesh)  # the full tree on rank 0
+    out["roundtrip"] = back is None or all(torch.equal(a, b)
+                                           for a, b in zip(_leaves(back), _leaves(full)))
     n_local, base = SH.slot_layout(SLOTS, mesh)
     with set_mesh(mesh):
         state = PM.init_decode_state(cfg, 2, MAX_LEN, ring=False, device="cpu")
